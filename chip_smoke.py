@@ -1,0 +1,611 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (qserve_tpu_torch) on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+1. Builds every CUDA kernel from qserve_tpu_torch/kernels/csrc (one nvcc
+   per source, all at once); the Triton kernel compiles at its first launch.
+2. Kernel phases: each kernel at the main path's Llama-3-8B shapes (decode
+   B = 64, prefill T = 2048, context ~1024 over 256-token pages, plus a
+   small-H, D = 64, f32-scale case for the paged attention and the KV
+   append) against its plain PyTorch version on the same inputs, with the
+   tolerance stated in the phase; times the kernel, the plain version and,
+   where one exists, one PyTorch library call computing the same function
+   (CUDA events, median of 20).
+3. Reference phase: a small model served by the kernels on the card and by
+   the plain versions on the CPU; logits must agree.
+4. Engine phase: EngineArgs -> LLMEngine at Llama-3-8B's full geometry
+   (random W4A8KV4 per-channel weights from a seed), 8 requests of 128-1024
+   prompt tokens and 32 output tokens (6 greedy, 2 at temperature 0.8),
+   stepped to completion; every kernel must have launched in that run.
+5. Refusal phase: top-k/top-p sampling on CUDA raises (its kernel is not
+   ported yet) instead of running plain PyTorch.
+
+Prints the card's name and power limit, one JSON line of per-kernel results
+and, last, {"ok": true, "device": {...}}. Exits non-zero, without those
+lines, when there is no CUDA device, when the port cannot be imported, or
+when any phase fails.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# Llama-3-8B (meta-llama/Meta-Llama-3-8B config.json)
+LLAMA3_8B = dict(
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    rope_theta=500000.0, rms_norm_eps=1e-5,
+)
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and int8 ops/s
+HBM_BPS = 3.35e12
+BF16_OPS = 989e12
+INT8_OPS = 1979e12
+
+ROUTES = {
+    "elementwise": ("triton", "qserve_tpu_torch/kernels/elementwise_triton.py",
+                    "qserve_tpu/kernels/pallas_elementwise.py:159"),
+    "w4a8_gemm_per_chn": ("cuda", "qserve_tpu_torch/kernels/csrc/w4a8_gemm.cu",
+                          "qserve_tpu/kernels/pallas_gemm.py:200"),
+    "flash_prefill_attention": ("cuda", "qserve_tpu_torch/kernels/csrc/flash_attention.cu",
+                                "qserve_tpu/kernels/pallas_flash_attention.py:124"),
+    "paged_decode_attention": ("cuda", "qserve_tpu_torch/kernels/csrc/paged_attention.cu",
+                               "qserve_tpu/kernels/pallas_paged_attention.py:360"),
+    "kv_append": ("cuda", "qserve_tpu_torch/kernels/csrc/kv_append.cu",
+                  "qserve_tpu/kernels/pallas_kv_append.py:261"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Median device time of one call (CUDA events around each call)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def bound(nbytes, ops, peak):
+    """Least time (ms) for the work: bytes over HBM rate vs ops over peak."""
+    tb, to = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+class Results:
+    def __init__(self):
+        self.rows = {}
+
+    def add(self, name, shape, err, ms, plain_ms, nbytes, ops, peak, library_ms):
+        b, by = bound(nbytes, ops, peak)
+        lib = "null" if library_ms is None else f"{library_ms:.4g}"
+        log(f"  {name} [{shape}]: max_abs_err {err:.3g}  kernel {ms:.4g} ms  "
+            f"plain {plain_ms:.4g} ms  library {lib} ms  bound {b:.3g} ms ({by})")
+        row = dict(shape=shape, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                   bound_ms=b, bound_by=by, library_ms=library_ms)
+        self.rows.setdefault(name, row)  # the first shape is the headline one
+        return row
+
+
+def library_or_none(fn):
+    try:
+        return cuda_ms(fn)
+    except (RuntimeError, NotImplementedError) as e:  # refused these inputs
+        log(f"    library call unavailable: {e}")
+        return None
+
+
+# --------------------------------------------------------------------------
+# kernel phases
+# --------------------------------------------------------------------------
+
+
+def phase_elementwise(res, dev):
+    import torch
+
+    from qserve_tpu_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    E, I = LLAMA3_8B["hidden_size"], LLAMA3_8B["intermediate_size"]
+
+    def check_codes(got, want, exact):
+        d = (got[0].int() - want[0].int()).abs()
+        frac = (d > 0).float().mean().item()
+        assert d.max().item() <= (0 if exact else 1), f"codes off by {d.max().item()}"
+        assert frac <= 1e-3, f"{frac:.2e} of codes differ"
+        rel = ((got[1] - want[1]).abs() / want[1]).max().item()
+        assert rel <= 1e-6, f"scale rel err {rel}"
+        return d.max().item()
+
+    for T in (2048, 64):
+        h = torch.randn(T, E, generator=g, device=dev).to(torch.bfloat16)
+        d = torch.randn(T, E, generator=g, device=dev).to(torch.bfloat16)
+        w = 1 + 0.1 * torch.randn(E, generator=g, device=dev)
+        got = ops.add_rmsnorm_quant(h, d, w, 1e-5, True)
+        want = ops.add_rmsnorm_quant_plain(h, d, w, 1e-5, True)
+        assert torch.equal(got[0], want[0]), "h + delta differs"
+        err = check_codes(got[1:], want[1:], exact=False)
+        nbytes = 3 * T * E * 2 + E * 4 + T * E + 8 * T
+        res.add("elementwise", f"add_rmsnorm_quant T={T} E={E}", err,
+                cuda_ms(lambda: ops.add_rmsnorm_quant(h, d, w, 1e-5, True)),
+                cuda_ms(lambda: ops.add_rmsnorm_quant_plain(h, d, w, 1e-5, True)),
+                nbytes, 0, BF16_OPS, None)
+
+        x = torch.randn(T, E, generator=g, device=dev).to(torch.bfloat16)
+        err = check_codes(ops.quant_per_token(x, True),
+                          ops.quant_per_token_plain(x, True), exact=True)
+        res.add("elementwise", f"quant T={T} K={E}", err,
+                cuda_ms(lambda: ops.quant_per_token(x, True)),
+                cuda_ms(lambda: ops.quant_per_token_plain(x, True)),
+                T * E * 2 + T * E + 8 * T, 0, BF16_OPS, None)
+
+        # rmsnorm_quant: the same kernel body, off the main path (no timing)
+        check_codes(ops.rmsnorm_quant(x, w, 1e-5, True),
+                    ops.rmsnorm_quant_plain(x, w, 1e-5, True), exact=False)
+
+        gu = (2 * torch.randn(T, 2 * I, generator=g, device=dev)).to(torch.bfloat16)
+        err = check_codes(ops.silu_mul_quant(gu, True),
+                          ops.silu_mul_quant_plain(gu, True), exact=False)
+        res.add("elementwise", f"silu_mul_quant T={T} I={I}", err,
+                cuda_ms(lambda: ops.silu_mul_quant(gu, True)),
+                cuda_ms(lambda: ops.silu_mul_quant_plain(gu, True)),
+                T * 2 * I * 2 + T * I + 8 * T, 0, BF16_OPS, None)
+
+
+def phase_gemm(res, dev):
+    import torch
+
+    from qserve_tpu_torch.kernels import ops
+    from qserve_tpu_torch.quant import packing
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    E, I = LLAMA3_8B["hidden_size"], LLAMA3_8B["intermediate_size"]
+    shapes = dict(gate_up=(E, 2 * I), qkv=(E, 4096 + 2 * 1024), o=(E, E), down=(I, E))
+    for M in (64, 2048):
+        for name, (K, N) in shapes.items():
+            qw = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev,
+                               dtype=torch.int8)
+            s1 = torch.rand(N, generator=g, device=dev) * 1e-3
+            sz = torch.rand(N, generator=g, device=dev) * 8e-3
+            a = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                              dtype=torch.int8)
+            asc = torch.rand(M, 1, generator=g, device=dev) * 0.05
+            asum = torch.randn(M, 1, generator=g, device=dev)
+            args = (a, asc, asum, qw, s1, sz)
+            got = ops.w4a8_gemm_per_chn(*args)
+            want = ops.w4a8_gemm_per_chn_plain(*args)
+            # integer products, the same f32 epilogue in the same order: exact
+            err = (got.float() - want.float()).abs().max().item()
+            assert torch.equal(got, want), f"gemm {name} M={M}: max err {err}"
+            wu = packing.unpack_w4(qw)
+            nbytes = M * K + K // 2 * N + 8 * N + 8 * M + 2 * M * N
+            res.add("w4a8_gemm_per_chn", f"{name} M={M} K={K} N={N}", err,
+                    cuda_ms(lambda: ops.w4a8_gemm_per_chn(*args)),
+                    cuda_ms(lambda: ops.w4a8_gemm_per_chn_plain(*args)),
+                    nbytes, 2 * M * K * N, INT8_OPS,
+                    library_or_none(lambda: torch._int_mm(a, wu)))
+
+
+def _segments(T, lens):
+    seg = np.zeros(T, np.int32)
+    t = 0
+    for i, n in enumerate(lens):
+        seg[t : t + n] = i + 1
+        t += n
+    return seg
+
+
+def phase_flash(res, dev):
+    import torch
+    import torch.nn.functional as F
+
+    from qserve_tpu_torch.kernels import attention
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    # 8B: 1948 tokens + 100 padding, as the engine packs; then a ragged T
+    # with a sliding window and D = 64 (paths off the Llama-3 main path)
+    cases = [(2048, 32, 8, 128, [700, 512, 436, 300], None),
+             (300, 8, 2, 64, [150, 100], 37)]
+    for T, Hq, Hkv, D, lens, window in cases:
+        seg = torch.from_numpy(_segments(T, lens)).to(dev)
+        q = torch.randn(T, Hq, D, generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn(T, Hkv, D, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(T, Hkv, D, generator=g, device=dev).to(torch.bfloat16)
+        got = attention.prefill_attention(q, k, v, seg, sliding_window=window)
+        want = attention.prefill_attention_plain(q, k, v, seg, sliding_window=window)
+        valid = seg > 0
+        # padding rows attend nothing: the kernel writes 0, the plain version
+        # an average of V; neither is read. Valid rows: bf16 output, exp and
+        # sums in other orders -> atol 2e-2.
+        assert torch.isfinite(got.float()).all()
+        err = (got[valid].float() - want[valid].float()).abs().max().item()
+        assert err <= 2e-2, f"flash prefill (T={T}) err {err}"
+        w = window or T
+        pairs = sum(sum(min(i + 1, w) for i in range(n)) for n in lens)
+        si = torch.arange(T, device=dev)
+        mask = ((seg[:, None] == seg[None, :]) & valid[:, None]
+                & (si[None, :] <= si[:, None]) & (si[None, :] > si[:, None] - w))
+        qs, ks, vs = (x.transpose(0, 1)[None] for x in (q, k, v))
+        res.add("flash_prefill_attention",
+                f"T={T} Hq={Hq} Hkv={Hkv} D={D} segs={lens} window={window}", err,
+                cuda_ms(lambda: attention.prefill_attention(
+                    q, k, v, seg, sliding_window=window)),
+                cuda_ms(lambda: attention.prefill_attention_plain(
+                    q, k, v, seg, sliding_window=window)),
+                2 * T * D * 2 * (Hq + Hkv) + 4 * T, 4 * pairs * Hq * D, BF16_OPS,
+                library_or_none(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, enable_gqa=True)))
+
+
+def _paged_case(dev, g, B, H, rep, D, ps, ctx):
+    """One layer of a filled KV4 cache plus the decode inputs."""
+    import torch
+
+    from qserve_tpu_torch.kernels import kv_cache as kvc
+
+    pages_per = [-(-int(c) // ps) for c in ctx]
+    P = sum(pages_per) + 1
+    cache = kvc.create_kv_cache(1, P, H, ps, D, 4, device=dev)
+    cache.data.copy_(torch.randint(-128, 128, cache.data.shape, generator=g,
+                                   device=dev, dtype=torch.int8))
+    sc = torch.rand(cache.scales.shape, generator=g, device=dev) * 0.2
+    sc[:, :, :, H:, :] -= 1.5
+    cache.scales.copy_(sc)
+    perm = torch.randperm(P, generator=g, device=dev).to(torch.int32)
+    maxP = max(pages_per)
+    bt = torch.zeros(B, maxP, dtype=torch.int32, device=dev)
+    o = 0
+    for i, n in enumerate(pages_per):
+        bt[i, :n] = perm[o : o + n]
+        o += n
+    cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    q = torch.randn(B, H * rep, D, generator=g, device=dev).to(torch.bfloat16)
+    kc = torch.randn(B, H, D, generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn(B, H, D, generator=g, device=dev).to(torch.bfloat16)
+    return cache, bt, cl, q, kc, vc
+
+
+def phase_paged(res, dev):
+    import torch
+    import torch.nn.functional as F
+
+    from qserve_tpu_torch.kernels import attention, kv_cache as kvc
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    rng = np.random.default_rng(4)
+    small_ctx = np.array([0, 1, 2, 17, 40, 100, 255, 300])
+    cases = [
+        ("8B", 64, 8, 4, 128, 256, rng.integers(512, 1537, 64), None),
+        ("f32 scales", 8, 2, 2, 64, 16, small_ctx, None),
+        ("f32 scales, window 50", 8, 2, 2, 64, 16, small_ctx, 50),
+    ]
+    for tag, B, H, rep, D, ps, ctx, window in cases:
+        ctx = ctx.tolist()
+        cache, bt, cl, q, kc, vc = _paged_case(dev, g, B, H, rep, D, ps, ctx)
+        args = (q, cache, bt, cl, 0, kc, vc, 4)
+        got = attention.paged_decode_attention(*args, sliding_window=window)
+        want = attention.paged_decode_attention_plain(*args, sliding_window=window)
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2, f"paged decode ({tag}) err {err}"
+        # history keys read: positions < ctx-1 within the last window-1
+        hist = sum(min(max(c - 1, 0), window - 1 if window else c) for c in ctx)
+        sb = cache.scales.element_size()
+        nbytes = (2 * hist * H * (D // 2 + 2 * sb) + 2 * B * H * rep * D * 2
+                  + 2 * B * H * D * 2 + bt.numel() * 4 + B * 4)
+        ops_ = 4 * (hist + B) * H * rep * D
+        # yardstick: SDPA over the already dequantized history
+        k, v = kvc.gather_dequant_layer(cache.layer(0), bt, 4)
+        k = torch.cat([k, kc.float()[:, None]], 1).to(torch.bfloat16).transpose(1, 2)
+        v = torch.cat([v, vc.float()[:, None]], 1).to(torch.bfloat16).transpose(1, 2)
+        S = k.shape[2]
+        pos = torch.arange(S, device=dev)[None]
+        h_len = (cl.long() - 1).clamp(min=0)[:, None]
+        mask = (pos < h_len) & (pos > h_len - (window or S))
+        mask = mask | (pos == S - 1)
+        mask = mask[:, None, None, :]
+        qs = q[:, :, None, :]
+        res.add("paged_decode_attention",
+                f"{tag}: B={B} Hq={H * rep} H={H} D={D} ps={ps} "
+                f"ctx~{int(np.mean(ctx))} scales={cache.scales.dtype}",
+                err,
+                cuda_ms(lambda: attention.paged_decode_attention(
+                    *args, sliding_window=window)),
+                cuda_ms(lambda: attention.paged_decode_attention_plain(
+                    *args, sliding_window=window)),
+                nbytes, ops_, BF16_OPS,
+                library_or_none(lambda: F.scaled_dot_product_attention(
+                    qs, k, v, attn_mask=mask, enable_gqa=True)))
+
+
+def phase_kv_append(res, dev):
+    import torch
+
+    from qserve_tpu_torch.kernels import kv_append, kv_cache as kvc
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    L = LLAMA3_8B["num_hidden_layers"]
+    cases = []
+    # prefill: 4 packed prompts from slot 0 of fresh pages, 100 padding rows
+    lens, ps = [700, 512, 436, 300], 256
+    pages, slots, p0 = [], [], 0
+    for n in lens:
+        pages += [p0 + i // ps for i in range(n)]
+        slots += [i % ps for i in range(n)]
+        p0 += -(-n // ps)
+    pages += [-1] * (2048 - len(pages))
+    slots += [0] * (2048 - len(slots))
+    cases.append(("8B prefill", 8, 128, ps, p0 + 2, pages, slots))
+    # decode: 64 tokens, each into its own sequence's last page
+    cases.append(("8B decode", 8, 128, ps, 70, list(range(3, 67)),
+                  np.random.default_rng(5).integers(0, ps, 64).tolist()))
+    cases.append(("f32 scales", 2, 64, 16, 12, [0, 5, -1, 7, 11, 2],
+                  [0, 15, 3, 9, 1, 4]))
+    for tag, H, D, ps, P, pages, slots in cases:
+        T = len(pages)
+        cache = kvc.create_kv_cache(L, P, H, ps, D, 4, device=dev)
+        cache.data.copy_(torch.randint(-128, 128, cache.data.shape, generator=g,
+                                       device=dev, dtype=torch.int8))
+        k = torch.randn(L, T, H, D, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(L, T, H, D, generator=g, device=dev).to(torch.bfloat16)
+        rows, sc = kvc._quantize_rows(k, v, 4, True)
+        sc = sc.to(cache.scales.dtype).contiguous()
+        pg = torch.tensor(pages, dtype=torch.int32, device=dev)
+        sl = torch.tensor(slots, dtype=torch.int32, device=dev)
+        ref = kvc.KVCache(cache.data.clone(), cache.scales.clone())
+        kv_append.kv_append(cache.data, cache.scales, rows, sc, pg, sl)
+        kvc.append_rows_plain(ref, rows, sc, pg, sl)
+        assert torch.equal(cache.data, ref.data), f"kv_append ({tag}) data bytes differ"
+        assert torch.equal(cache.scales.view(torch.uint8), ref.scales.view(torch.uint8)), \
+            f"kv_append ({tag}) scale bytes differ"
+        valid = int((pg >= 0).sum())
+        nbytes = 2 * valid * L * (rows.shape[-1] * 2 + sc.shape[-1] * 2 * sc.element_size()) + 8 * T
+        res.add("kv_append", f"{tag}: L={L} T={T} H={H} D={D} ps={ps} "
+                f"scales={cache.scales.dtype}", 0.0,
+                cuda_ms(lambda: kv_append.kv_append(cache.data, cache.scales, rows,
+                                                    sc, pg, sl)),
+                cuda_ms(lambda: kvc.append_rows_plain(ref, rows, sc, pg, sl)),
+                nbytes, 0, BF16_OPS, None)
+
+
+# --------------------------------------------------------------------------
+# reference, engine and refusal phases
+# --------------------------------------------------------------------------
+
+
+def phase_reference(dev):
+    """A small model on the card (kernels) and on the CPU (plain versions):
+    same params, same packed inputs, logits within 5% of their range."""
+    import torch
+
+    from qserve_tpu_torch.config import QuantSpec
+    from qserve_tpu_torch.kernels import kv_cache as kvc
+    from qserve_tpu_torch.models import llama
+
+    args = llama.LlamaArgs(vocab_size=512, hidden_size=256, intermediate_size=512,
+                           num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                           quant=QuantSpec.from_precision("w4a8kv4"))
+
+    def to(x, d):  # a tensor, or a (nested) NamedTuple of tensors
+        if isinstance(x, torch.Tensor):
+            return x.to(d)
+        return type(x)(*(to(y, d) for y in x))
+
+    cpu = llama.random_quantized_params(0, args, device="cpu")
+    gpu = to(cpu, dev)
+    ps, lens, T = 16, [37, 20], 64
+    rng = np.random.default_rng(7)
+    tok = np.zeros(T, np.int32)
+    tok[:57] = rng.integers(1, 512, 57)
+    pos = np.concatenate([np.arange(37), np.arange(20), np.zeros(7)]).astype(np.int32)
+    seg = _segments(T, lens)
+    pages = np.array([i // ps for i in range(37)] + [3 + i // ps for i in range(20)]
+                     + [-1] * 7, np.int32)
+    slots = np.concatenate([np.arange(37) % ps, np.arange(20) % ps, np.zeros(7)]).astype(np.int32)
+    last = np.array([36, 56], np.int32)
+    caches = {d: kvc.create_kv_cache(2, 8, 2, ps, 64, 4, device=d) for d in ("cpu", dev)}
+    params = {"cpu": cpu, dev: gpu}
+    worst = 0.0
+
+    def compare(outs):
+        nonlocal worst
+        a, b = outs["cpu"], outs[dev].cpu()
+        assert torch.isfinite(b).all()
+        rel = (a - b).abs().max().item() / a.abs().max().item()
+        worst = max(worst, rel)
+        assert rel <= 0.05, f"card vs CPU logits differ by {rel:.3g} of their range"
+        return a
+
+    inp = (tok, pos, seg, pages, slots, last)
+    outs = {d: llama.prefill(params[d], caches[d],
+                             *(torch.from_numpy(x).to(d) for x in inp), args)[0]
+            for d in params}
+    logits = compare(outs)
+    bt = np.array([[0, 1, 2], [3, 4, 0]], np.int32)
+    for step in range(4):
+        tok_d = logits.argmax(-1).to(torch.int32).numpy()
+        ctx = np.array([38 + step, 21 + step], np.int32)
+        outs = {d: llama.decode(params[d], caches[d],
+                                *(torch.from_numpy(x).to(d) for x in (tok_d, bt, ctx)),
+                                args)[0]
+                for d in params}
+        logits = compare(outs)
+    log(f"  reference: card vs CPU logits, worst max|diff| / max|logit| = {worst:.3g}")
+
+
+def phase_engine(dev):
+    import torch
+
+    from qserve_tpu_torch.engine.arg_utils import EngineArgs
+    from qserve_tpu_torch.kernels import _build
+    from qserve_tpu_torch.sampling_params import SamplingParams
+
+    t0 = time.perf_counter()
+    engine = EngineArgs(
+        hf_config=LLAMA3_8B, random_weights=True, seed=0, device=dev,
+        precision="w4a8kv4", group_size=-1, block_size=256,
+        max_num_batched_tokens=2048, max_num_seqs=64, max_model_len=2048,
+        num_device_pages=256,  # chunked prefill is off in the port's EngineArgs
+    ).build_engine()
+    torch.cuda.synchronize()
+    log(f"  engine built in {time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 1025, 8)
+    for i, n in enumerate(lens):
+        engine.add_request(
+            f"r{i}",
+            prompt_token_ids=rng.integers(0, LLAMA3_8B["vocab_size"], int(n)).tolist(),
+            sampling_params=SamplingParams(
+                max_tokens=32, ignore_eos=True,
+                temperature=0.8 if i >= 6 else 0.0,
+            ),
+        )
+    log(f"  8 requests, prompt lengths {lens.tolist()}, 32 output tokens each")
+
+    _build.reset_launch_counts()
+    prefill_ms, decode_ms, per_step = [], [], {}
+    finished, tokens_out = 0, 0
+    t_run = time.perf_counter()
+    while engine.has_unfinished_requests():
+        before = dict(_build.LAUNCHES)
+        t = time.perf_counter()
+        outs = engine.step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        delta = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()}
+        kind = "prefill" if delta.get("flash_prefill_attention") else "decode"
+        (prefill_ms if kind == "prefill" else decode_ms).append(dt)
+        per_step.setdefault(kind, delta)
+        for out in outs:
+            if out.finished:
+                finished += 1
+                toks = out.outputs[0]["token_ids"]
+                assert len(toks) == 32, f"{out.request_id}: {len(toks)} tokens"
+                assert all(0 <= x < LLAMA3_8B["vocab_size"] for x in toks)
+                tokens_out += len(toks)
+    run_s = time.perf_counter() - t_run
+    launches = dict(_build.LAUNCHES)
+    assert finished == 8, f"{finished} of 8 requests finished"
+    log(f"  requests finished: {finished}, tokens out: {tokens_out}, "
+        f"run {run_s:.2f} s, output {tokens_out / run_s:.1f} tok/s")
+    log(f"  prefill steps: {len(prefill_ms)}, ms {[round(x, 1) for x in prefill_ms]}")
+    log(f"  decode steps: {len(decode_ms)}, median {statistics.median(decode_ms):.2f} ms, "
+        f"min {min(decode_ms):.2f} ms, max {max(decode_ms):.2f} ms")
+    log(f"  launches per prefill step: {per_step.get('prefill')}")
+    log(f"  launches per decode step: {per_step.get('decode')}")
+    log(f"  launches in the run: {launches}")
+    missing = [k for k in ROUTES if launches.get(k, 0) == 0]
+    assert not missing, f"kernels never launched on the main path: {missing}"
+    return engine, launches, dict(
+        finished=finished, tokens_out=tokens_out, run_s=run_s,
+        output_tok_s=tokens_out / run_s, prefill_ms=prefill_ms,
+        decode_ms_median=statistics.median(decode_ms),
+        launches_per_prefill_step=per_step.get("prefill"),
+        launches_per_decode_step=per_step.get("decode"),
+    )
+
+
+def phase_refusal(dev):
+    import torch
+
+    from qserve_tpu_torch.layers import sampler
+
+    logits = torch.randn(2, 1000, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    try:
+        sampler.sample(logits, torch.tensor([0.8, 0.0]), torch.tensor([0.9, 1.0]),
+                       torch.tensor([0, 0], dtype=torch.int32), gen)
+    except NotImplementedError as e:
+        assert "ROADMAP" in str(e)
+        log(f"  top-p on CUDA refused: {e}")
+    else:
+        raise AssertionError("filtered sampling ran on CUDA without its kernel")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        from qserve_tpu_torch.kernels import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not here ({e}); run from the repo root",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = "cuda"
+    t_all = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {smi}")
+
+    t = time.perf_counter()
+    _build.build_all()
+    log(f"build: {len(_build.build_all())} CUDA sources in {time.perf_counter() - t:.1f} s")
+
+    res = Results()
+    for name, fn in (("elementwise", phase_elementwise), ("gemm", phase_gemm),
+                     ("flash prefill", phase_flash), ("paged decode", phase_paged),
+                     ("kv append", phase_kv_append)):
+        t = time.perf_counter()
+        log(f"phase {name}")
+        fn(res, dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"  phase {name} ok in {time.perf_counter() - t:.1f} s")
+    log("phase reference")
+    phase_reference(dev)
+    log("phase engine")
+    _, launches, summary = phase_engine(dev)
+    log("phase refusal")
+    phase_refusal(dev)
+    log(f"engine summary: {json.dumps(summary)}")
+    log(f"total {time.perf_counter() - t_all:.1f} s")
+
+    kernels = []
+    for name, (route, source, replaces) in ROUTES.items():
+        r = res.rows[name]
+        kernels.append(dict(
+            name=name, route=route, source=source, replaces=replaces,
+            launches=launches.get(name, 0), max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
+        ))
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,59 @@
+"""Move the JAX package's parameters into the port.
+
+`params_from_numpy` takes the JAX package's LlamaParams after the caller has
+mapped every leaf to numpy (e.g. `jax.tree.map(np.asarray, params)`), and
+returns the port's LlamaParams. It reads fields by name only, so it imports
+neither JAX nor the JAX package; bf16 leaves (numpy's ml_dtypes bfloat16)
+cross as their raw 16-bit patterns.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from qserve_tpu_torch.layers import linear as lin
+from qserve_tpu_torch.models import llama
+from qserve_tpu_torch.utils.utils import resolve_device
+
+
+def tensor_from_numpy(x, device) -> torch.Tensor:
+    """numpy array (bf16 included) -> torch tensor on device, same bits."""
+    x = np.array(x, order="C")  # a writable copy: torch keeps no read-only views
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(x).to(device)
+
+
+def params_from_numpy(tree, args: llama.LlamaArgs, device="cuda") -> llama.LlamaParams:
+    """JAX LlamaParams with numpy leaves and stacked [L, ...] layers (the
+    JAX package's scan_layers=True form) -> the port's LlamaParams."""
+    device = resolve_device(device)
+
+    def t(x):
+        return tensor_from_numpy(x, device)
+
+    def linear(p):
+        if not hasattr(p, "s1_szero"):
+            raise NotImplementedError(
+                f"{type(p).__name__} weights are not ported yet (ROADMAP "
+                "queue 1, remaining precisions)"
+            )
+        return lin.W4ChnLinear(t(p.qweight), t(p.s1_scale), t(p.s1_szero))
+
+    layers = tree.layers
+    if not hasattr(layers, "input_ln"):  # a tuple of per-layer params
+        raise ValueError("stacked layers expected (scan_layers=True)")
+    return llama.LlamaParams(
+        embed=t(tree.embed),
+        layers=llama.LlamaLayerParams(
+            input_ln=t(layers.input_ln),
+            qkv=linear(layers.qkv),
+            o=linear(layers.o),
+            post_ln=t(layers.post_ln),
+            gate_up=linear(layers.gate_up),
+            down=linear(layers.down),
+        ),
+        final_ln=t(tree.final_ln),
+        lm_head=llama.make_lm_head(t(tree.lm_head), args.quant),
+    )

@@ -1,0 +1,172 @@
+"""EngineArgs: the CLI flag surface -> config objects -> engine
+(qserve_tpu/engine/arg_utils.py).
+
+This slice builds a dense Llama at W4A8KV4 per-channel with random weights
+(`random_weights=True`, the geometry from a config dict or a model dir's
+config.json) on one device, with chunked prefill off. Real checkpoints, VLM
+and TP/DP raise NotImplementedError naming their ROADMAP items.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+from typing import Optional
+
+from qserve_tpu_torch.config import CacheConfig, QuantSpec, SchedulerConfig
+from qserve_tpu_torch.logger import init_logger
+
+logger = init_logger(__name__)
+
+
+@dataclasses.dataclass
+class EngineArgs:
+    model: str = ""
+    # Hugging Face config.json contents; with random_weights it replaces
+    # reading `model`/config.json
+    hf_config: Optional[dict] = None
+    seed: int = 0
+    device: str = "cuda"
+    # quantization
+    precision: str = "w4a8kv4"
+    group_size: int = -1
+    kv_zero_point: bool = True
+    quant_lm_head: bool = False
+    # kv cache
+    block_size: int = 256
+    num_device_pages: Optional[int] = None
+    num_cpu_pages: int = 0
+    gpu_memory_utilization: float = 0.5
+    # scheduler
+    max_num_batched_tokens: int = 2048
+    max_num_seqs: int = 64
+    max_model_len: int = 2048
+    # parallel
+    tensor_parallel_size: int = 1
+    data_parallel_size: int = 1
+    # engine
+    random_weights: bool = False
+    disable_log_stats: bool = True
+    run_vlm: bool = False
+
+    @staticmethod
+    def add_cli_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+        g = parser.add_argument
+        g("--model", type=str, default="", help="local HF model dir (config.json)")
+        g("--seed", type=int, default=0)
+        g("--device", type=str, default="cuda")
+        g("--precision", type=str, default="w4a8kv4")
+        g("--group-size", type=int, default=-1)
+        g("--no-kv-zero-point", dest="kv_zero_point", action="store_false")
+        g("--quant-lm-head", action="store_true")
+        g("--block-size", type=int, default=256)
+        g("--num-device-pages", type=int, default=None)
+        g("--num-cpu-pages", type=int, default=0)
+        g("--gpu-memory-utilization", type=float, default=0.5)
+        g("--max-num-batched-tokens", type=int, default=2048)
+        g("--max-num-seqs", type=int, default=64)
+        g("--max-model-len", type=int, default=2048)
+        g("--tensor-parallel-size", "-tp", type=int, default=1)
+        g("--data-parallel-size", "-dp", type=int, default=1)
+        g("--random-weights", action="store_true")
+        g("--run-vlm", action="store_true")
+        return parser
+
+    @classmethod
+    def from_cli_args(cls, args: argparse.Namespace) -> "EngineArgs":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in vars(args).items() if k in fields})
+
+    # ------------------------------------------------------------------
+    def quant_spec(self) -> QuantSpec:
+        return QuantSpec.from_precision(
+            self.precision, self.group_size, self.kv_zero_point,
+            lm_head_bits=8 if self.quant_lm_head else 16,
+        )
+
+    def create_engine_configs(self):
+        quant = self.quant_spec()
+        cache_config = CacheConfig(
+            block_size=self.block_size,
+            gpu_memory_utilization=self.gpu_memory_utilization,
+            num_device_pages=self.num_device_pages,
+            num_cpu_pages=self.num_cpu_pages,
+            quant=quant,
+        )
+        scheduler_config = SchedulerConfig(
+            max_num_batched_tokens=self.max_num_batched_tokens,
+            max_num_seqs=self.max_num_seqs,
+            max_model_len=self.max_model_len,
+            # chunk steps need the prefix-prefill kernel, not ported yet
+            enable_chunked_prefill=False,
+        )
+        return cache_config, scheduler_config
+
+    def _refuse_unported(self) -> None:
+        if self.run_vlm:
+            raise NotImplementedError("VLM is not ported yet (ROADMAP queue 1, VLM)")
+        if self.tensor_parallel_size > 1 or self.data_parallel_size > 1:
+            raise NotImplementedError(
+                "tensor/data parallelism is not ported yet (ROADMAP queue 1, TP)"
+            )
+        if not self.random_weights:
+            raise NotImplementedError(
+                "checkpoint loading is not ported yet (ROADMAP queue 1, the "
+                "checkpoint loader); use random_weights=True"
+            )
+
+    def model_config_dict(self) -> dict:
+        if self.hf_config is not None:
+            return self.hf_config
+        with open(os.path.join(self.model, "config.json")) as f:
+            return json.load(f)
+
+    # ------------------------------------------------------------------
+    def build_engine(self):
+        """Construct the engine (random init included)."""
+        from qserve_tpu_torch.engine.llm_engine import LLMEngine
+        from qserve_tpu_torch.models import llama
+        from qserve_tpu_torch.worker.worker import Worker
+
+        self._refuse_unported()
+        cache_config, scheduler_config = self.create_engine_configs()
+        args = llama.LlamaArgs.from_config_dict(
+            self.model_config_dict(), self.quant_spec()
+        )
+        if args.sliding_window is not None:
+            cache_config.sliding_window = args.sliding_window
+        # params before the cache: auto-sizing reads what the weights left free
+        params = llama.random_quantized_params(self.seed, args, self.device)
+        if cache_config.num_device_pages is None:
+            cache_config.num_device_pages = auto_num_pages(
+                args, cache_config, self.gpu_memory_utilization, self.device
+            )
+            logger.info("Auto-sized KV cache: %d pages", cache_config.num_device_pages)
+        worker = Worker.create(
+            args, cache_config, scheduler_config, params=params,
+            seed=self.seed, device=self.device,
+        )
+        return LLMEngine(
+            worker, scheduler_config, cache_config,
+            log_stats=not self.disable_log_stats,
+        )
+
+
+def auto_num_pages(model_args, cache_config: CacheConfig, mem_fraction: float,
+                   device) -> int:
+    """Size the page pool from free device memory."""
+    import torch
+
+    from qserve_tpu_torch.worker.cache_engine import CacheEngine
+
+    page_bytes = CacheEngine.page_bytes(
+        model_args.num_layers, model_args.num_kv_heads, model_args.head_dim,
+        cache_config,
+    )
+    if torch.device(device).type == "cuda":
+        free, _ = torch.cuda.mem_get_info()
+    else:
+        free = 8 << 30
+    return max(16, int(free * mem_fraction) // page_bytes)

@@ -1,0 +1,152 @@
+"""Public compute ops of the port (qserve_tpu/kernels/ops.py).
+
+Each op dispatches on the device of its input alone: a CUDA tensor launches
+the op's hand-written kernel, a CPU tensor takes the plain PyTorch version
+defined next to it. There is no switch and no fallback: a kernel that cannot
+take its input raises. The plain versions are the oracles the kernels are
+held against on the card.
+
+rmsnorm (the final norm), silu_mul and matmul (the bf16 lm_head) were XLA in
+the JAX package, not Pallas; they are plain PyTorch on every device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from qserve_tpu_torch.quant import packing, qoq
+
+QuantOut = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
+
+
+def _rms(xf: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return xf * torch.rsqrt(var + eps) * weight.to(torch.float32)
+
+
+# --- per-token INT8 quantization ---------------------------------------
+
+
+def quant_per_token_plain(x: torch.Tensor, with_sum: bool = False) -> QuantOut:
+    return qoq.quantize_activation_per_token(x, with_sum)
+
+
+def quant_per_token(x: torch.Tensor, with_sum: bool = False) -> QuantOut:
+    """fp [T, K] -> (int8 [T, K], scale f32 [T, 1], act-sum f32 [T, 1] | None)."""
+    if x.is_cuda:
+        from qserve_tpu_torch.kernels import elementwise as ew
+
+        _, q, s, asum = ew.launch(ew.MODE_QUANT, x)
+        return q, s, (asum if with_sum else None)
+    return quant_per_token_plain(x, with_sum)
+
+
+# --- RMSNorm (+ residual add) fused with INT8 quantization -------------
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return _rms(x.to(torch.float32), weight, eps).to(x.dtype)
+
+
+def rmsnorm_quant_plain(
+    x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6, with_sum: bool = False
+) -> QuantOut:
+    return qoq.quantize_activation_per_token(_rms(x.to(torch.float32), weight, eps), with_sum)
+
+
+def rmsnorm_quant(
+    x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6, with_sum: bool = False
+) -> QuantOut:
+    if x.is_cuda:
+        from qserve_tpu_torch.kernels import elementwise as ew
+
+        _, q, s, asum = ew.launch(ew.MODE_RMSNORM, x, weight=weight, eps=eps)
+        return q, s, (asum if with_sum else None)
+    return rmsnorm_quant_plain(x, weight, eps, with_sum)
+
+
+def add_rmsnorm_quant_plain(
+    h: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
+    eps: float = 1e-6, with_sum: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    h_new = (h.to(torch.float32) + delta.to(torch.float32)).to(h.dtype)
+    q, s, asum = rmsnorm_quant_plain(h_new, weight, eps, with_sum)
+    return h_new, q, s, asum
+
+
+def add_rmsnorm_quant(
+    h: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
+    eps: float = 1e-6, with_sum: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Residual add + RMSNorm of the ROUNDED sum + per-token INT8 quant.
+    Returns (h_new = h + delta in h.dtype, q, scale, asum | None)."""
+    if h.is_cuda:
+        from qserve_tpu_torch.kernels import elementwise as ew
+
+        h_new, q, s, asum = ew.launch(
+            ew.MODE_ADD_RMSNORM, h, delta=delta, weight=weight, eps=eps
+        )
+        return h_new, q, s, (asum if with_sum else None)
+    return add_rmsnorm_quant_plain(h, delta, weight, eps, with_sum)
+
+
+# --- SwiGLU fused with INT8 quantization -------------------------------
+
+
+def silu_mul(gate_up: torch.Tensor) -> torch.Tensor:
+    g, u = gate_up.to(torch.float32).chunk(2, dim=-1)
+    return (F.silu(g) * u).to(gate_up.dtype)
+
+
+def silu_mul_quant_plain(gate_up: torch.Tensor, with_sum: bool = False) -> QuantOut:
+    g, u = gate_up.to(torch.float32).chunk(2, dim=-1)
+    return qoq.quantize_activation_per_token(F.silu(g) * u, with_sum)
+
+
+def silu_mul_quant(gate_up: torch.Tensor, with_sum: bool = False) -> QuantOut:
+    """[T, 2I] (gate ++ up) -> silu(gate) * up, quantized per token."""
+    if gate_up.is_cuda:
+        from qserve_tpu_torch.kernels import elementwise as ew
+
+        _, q, s, asum = ew.launch(ew.MODE_SILU_MUL, gate_up)
+        return q, s, (asum if with_sum else None)
+    return silu_mul_quant_plain(gate_up, with_sum)
+
+
+# --- W4A8 per-channel GEMM ----------------------------------------------
+
+
+def w4a8_gemm_per_chn_plain(
+    a_i8: torch.Tensor, a_scale: torch.Tensor, a_sum: torch.Tensor,
+    qweight_packed: torch.Tensor, s1_scale: torch.Tensor, s1_szero: torch.Tensor,
+) -> torch.Tensor:
+    p = qoq.PerChannelW4(packing.unpack_w4(qweight_packed), s1_scale, s1_szero)
+    return qoq.w4a8_gemm_per_channel_ref(a_i8, a_scale, a_sum, p)
+
+
+def w4a8_gemm_per_chn(
+    a_i8: torch.Tensor, a_scale: torch.Tensor, a_sum: torch.Tensor,
+    qweight_packed: torch.Tensor, s1_scale: torch.Tensor, s1_szero: torch.Tensor,
+) -> torch.Tensor:
+    """int8 [M, K] x packed UINT4 [K/2, N] -> bf16 [M, N]. Stacked weights
+    are passed as their layer view (`qweight[li]`)."""
+    if a_i8.is_cuda:
+        from qserve_tpu_torch.kernels.gemm import w4a8_gemm_per_chn as kernel
+
+        return kernel(a_i8, a_scale, a_sum, qweight_packed, s1_scale, s1_szero)
+    return w4a8_gemm_per_chn_plain(
+        a_i8, a_scale, a_sum, qweight_packed, s1_scale, s1_szero
+    )
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """bf16 [M, K] x bf16 [K, N] with fp32 accumulation and fp32 result,
+    cast to out_dtype (the lm_head; XLA in the JAX package, a library
+    product here)."""
+    out_dtype = out_dtype or x.dtype
+    if x.is_cuda:
+        return torch.mm(x, w, out_dtype=torch.float32).to(out_dtype)
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(out_dtype)

@@ -1,0 +1,373 @@
+"""Dense Llama-family model over W4A8 layers and a paged KV4 cache
+(qserve_tpu/models/llama.py, dense path).
+
+  * packed varlen prefill (segment-id masked causal attention) writes the
+    quantized KV pages and computes logits on each prompt's last token only;
+  * single-token decode attends the paged history plus the current token's
+    exact K/V, then appends every layer's new K/V in one batched write;
+  * stacked [L, ...] weights stay stacked: a Python loop over layers takes
+    views (`qweight[li]`), which copy nothing;
+  * RMSNorm->INT8, SwiGLU->INT8 and attention-out->INT8 handoffs keep the
+    int8 activation contract, and each layer's residual add rides inside the
+    next norm (`add_rmsnorm_quant`).
+
+bf16 rounding happens where the JAX package does it: the residual h, the
+qkv/o/down GEMM outputs and the K/V handed to the cache are bf16; logits are
+f32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from qserve_tpu_torch.config import QuantSpec
+from qserve_tpu_torch.kernels import attention, kv_cache as kvc, ops
+from qserve_tpu_torch.layers import linear as lin
+from qserve_tpu_torch.layers import rope
+from qserve_tpu_torch.utils.utils import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaArgs:
+    """Static model hyperparameters."""
+
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-6
+    sliding_window: Optional[int] = None
+    quant: QuantSpec = QuantSpec(4, 8, 4, True, -1)
+    logit_dtype: Any = torch.float32
+    num_experts: int = 0
+
+    @property
+    def q_size(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_size(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def qkv_out(self) -> int:
+        return self.q_size + 2 * self.kv_size
+
+    @staticmethod
+    def from_config_dict(cfg: dict, quant: QuantSpec) -> "LlamaArgs":
+        """From a Hugging Face config.json dict (models/loader.py's
+        args_from_config_dict)."""
+        head_dim = cfg.get("head_dim") or cfg["hidden_size"] // cfg["num_attention_heads"]
+        return LlamaArgs(
+            vocab_size=cfg["vocab_size"],
+            hidden_size=cfg["hidden_size"],
+            intermediate_size=cfg["intermediate_size"],
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=cfg["num_attention_heads"],
+            num_kv_heads=cfg.get("num_key_value_heads", cfg["num_attention_heads"]),
+            head_dim=head_dim,
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            rms_eps=cfg.get("rms_norm_eps", 1e-6),
+            sliding_window=cfg.get("sliding_window"),
+            quant=quant,
+            num_experts=cfg.get("num_local_experts", 0),
+        )
+
+
+class LlamaLayerParams(NamedTuple):
+    """Stacked over layers: every field has a leading [L] dim."""
+
+    input_ln: torch.Tensor  # f32 [L, E]
+    qkv: lin.W4ChnLinear  # [L, E/2, (Hq+2Hkv)*D]
+    o: lin.W4ChnLinear  # [L, Hq*D/2, E]
+    post_ln: torch.Tensor  # f32 [L, E]
+    gate_up: lin.W4ChnLinear  # [L, E/2, 2*I]
+    down: lin.W4ChnLinear  # [L, I/2, E]
+
+
+class LlamaParams(NamedTuple):
+    embed: torch.Tensor  # bf16 [V, E]
+    layers: LlamaLayerParams
+    final_ln: torch.Tensor  # f32 [E]
+    lm_head: torch.Tensor  # bf16 [E, V]
+
+
+# ---------------------------------------------------------------------------
+# Parameter construction
+# ---------------------------------------------------------------------------
+
+
+def make_lm_head(w: torch.Tensor, qspec: QuantSpec) -> torch.Tensor:
+    """bf16 lm_head. The W8 lm_head needs the W8A8 GEMM kernel, which is not
+    ported yet."""
+    if getattr(qspec, "lm_head_bits", 16) == 8:
+        raise NotImplementedError(
+            "the W8 lm_head needs the W8A8 GEMM kernel (ROADMAP queue 2, "
+            "item 13), not ported yet"
+        )
+    return w.to(torch.bfloat16)
+
+
+def lm_head_matmul(h: torch.Tensor, lmh: torch.Tensor, out_dtype) -> torch.Tensor:
+    return ops.matmul(h, lmh, out_dtype)
+
+
+def _check_dense_w4a8(args: LlamaArgs) -> None:
+    assert args.num_experts == 0, (
+        "MoE args need the Mixtral builder (this one makes DENSE layers)"
+    )
+    q = args.quant
+    if (q.weight_bits, q.act_bits, q.group_size) != (4, 8, -1):
+        raise NotImplementedError(
+            f"{q.precision} group {q.group_size} is not ported yet (ROADMAP "
+            "queue 1, remaining precisions); the port serves W4A8 per-channel"
+        )
+
+
+def _empty_linear(L, K, N, device) -> lin.W4ChnLinear:
+    return lin.W4ChnLinear(
+        torch.empty((L, K // 2, N), dtype=torch.int8, device=device),
+        torch.empty((L, N), dtype=torch.float32, device=device),
+        torch.empty((L, N), dtype=torch.float32, device=device),
+    )
+
+
+def _stacked_layers(args: LlamaArgs, device, weight_of) -> LlamaLayerParams:
+    """Quantize layer by layer into preallocated stacked tensors, so the
+    float model never exists whole. weight_of(li, name, shape) -> [K, N]."""
+    E, I, L = args.hidden_size, args.intermediate_size, args.num_layers
+    shapes = dict(
+        qkv=(E, args.qkv_out), o=(args.q_size, E), gate_up=(E, 2 * I), down=(I, E)
+    )
+    lins = {n: _empty_linear(L, *s, device) for n, s in shapes.items()}
+    for li in range(L):
+        for name, shape in shapes.items():
+            p = lin.quantize_linear_from_float(
+                weight_of(li, name, shape), args.quant.weight_bits,
+                args.quant.group_size,
+            )
+            for dst, src in zip(lins[name], p):
+                dst[li].copy_(src)
+    return LlamaLayerParams(
+        input_ln=torch.ones((L, E), dtype=torch.float32, device=device),
+        post_ln=torch.ones((L, E), dtype=torch.float32, device=device),
+        **lins,
+    )
+
+
+def random_quantized_params(
+    seed: int, args: LlamaArgs, device="cuda", scale: float = 0.02
+) -> LlamaParams:
+    """Random weights from a seeded torch.Generator, quantized layer by layer
+    on the device."""
+    _check_dense_w4a8(args)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def weight_of(li, name, shape):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    layers = _stacked_layers(args, device, weight_of)
+    E, V = args.hidden_size, args.vocab_size
+    embed = torch.randn(
+        (V, E), generator=gen, device=device, dtype=torch.bfloat16
+    ) * scale
+    lm_head = make_lm_head(
+        torch.randn((E, V), generator=gen, device=device, dtype=torch.bfloat16)
+        * scale,
+        args.quant,
+    )
+    return LlamaParams(
+        embed=embed, layers=layers,
+        final_ln=torch.ones((E,), dtype=torch.float32, device=device),
+        lm_head=lm_head,
+    )
+
+
+def quantize_params(float_params: dict, args: LlamaArgs, device="cuda") -> LlamaParams:
+    """Quantize float weights (dict of [K, N] arrays per layer, the JAX
+    package's random_float_params layout) into the serving format."""
+    _check_dense_w4a8(args)
+    device = resolve_device(device)
+
+    def t(x, dtype=torch.float32):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.array(x))  # a writable copy
+        return x.to(device=device, dtype=dtype)
+
+    fl = float_params["layers"]
+    layers = _stacked_layers(args, device, lambda li, name, _: t(fl[li][name]))
+    layers = layers._replace(
+        input_ln=torch.stack([t(x["input_ln"]) for x in fl]),
+        post_ln=torch.stack([t(x["post_ln"]) for x in fl]),
+    )
+    return LlamaParams(
+        embed=t(float_params["embed"], torch.bfloat16),
+        layers=layers,
+        final_ln=t(float_params["final_ln"]),
+        lm_head=make_lm_head(t(float_params["lm_head"]), args.quant),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Layer forward
+# ---------------------------------------------------------------------------
+
+
+def _layer_forward(
+    layers: LlamaLayerParams,
+    li: int,
+    h: torch.Tensor,  # [T, E] bf16 residual stream EXCLUDING delta
+    delta: torch.Tensor,  # [T, E] previous sub-block's un-added output
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    args: LlamaArgs,
+    attend,  # fn(q [T,Hq,D], k, v, li) -> [T,Hq,D]
+) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One decoder layer. Returns (h, delta_out, (k, v)); the KV-cache
+    append is the caller's, batched across layers."""
+    T = h.shape[0]
+    eps = args.rms_eps
+    qkv_p, o_p = layers.qkv.layer(li), layers.o.layer(li)
+    gu_p, down_p = layers.gate_up.layer(li), layers.down.layer(li)
+
+    h, q8, s8, a8 = ops.add_rmsnorm_quant(
+        h, delta, layers.input_ln[li], eps, lin.needs_act_sum(qkv_p)
+    )
+    qkv = lin.apply_linear(qkv_p, lin.QuantAct(q8, s8, a8))
+    q, k, v = qkv.split([args.q_size, args.kv_size, args.kv_size], dim=-1)
+    q = rope.apply_rope(q.reshape(T, args.num_heads, args.head_dim), cos, sin)
+    k = rope.apply_rope(k.reshape(T, args.num_kv_heads, args.head_dim), cos, sin)
+    v = v.reshape(T, args.num_kv_heads, args.head_dim)
+
+    attn = attend(q, k, v, li).reshape(T, args.q_size)
+    o = lin.apply_linear(
+        o_p, lin.QuantAct(*ops.quant_per_token(attn, lin.needs_act_sum(o_p)))
+    )
+
+    h, g8, gsc, gsum = ops.add_rmsnorm_quant(
+        h, o, layers.post_ln[li], eps, lin.needs_act_sum(gu_p)
+    )
+    gu = lin.apply_linear(gu_p, lin.QuantAct(g8, gsc, gsum))
+    y8, ysc, ysum = ops.silu_mul_quant(gu, lin.needs_act_sum(down_p))
+    d = lin.apply_linear(down_p, lin.QuantAct(y8, ysc, ysum))
+    return h, d.to(h.dtype), (k.to(torch.bfloat16), v.to(torch.bfloat16))
+
+
+def _run_layers(params: LlamaParams, h, cos, sin, args: LlamaArgs, attend):
+    """All layers; returns (h, (k_all, v_all) bf16 [L, T, Hkv, D])."""
+    T = h.shape[0]
+    shape = (args.num_layers, T, args.num_kv_heads, args.head_dim)
+    k_all = torch.empty(shape, dtype=torch.bfloat16, device=h.device)
+    v_all = torch.empty(shape, dtype=torch.bfloat16, device=h.device)
+    delta = torch.zeros_like(h)
+    for li in range(args.num_layers):
+        h, delta, (k, v) = _layer_forward(
+            params.layers, li, h, delta, cos, sin, args, attend
+        )
+        k_all[li] = k
+        v_all[li] = v
+    return h + delta, (k_all, v_all)
+
+
+def _lm_head(h: torch.Tensor, params: LlamaParams, args: LlamaArgs) -> torch.Tensor:
+    return lm_head_matmul(h, params.lm_head, args.logit_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Prefill / decode steps
+# ---------------------------------------------------------------------------
+
+
+def prefill(
+    params: LlamaParams,
+    kv: kvc.KVCache,
+    token_ids: torch.Tensor,  # [T] int32, packed prompts (0-padded tail)
+    positions: torch.Tensor,  # [T] int32 position within each prompt
+    segment_ids: torch.Tensor,  # [T] int32, 0 = padding
+    page_ids: torch.Tensor,  # [T] int32 destination page (-1 = drop)
+    slots: torch.Tensor,  # [T] int32 slot within page
+    last_token_idx: torch.Tensor,  # [B] int32 index of each prompt's last token
+    args: LlamaArgs,
+) -> Tuple[torch.Tensor, kvc.KVCache]:
+    """Packed varlen prefill. Returns (logits [B, V], kv updated in place)."""
+    h = params.embed[token_ids.long()].to(torch.bfloat16)
+    return prefill_from_hidden(
+        params, kv, h, positions, segment_ids, page_ids, slots,
+        last_token_idx, args,
+    )
+
+
+def prefill_from_hidden(
+    params: LlamaParams,
+    kv: kvc.KVCache,
+    h: torch.Tensor,  # [T, E] input embeddings
+    positions: torch.Tensor,
+    segment_ids: torch.Tensor,
+    page_ids: torch.Tensor,
+    slots: torch.Tensor,
+    last_token_idx: torch.Tensor,
+    args: LlamaArgs,
+) -> Tuple[torch.Tensor, kvc.KVCache]:
+    cos, sin = rope.rope_cos_sin(positions, args.head_dim, args.rope_theta)
+
+    def attend(q, k, v, _li):
+        return attention.prefill_attention(
+            q, k, v, segment_ids, sliding_window=args.sliding_window
+        )
+
+    h, (k_all, v_all) = _run_layers(params, h, cos, sin, args, attend)
+    kv = kvc.append_all_layers(
+        kv, k_all, v_all, page_ids, slots,
+        args.quant.kv_bits, args.quant.kv_zero_point,
+    )
+    h_last = ops.rmsnorm(h[last_token_idx.long()], params.final_ln, args.rms_eps)
+    return _lm_head(h_last, params, args), kv
+
+
+def decode(
+    params: LlamaParams,
+    kv: kvc.KVCache,
+    token_ids: torch.Tensor,  # [B] int32 current tokens
+    block_tables: torch.Tensor,  # [B, maxP] int32
+    context_lens: torch.Tensor,  # [B] int32 INCLUDING the current token; 0 = pad
+    args: LlamaArgs,
+) -> Tuple[torch.Tensor, kvc.KVCache]:
+    """One decode step. Attention reads the cache (positions < ctx-1) and
+    the current token's fresh K/V; the appends for all layers follow in one
+    batched write. Returns (logits [B, V], kv updated in place)."""
+    ps = kv.page_size
+    positions = context_lens - 1
+    active = context_lens > 0
+    logical_page = torch.where(active, positions // ps, 0)
+    page_ids = torch.where(
+        active,
+        torch.gather(block_tables, 1, logical_page[:, None].long())[:, 0],
+        -1,
+    ).to(torch.int32)
+    slots = torch.where(active, positions % ps, 0).to(torch.int32)
+
+    h = params.embed[token_ids.long()].to(torch.bfloat16)
+    cos, sin = rope.rope_cos_sin(positions, args.head_dim, args.rope_theta)
+
+    def attend(q, k, v, li):
+        return attention.paged_decode_attention(
+            q, kv, block_tables, context_lens, li, k, v, args.quant.kv_bits,
+            sliding_window=args.sliding_window,
+        )
+
+    h, (k_all, v_all) = _run_layers(params, h, cos, sin, args, attend)
+    kv = kvc.append_all_layers(
+        kv, k_all, v_all, page_ids, slots,
+        args.quant.kv_bits, args.quant.kv_zero_point,
+    )
+    h = ops.rmsnorm(h, params.final_ln, args.rms_eps)
+    return _lm_head(h, params, args), kv

@@ -1,0 +1,67 @@
+"""The port stands alone: importing qserve_tpu_torch (engine included)
+loads neither JAX nor the JAX package nor triton, and no source file of the
+port or chip_smoke.py imports JAX or the JAX package."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "qserve_tpu_torch")
+
+# `qserve_tpu_torch` starts with `qserve_tpu`: match the JAX package only
+FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|qserve_tpu(?!_torch)\b)", re.M
+)
+
+
+def _port_modules():
+    mods = []
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py") and f != "elementwise_triton.py":
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)[:-3]
+                mod = rel.replace(os.sep, ".")
+                mods.append(mod[: -len(".__init__")] if mod.endswith("__init__") else mod)
+    return sorted(mods)
+
+
+def test_import_leaves_jax_out():
+    """Subprocess: tests/conftest.py has already imported JAX here."""
+    code = (
+        "import sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    __import__(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'qserve_tpu', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def _sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_import_in_source(path):
+    with open(path) as f:
+        hits = FORBIDDEN.findall(f.read())
+    assert not hits, hits
+
+
+def test_scan_pattern():
+    assert FORBIDDEN.search("from qserve_tpu.kernels import ops")
+    assert FORBIDDEN.search("    import jax.numpy as jnp")
+    assert not FORBIDDEN.search("from qserve_tpu_torch.kernels import ops")
