@@ -4,21 +4,32 @@
     python3 chip_smoke.py
 
 1. Builds every CUDA kernel from qserve_tpu_torch/kernels/csrc (one nvcc
-   per source, all at once); the Triton kernel compiles at its first launch.
-2. Kernel phases: each kernel at the main path's Llama-3-8B shapes (decode
-   B = 64, prefill T = 2048, context ~1024 over 256-token pages, plus a
-   small-H, D = 64, f32-scale case for the paged attention and the KV
-   append) against its plain PyTorch version on the same inputs, with the
-   tolerance stated in the phase; times the kernel, the plain version and,
-   where one exists, one PyTorch library call computing the same function
-   (CUDA events, median of 20).
+   per source, all at once) and prints what ptxas reported for each; the
+   Triton kernel compiles at its first launch.
+2. Kernel phases: each of the seven kernels at the main paths' Llama-3-8B
+   shapes (decode B = 64, prefill and chunk T = 2048, context ~1024 and a
+   4096-token prefix over 256-token pages, sampling at [64, 128256], plus
+   small-H, D = 64, f32-scale and sliding-window cases) against its plain
+   PyTorch version on the same inputs, with the tolerance stated in the
+   phase; times the kernel, the plain version and, where one exists, one
+   PyTorch library call computing the same function (CUDA events, median
+   of 20).
 3. Reference phase: a small model served by the kernels on the card and by
-   the plain versions on the CPU; logits must agree.
-4. Engine phase: EngineArgs -> LLMEngine at Llama-3-8B's full geometry
-   (random W4A8KV4 per-channel weights from a seed), 8 requests of 128-1024
-   prompt tokens and 32 output tokens (6 greedy, 2 at temperature 0.8),
-   stepped to completion; every kernel must have launched in that run.
-5. Refusal phase: top-k/top-p sampling on CUDA raises (its kernel is not
+   the plain versions on the CPU (prefill, decode, one chunk step, one mixed
+   chunk+decode step); logits must agree.
+4. Engine phase: one EngineArgs -> LLMEngine at Llama-3-8B's full geometry
+   (32 layers, random W4A8KV4 per-channel weights from a seed, default
+   scheduler: chunked prefill and mixed steps on) drives two paths, the
+   launch counts set to 0 before each and read after it:
+   a. whole-prompt prefill + paged decode: 8 requests of 128-1024 prompt
+      tokens and 32 output tokens (6 greedy, 2 at temperature 0.8);
+   b. chunked prefill: 7 short requests are decoding when a ~6000-token
+      prompt arrives and admits in three chunks that ride with the decode
+      batch; two more requests share a page-aligned prefix with an earlier
+      one through prefix_pos (one rides with the decode batch, one runs
+      alone); half of the requests sample with temperature 0.8, top_p 0.9,
+      top_k 50. Every one of the seven kernels must have launched.
+5. Refusal phase: KV8 decode attention on CUDA raises (its kernel is not
    ported yet) instead of running plain PyTorch.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
@@ -59,6 +70,11 @@ ROUTES = {
                                "qserve_tpu/kernels/pallas_paged_attention.py:360"),
     "kv_append": ("cuda", "qserve_tpu_torch/kernels/csrc/kv_append.cu",
                   "qserve_tpu/kernels/pallas_kv_append.py:261"),
+    "prefix_prefill_attention": (
+        "cuda", "qserve_tpu_torch/kernels/csrc/prefix_attention.cu",
+        "qserve_tpu/kernels/pallas_prefix_attention.py:268"),
+    "sample_filtered": ("cuda", "qserve_tpu_torch/kernels/csrc/sampler.cu",
+                        "qserve_tpu/kernels/pallas_sampler.py:172"),
 }
 
 
@@ -158,9 +174,13 @@ def phase_elementwise(res, dev):
                 cuda_ms(lambda: ops.quant_per_token_plain(x, True)),
                 T * E * 2 + T * E + 8 * T, 0, BF16_OPS, None)
 
-        # rmsnorm_quant: the same kernel body, off the main path (no timing)
-        check_codes(ops.rmsnorm_quant(x, w, 1e-5, True),
-                    ops.rmsnorm_quant_plain(x, w, 1e-5, True), exact=False)
+        # rmsnorm_quant: the same kernel body, off the main paths
+        err = check_codes(ops.rmsnorm_quant(x, w, 1e-5, True),
+                          ops.rmsnorm_quant_plain(x, w, 1e-5, True), exact=False)
+        res.add("elementwise", f"rmsnorm_quant T={T} E={E}", err,
+                cuda_ms(lambda: ops.rmsnorm_quant(x, w, 1e-5, True)),
+                cuda_ms(lambda: ops.rmsnorm_quant_plain(x, w, 1e-5, True)),
+                T * E * 2 + E * 4 + T * E + 8 * T, 0, BF16_OPS, None)
 
         gu = (2 * torch.randn(T, 2 * I, generator=g, device=dev)).to(torch.bfloat16)
         err = check_codes(ops.silu_mul_quant(gu, True),
@@ -387,6 +407,194 @@ def phase_kv_append(res, dev):
                 nbytes, 0, BF16_OPS, None)
 
 
+def _prefix_case(dev, g, H, rep, D, ps, prefix_len, T, live, maxP):
+    """One layer of a cache whose first prefix_len positions were written
+    through the port's own append, plus one chunk's inputs."""
+    import torch
+
+    from qserve_tpu_torch.kernels import kv_cache as kvc
+
+    P = maxP + 3
+    cache = kvc.create_kv_cache(1, P, H, ps, D, 4, device=dev)
+    table = torch.randperm(P, generator=g, device=dev)[:maxP].to(torch.int32)
+    if prefix_len:
+        pk = torch.randn(1, prefix_len, H, D, generator=g, device=dev).to(torch.bfloat16)
+        pv = torch.randn(1, prefix_len, H, D, generator=g, device=dev).to(torch.bfloat16)
+        s = torch.arange(prefix_len, device=dev)
+        kvc.append_all_layers(cache, pk, pv, table[s // ps], (s % ps).to(torch.int32),
+                              4, True)
+    q = torch.randn(T, H * rep, D, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(T, H, D, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(T, H, D, generator=g, device=dev).to(torch.bfloat16)
+    seg = torch.zeros(T, dtype=torch.int32, device=dev)
+    seg[:live] = 1
+    pos = torch.zeros(T, dtype=torch.int32, device=dev)
+    pos[:live] = prefix_len + torch.arange(live, device=dev, dtype=torch.int32)
+    return cache, table[None].contiguous(), q, k, v, seg, pos
+
+
+def phase_prefix(res, dev):
+    import torch
+    import torch.nn.functional as F
+
+    from qserve_tpu_torch.kernels import attention, kv_cache as kvc
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    cases = [
+        ("8B", 8, 4, 128, 256, 4096, 2048, 1900, 32, None),
+        ("f32 scales", 2, 2, 64, 16, 97, 80, 70, 12, None),
+        ("f32 scales, window 50", 2, 2, 64, 16, 97, 80, 70, 12, 50),
+        ("no prefix", 2, 4, 64, 16, 0, 300, 290, 4, None),
+    ]
+    for tag, H, rep, D, ps, S, T, live, maxP, window in cases:
+        cache, bt, q, k, v, seg, pos = _prefix_case(dev, g, H, rep, D, ps, S, T,
+                                                    live, maxP)
+        args = (q, k, v, seg, pos, cache, bt, S, 0, 4)
+        got = attention.prefix_prefill_attention(*args, sliding_window=window)
+        want = attention.prefix_prefill_attention_plain(*args, sliding_window=window)
+        # padding rows attend nothing: the kernel writes 0, the plain version
+        # an average of V; neither is read. Live rows: both sides sum in f32
+        # (in other orders) and round once to bf16, so an element may land on
+        # the neighbouring bf16 value and no further: each within one bf16
+        # step of the plain value (2^-7 |want|) plus 1e-3 of the largest
+        # output. An output here is a mean of ~N(0, 1) values over thousands
+        # of keys (~0.02 at the 8B shape): a flat atol would pass a lost key.
+        assert torch.isfinite(got.float()).all()
+        assert not got[live:].any(), "padding rows must come out 0"
+        w_live = want[:live].float()
+        limit = 2.0**-7 * w_live.abs() + 1e-3 * w_live.abs().max()
+        diff = (got[:live].float() - w_live).abs()
+        err = diff.max().item()
+        log(f"  {tag}: max_abs_err {err:.3g} at {(diff / limit).max().item():.3g} of "
+            f"its limit (one bf16 step + 1e-3 x max |out| = {w_live.abs().max().item():.3g}; "
+            f"mean |out| {w_live.abs().mean().item():.3g})")
+        assert bool((diff <= limit).all()), f"prefix prefill ({tag}) err {err}"
+        if S == 0:  # without a prefix it is the packed prefill kernel's job
+            k3 = attention.prefill_attention(q, k, v, seg, sliding_window=window)
+            d3 = (got[:live].float() - k3[:live].float()).abs()
+            assert bool((d3 <= limit).all()), \
+                f"prefix prefill vs flash prefill err {d3.max().item()}"
+        # (query, key) pairs this run's masks let through
+        p_live = torch.arange(live, device=dev) + S + 1
+        pairs = int((p_live.clamp(max=window) if window else p_live).sum())
+        lo = max(0, S - window + 1) if window else 0  # prefix keys any row reads
+        sb = cache.scales.element_size()
+        nbytes = (2 * (S - lo) * H * (D // 2 + 2 * sb) + 2 * T * D * 2 * (H * rep + H)
+                  + 8 * T + 4 * maxP)
+        # yardstick: SDPA over the already dequantized prefix + the chunk
+        pk, pv = kvc.gather_dequant_layer(cache.layer(0), bt, 4)
+        kf = torch.cat([pk[0, :S].to(torch.bfloat16), k]).transpose(0, 1)[None]
+        vf = torch.cat([pv[0, :S].to(torch.bfloat16), v]).transpose(0, 1)[None]
+        kp = torch.cat([torch.arange(S, device=dev, dtype=torch.int32),
+                        torch.where(seg > 0, pos, 2**30)])
+        mask = (kp[None, :] <= pos[:, None]) & (seg > 0)[:, None]
+        if window:
+            mask = mask & (kp[None, :] > pos[:, None] - window)
+        mask[live:, 0] = True  # SDPA needs one open key on padding rows
+        qs = q.transpose(0, 1)[None]
+        res.add("prefix_prefill_attention",
+                f"{tag}: T={T} live={live} prefix={S} Hq={H * rep} H={H} D={D} "
+                f"ps={ps} window={window} scales={cache.scales.dtype}", err,
+                cuda_ms(lambda: attention.prefix_prefill_attention(
+                    *args, sliding_window=window), iters=10),
+                cuda_ms(lambda: attention.prefix_prefill_attention_plain(
+                    *args, sliding_window=window), iters=10),
+                nbytes, 4 * pairs * H * rep * D, BF16_OPS,
+                library_or_none(lambda: F.scaled_dot_product_attention(
+                    qs, kf, vf, attn_mask=mask, enable_gqa=True)))
+
+
+def phase_sampler(res, dev):
+    import torch
+
+    from qserve_tpu_torch.kernels import sampler as ksampler
+    from qserve_tpu_torch.layers import sampler
+
+    B, V = 64, LLAMA3_8B["vocab_size"]
+    g = torch.Generator(device=dev).manual_seed(7)
+    logits = 3 * torch.randn(B, V, generator=g, device=dev)
+    # rows cycle through: greedy, raw temperature, top-k 50, top-p 0.9, both,
+    # top-k 1, and top-k 50 with four-way ties at the 50th value
+    kinds = [(0.0, 1.0, 0), (0.8, 1.0, 0), (0.8, 1.0, 50), (0.7, 0.9, 0),
+             (0.8, 0.9, 50), (1.0, 1.0, 1), (0.8, 1.0, 50)]
+    temp = torch.tensor([kinds[i % 7][0] for i in range(B)])
+    top_p = torch.tensor([kinds[i % 7][1] for i in range(B)])
+    top_k = torch.tensor([kinds[i % 7][2] for i in range(B)], dtype=torch.int32)
+    tie_rows = list(range(6, B, 7))
+    for r in tie_rows:  # ranks 50..53 share one value: all four are kept
+        order = logits[r].argsort(descending=True)
+        logits[r, order[50:53]] = logits[r, order[49]].item()
+    noise = -torch.log(-torch.log(
+        torch.rand(B, V, generator=g, device=dev).clamp(min=2.0**-24)))
+
+    # the plain version's pieces, on the card
+    sampling = temp > 0
+    filtered = sampling & ((top_k > 0) | (top_p < 1.0))
+    p_eff = torch.where(filtered, top_p, 1.0).to(dev)
+    k_in = torch.where(filtered, top_k, 0).to(dev)
+    scaled = logits / temp.clamp(min=1e-6).to(dev)[:, None]
+    kept = sampler.threshold_mask(scaled, p_eff, k_in) > -1e29
+    sizes = kept.sum(-1)
+    assert all(int(sizes[r]) == 53 for r in tie_rows), "ties at the k-th value"
+    assert all(int(sizes[r]) == 1 for r in range(5, B, 7))
+    plain = sampler.sample_filtered_plain(scaled, p_eff, k_in, noise).to(torch.int32)
+    want = torch.where(sampling.to(dev), plain, logits.argmax(-1).to(torch.int32))
+
+    # 1. the same noise through the entry point: tokens must be EQUAL
+    gen = torch.Generator(device=dev).manual_seed(0)
+    got = sampler.sample(logits, temp, top_p, top_k, gen, noise=noise)
+    n_diff = int((got != want).sum())
+    assert n_diff == 0, f"filtered sampler: {n_diff} of {B} tokens differ from plain"
+
+    # 2. the kernel's own generator: draws stay in the kept sets, reach more
+    # than the mode, and repeat for the same (seed, offset)
+    k_eff = torch.where(k_in <= 0, V, k_in).to(torch.int32)
+    p_t = p_eff.clamp(min=1e-9)
+    rows = torch.arange(B, device=dev)
+    draws = torch.stack([
+        ksampler.sample_filtered(scaled, k_eff, p_t, True, True, seed=11, offset=i)
+        for i in range(300)])
+    assert bool(kept[rows[None].expand_as(draws), draws.long()].all()), \
+        "a drawn token lies outside threshold_mask's kept set"
+    distinct = torch.tensor([draws[:, r].unique().numel() for r in range(B)])
+    wide = sizes.cpu() > 1
+    assert bool((distinct[wide] > 1).all()) and bool((distinct[~wide] == 1).all())
+    again = ksampler.sample_filtered(scaled, k_eff, p_t, True, True, seed=11, offset=7)
+    assert torch.equal(again, draws[7]), "same (seed, offset), other tokens"
+    other = ksampler.sample_filtered(scaled, k_eff, p_t, True, True, seed=12, offset=7)
+    assert not torch.equal(other, draws[7]), "the seed does not reach the draw"
+    # 3. the draw follows the kept set's softmax: 64 copies of one row,
+    # top-k 8, 300 draws each -> 19200 samples, each frequency within 0.02
+    one = scaled[2:3].expand(B, V).contiguous()
+    k8 = torch.full((B,), 8, dtype=torch.int32, device=dev)
+    p1 = torch.ones(B, device=dev)
+    many = torch.stack([
+        ksampler.sample_filtered(one, k8, p1, True, False, seed=5, offset=i)
+        for i in range(300)]).flatten().long()
+    top8 = one[0].topk(8)
+    probs = torch.softmax(top8.values, -1)
+    freq = torch.stack([(many == t).float().mean() for t in top8.indices])
+    ferr = (freq - probs).abs().max().item()
+    assert ferr <= 0.02, f"draw frequencies off the softmax by {ferr}"
+    log(f"  own generator: 300 draws in the kept sets, {int(distinct.max())} distinct "
+        f"tokens at most per row; top-8 frequencies within {ferr:.3g} of softmax")
+
+    res.add("sample_filtered",
+            f"B={B} V={V} rows: greedy, temperature, top-k 50, top-p 0.9, both, "
+            f"top-k 1, ties", float(n_diff),
+            cuda_ms(lambda: ksampler.sample_filtered(
+                scaled, k_eff, p_t, True, True, seed=3, offset=1)),
+            cuda_ms(lambda: sampler.sample_filtered_plain(scaled, p_eff, k_in, noise),
+                    iters=5, warmup=1),
+            B * V * 4 + 12 * B, 0, BF16_OPS, None)
+    res.add("sample_filtered", f"B={B} V={V} with a noise operand", float(n_diff),
+            cuda_ms(lambda: ksampler.sample_filtered(
+                scaled, k_eff, p_t, True, True, noise=noise)),
+            cuda_ms(lambda: sampler.sample_filtered_plain(scaled, p_eff, k_in, noise),
+                    iters=5, warmup=1),
+            2 * B * V * 4 + 12 * B, 0, BF16_OPS, None)
+
+
 # --------------------------------------------------------------------------
 # reference, engine and refusal phases
 # --------------------------------------------------------------------------
@@ -394,7 +602,9 @@ def phase_kv_append(res, dev):
 
 def phase_reference(dev):
     """A small model on the card (kernels) and on the CPU (plain versions):
-    same params, same packed inputs, logits within 5% of their range."""
+    same params, same packed inputs, logits within 5% of their range, over
+    a packed prefill, four decode steps, one chunk step over a cached prefix
+    and one mixed chunk+decode step."""
     import torch
 
     from qserve_tpu_torch.config import QuantSpec
@@ -422,7 +632,7 @@ def phase_reference(dev):
                      + [-1] * 7, np.int32)
     slots = np.concatenate([np.arange(37) % ps, np.arange(20) % ps, np.zeros(7)]).astype(np.int32)
     last = np.array([36, 56], np.int32)
-    caches = {d: kvc.create_kv_cache(2, 8, 2, ps, 64, 4, device=d) for d in ("cpu", dev)}
+    caches = {d: kvc.create_kv_cache(2, 10, 2, ps, 64, 4, device=d) for d in ("cpu", dev)}
     params = {"cpu": cpu, dev: gpu}
     worst = 0.0
 
@@ -449,7 +659,107 @@ def phase_reference(dev):
                                 args)[0]
                 for d in params}
         logits = compare(outs)
-    log(f"  reference: card vs CPU logits, worst max|diff| / max|logit| = {worst:.3g}")
+    # one chunk step: a third prompt whose first 32 tokens (two pages) are
+    # cached by a prefill, then tokens 32..52 as a chunk over that prefix
+    ids3 = rng.integers(1, 512, 53).astype(np.int32)
+
+    def packed(ids, start, T, table):
+        n = len(ids)
+        p = start + np.arange(n)
+        pad = T - n
+        z = np.zeros(pad, np.int32)
+        return tuple(np.concatenate([a.astype(np.int32), b]) for a, b in (
+            (ids, z), (p, z), (np.ones(n), z),
+            (np.asarray(table)[p // ps], z - 1), (p % ps, z))) + (
+            np.array([n - 1], np.int32),)
+
+    table3 = [5, 6, 7, 8]
+    bt3 = np.array([table3], np.int32)
+    outs = {d: llama.prefill(params[d], caches[d],
+                             *(torch.from_numpy(x).to(d)
+                               for x in packed(ids3[:32], 0, 32, table3)), args)[0]
+            for d in params}
+    compare(outs)
+    outs = {d: llama.prefill_chunk(
+        params[d], caches[d],
+        *(torch.from_numpy(x).to(d) for x in packed(ids3[32:45], 32, 16, table3)),
+        torch.from_numpy(bt3).to(d), 32, args)[0] for d in params}
+    compare(outs)
+    # one mixed step: the rest of that prompt (prefix 45, not page-aligned)
+    # riding with the two decoding sequences and one pad row
+    tok_d = np.concatenate([logits.argmax(-1).to(torch.int32).numpy(), [0]]).astype(np.int32)
+    bt_d = np.array([[0, 1, 2, 0], [3, 4, 0, 0], [0, 0, 0, 0]], np.int32)
+    ctx_d = np.array([42, 25, 0], np.int32)
+    outs = {d: llama.prefill_chunk_with_decode(
+        params[d], caches[d],
+        *(torch.from_numpy(x).to(d) for x in packed(ids3[45:], 45, 16, table3)),
+        torch.from_numpy(bt3).to(d), 45,
+        *(torch.from_numpy(x).to(d) for x in (tok_d, bt_d, ctx_d)), args)[0]
+            for d in params}
+    assert outs[dev].shape == (4, 512)
+    compare({d: o[:3] for d, o in outs.items()})  # row 3 is the pad row
+    log(f"  reference: card vs CPU logits over prefill, 4 decode steps, a chunk "
+        f"step and a mixed step, worst max|diff| / max|logit| = {worst:.3g}")
+
+
+def _drive(engine, want_tokens, arrivals=()):
+    """Step the engine until idle. arrivals: [(after_step, fn)], fn adds
+    requests once that many steps have run. Returns per-kind step times and
+    launch deltas, and checks every finished request."""
+    import torch
+
+    from qserve_tpu_torch.kernels import _build
+
+    arrivals = sorted(arrivals, key=lambda a: a[0])
+    ms, per_kind, finished, tokens_out, steps = {}, {}, 0, 0, 0
+    t_run = time.perf_counter()
+    while engine.has_unfinished_requests() or arrivals:
+        while arrivals and (arrivals[0][0] <= steps
+                            or not engine.has_unfinished_requests()):
+            arrivals.pop(0)[1]()
+        before = dict(_build.LAUNCHES)
+        t = time.perf_counter()
+        outs = engine.step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        steps += 1
+        kind = engine.last_step_kind
+        ms.setdefault(kind, []).append(dt)
+        per_kind.setdefault(kind, {k: v - before.get(k, 0)
+                                   for k, v in _build.LAUNCHES.items()
+                                   if v - before.get(k, 0)})
+        for out in outs:
+            if out.finished:
+                finished += 1
+                toks = out.outputs[0]["token_ids"]
+                assert len(toks) == want_tokens[out.request_id], \
+                    f"{out.request_id}: {len(toks)} tokens"
+                assert all(0 <= x < LLAMA3_8B["vocab_size"] for x in toks)
+                tokens_out += len(toks)
+    run_s = time.perf_counter() - t_run
+    assert finished == len(want_tokens), \
+        f"{finished} of {len(want_tokens)} requests finished"
+    return dict(ms=ms, per_kind=per_kind, finished=finished,
+                tokens_out=tokens_out, run_s=run_s)
+
+
+def _report(tag, r, launches):
+    log(f"  {tag}: {r['finished']} requests finished, {r['tokens_out']} tokens out, "
+        f"run {r['run_s']:.2f} s, output {r['tokens_out'] / r['run_s']:.1f} tok/s")
+    for kind, ts in r["ms"].items():
+        log(f"    {len(ts)} {kind} steps: median {statistics.median(ts):.2f} ms, "
+            f"min {min(ts):.2f}, max {max(ts):.2f}; launches in the first: "
+            f"{r['per_kind'][kind]}")
+    log(f"    launches in the run: {launches}")
+    return dict(
+        finished=r["finished"], tokens_out=r["tokens_out"], run_s=r["run_s"],
+        output_tok_s=r["tokens_out"] / r["run_s"],
+        steps={k: len(v) for k, v in r["ms"].items()},
+        step_ms_median={k: statistics.median(v) for k, v in r["ms"].items()},
+        step_ms={k: [round(x, 2) for x in v] for k, v in r["ms"].items()
+                 if k != "decode"},
+        launches_per_step={k: v for k, v in r["per_kind"].items()},
+    )
 
 
 def phase_engine(dev):
@@ -459,87 +769,108 @@ def phase_engine(dev):
     from qserve_tpu_torch.kernels import _build
     from qserve_tpu_torch.sampling_params import SamplingParams
 
+    V = LLAMA3_8B["vocab_size"]
     t0 = time.perf_counter()
     engine = EngineArgs(
         hf_config=LLAMA3_8B, random_weights=True, seed=0, device=dev,
         precision="w4a8kv4", group_size=-1, block_size=256,
-        max_num_batched_tokens=2048, max_num_seqs=64, max_model_len=2048,
-        num_device_pages=256,  # chunked prefill is off in the port's EngineArgs
+        max_num_batched_tokens=2048, max_num_seqs=64, max_model_len=8192,
+        num_device_pages=160,
     ).build_engine()
+    sc = engine.scheduler.scheduler_config
+    assert sc.enable_chunked_prefill and sc.mixed_chunk_decode, "default scheduler"
     torch.cuda.synchronize()
     log(f"  engine built in {time.perf_counter() - t0:.1f} s "
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+
+    # ---- path a: whole-prompt prefill + paged decode ----
     rng = np.random.default_rng(0)
     lens = rng.integers(128, 1025, 8)
+    want = {}
     for i, n in enumerate(lens):
+        want[f"a{i}"] = 32
         engine.add_request(
-            f"r{i}",
-            prompt_token_ids=rng.integers(0, LLAMA3_8B["vocab_size"], int(n)).tolist(),
+            f"a{i}", prompt_token_ids=rng.integers(0, V, int(n)).tolist(),
             sampling_params=SamplingParams(
-                max_tokens=32, ignore_eos=True,
-                temperature=0.8 if i >= 6 else 0.0,
-            ),
-        )
-    log(f"  8 requests, prompt lengths {lens.tolist()}, 32 output tokens each")
-
+                max_tokens=32, ignore_eos=True, temperature=0.8 if i >= 6 else 0.0))
+    log(f"  path a: 8 requests, prompt lengths {lens.tolist()}, 32 output tokens each")
     _build.reset_launch_counts()
-    prefill_ms, decode_ms, per_step = [], [], {}
-    finished, tokens_out = 0, 0
-    t_run = time.perf_counter()
-    while engine.has_unfinished_requests():
-        before = dict(_build.LAUNCHES)
-        t = time.perf_counter()
-        outs = engine.step()
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t) * 1e3
-        delta = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()}
-        kind = "prefill" if delta.get("flash_prefill_attention") else "decode"
-        (prefill_ms if kind == "prefill" else decode_ms).append(dt)
-        per_step.setdefault(kind, delta)
-        for out in outs:
-            if out.finished:
-                finished += 1
-                toks = out.outputs[0]["token_ids"]
-                assert len(toks) == 32, f"{out.request_id}: {len(toks)} tokens"
-                assert all(0 <= x < LLAMA3_8B["vocab_size"] for x in toks)
-                tokens_out += len(toks)
-    run_s = time.perf_counter() - t_run
-    launches = dict(_build.LAUNCHES)
-    assert finished == 8, f"{finished} of 8 requests finished"
-    log(f"  requests finished: {finished}, tokens out: {tokens_out}, "
-        f"run {run_s:.2f} s, output {tokens_out / run_s:.1f} tok/s")
-    log(f"  prefill steps: {len(prefill_ms)}, ms {[round(x, 1) for x in prefill_ms]}")
-    log(f"  decode steps: {len(decode_ms)}, median {statistics.median(decode_ms):.2f} ms, "
-        f"min {min(decode_ms):.2f} ms, max {max(decode_ms):.2f} ms")
-    log(f"  launches per prefill step: {per_step.get('prefill')}")
-    log(f"  launches per decode step: {per_step.get('decode')}")
-    log(f"  launches in the run: {launches}")
-    missing = [k for k in ROUTES if launches.get(k, 0) == 0]
-    assert not missing, f"kernels never launched on the main path: {missing}"
-    return engine, launches, dict(
-        finished=finished, tokens_out=tokens_out, run_s=run_s,
-        output_tok_s=tokens_out / run_s, prefill_ms=prefill_ms,
-        decode_ms_median=statistics.median(decode_ms),
-        launches_per_prefill_step=per_step.get("prefill"),
-        launches_per_decode_step=per_step.get("decode"),
-    )
+    ra = _drive(engine, want)
+    launches_a = dict(_build.LAUNCHES)
+    summary_a = _report("path a", ra, launches_a)
+    first = ("elementwise", "w4a8_gemm_per_chn", "flash_prefill_attention",
+             "paged_decode_attention", "kv_append")
+    missing = [k for k in first if launches_a.get(k, 0) == 0]
+    assert not missing, f"kernels never launched on path a: {missing}"
+    assert set(ra["ms"]) == {"prefill", "decode"}, set(ra["ms"])
+
+    # ---- path b: chunked prefill, mixed steps, prefix skip, top-k/top-p ----
+    def sp(i, n):
+        if i % 2:
+            return SamplingParams(max_tokens=n, ignore_eos=True, temperature=0.8,
+                                  top_p=0.9, top_k=50)
+        return SamplingParams(max_tokens=n, ignore_eos=True, temperature=0.0)
+
+    rng = np.random.default_rng(1)
+    lens = rng.integers(128, 1025, 7)
+    shared = rng.integers(0, V, 768).tolist()  # three pages of shared prefix
+    want = {}
+    for i, n in enumerate(lens):
+        want[f"b{i}"] = 48
+        ids = rng.integers(0, V, int(n)).tolist()
+        if i == 0:  # b0 computes the shared prefix
+            ids = shared + ids[:100]
+        engine.add_request(f"b{i}", prompt_token_ids=ids, sampling_params=sp(i, 48),
+                           prefix_pos=768 if i == 0 else None)
+    long_len = 6000
+
+    def add_long():
+        want["long"] = 16
+        engine.add_request("long", prompt_token_ids=rng.integers(0, V, long_len).tolist(),
+                           sampling_params=sp(1, 16))
+        want["skip"] = 16  # shares b0's computed prefix, rides with the decodes
+        engine.add_request("skip", prompt_token_ids=shared + rng.integers(0, V, 200).tolist(),
+                           sampling_params=sp(0, 16), prefix_pos=768)
+
+    def add_alone():
+        want["alone"] = 8  # the same prefix with nothing else running
+        engine.add_request("alone", prompt_token_ids=shared + rng.integers(0, V, 300).tolist(),
+                           sampling_params=sp(1, 8), prefix_pos=768)
+
+    log(f"  path b: 7 requests, prompt lengths {[868] + lens[1:].tolist()}, 48 output "
+        f"tokens; after 8 steps a {long_len}-token prompt and a prefix-sharing one; "
+        f"last a prefix-sharing one alone; odd requests at temperature 0.8, "
+        f"top_p 0.9, top_k 50")
+    _build.reset_launch_counts()
+    rb = _drive(engine, want, [(8, add_long), (10**9, add_alone)])
+    launches_b = dict(_build.LAUNCHES)
+    summary_b = _report("path b", rb, launches_b)
+    missing = [k for k in ROUTES if launches_b.get(k, 0) == 0]
+    assert not missing, f"kernels never launched on path b: {missing}"
+    assert len(rb["ms"].get("mixed", [])) >= 4, "the long prompt did not admit in mixed steps"
+    assert rb["ms"].get("chunk"), "no chunk step ran alone"
+    return launches_a, launches_b, dict(path_a=summary_a, path_b=summary_b)
 
 
 def phase_refusal(dev):
+    """What is still unported on CUDA raises; nothing runs the plain version
+    in a kernel's place."""
     import torch
 
-    from qserve_tpu_torch.layers import sampler
+    from qserve_tpu_torch.kernels import attention, kv_cache as kvc
 
-    logits = torch.randn(2, 1000, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    cache = kvc.create_kv_cache(1, 4, 2, 16, 64, 8, device=dev)
+    q = torch.zeros(1, 4, 64, dtype=torch.bfloat16, device=dev)
+    kc = torch.zeros(1, 2, 64, dtype=torch.bfloat16, device=dev)
+    bt = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    cl = torch.ones(1, dtype=torch.int32, device=dev)
     try:
-        sampler.sample(logits, torch.tensor([0.8, 0.0]), torch.tensor([0.9, 1.0]),
-                       torch.tensor([0, 0], dtype=torch.int32), gen)
+        attention.paged_decode_attention(q, cache, bt, cl, 0, kc, kc, 8)
     except NotImplementedError as e:
         assert "ROADMAP" in str(e)
-        log(f"  top-p on CUDA refused: {e}")
+        log(f"  KV8 decode on CUDA refused: {e}")
     else:
-        raise AssertionError("filtered sampling ran on CUDA without its kernel")
+        raise AssertionError("KV8 decode attention ran on CUDA without its kernel")
 
 
 def main() -> int:
@@ -569,12 +900,20 @@ def main() -> int:
 
     t = time.perf_counter()
     _build.build_all()
-    log(f"build: {len(_build.build_all())} CUDA sources in {time.perf_counter() - t:.1f} s")
+    targets = _build.build_all()
+    log(f"build: {len(targets)} CUDA sources in {time.perf_counter() - t:.1f} s")
+    for stem, so in targets.items():  # ptxas: registers, shared memory, spills
+        with open(so[:-3] + ".log") as f:
+            for line in f:
+                if "Used" in line or ("spill" in line and "0 bytes spill stores, 0" not in line):
+                    log(f"  {stem}: {line.strip()}")
 
     res = Results()
-    for name, fn in (("elementwise", phase_elementwise), ("gemm", phase_gemm),
-                     ("flash prefill", phase_flash), ("paged decode", phase_paged),
-                     ("kv append", phase_kv_append)):
+    kernel_phases = dict(
+        elementwise=phase_elementwise, gemm=phase_gemm, flash=phase_flash,
+        paged=phase_paged, kv_append=phase_kv_append, prefix=phase_prefix,
+        sampler=phase_sampler)
+    for name, fn in kernel_phases.items():
         t = time.perf_counter()
         log(f"phase {name}")
         fn(res, dev)
@@ -584,7 +923,7 @@ def main() -> int:
     log("phase reference")
     phase_reference(dev)
     log("phase engine")
-    _, launches, summary = phase_engine(dev)
+    launches_a, launches, summary = phase_engine(dev)
     log("phase refusal")
     phase_refusal(dev)
     log(f"engine summary: {json.dumps(summary)}")
@@ -595,7 +934,9 @@ def main() -> int:
         r = res.rows[name]
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=launches.get(name, 0), max_abs_err=r["max_abs_err"],
+            launches=launches.get(name, 0),
+            launches_first_path=launches_a.get(name, 0),
+            max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
         ))

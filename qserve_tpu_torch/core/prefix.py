@@ -5,8 +5,9 @@ an experimental pool mapping a hash of the first N prompt tokens (truncated
 to a page multiple) to a shared page table with its own ref counts. Matching
 the reference's wiring depth: prefixes share *pages* (allocation-level reuse;
 the scheduler skips re-allocating them), and `computed` flips after the first
-prefill that covers the prefix. Compute-level prefix skipping (prefilling
-only the suffix) plugs in at the model runner once chunked prefill lands.
+prefill that covers the prefix. From then on the scheduler starts a
+sharing prompt at the prefix's end and the model runner prefills only the
+suffix, as a chunk step over the cached prefix pages.
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """EngineArgs: the CLI flag surface -> config objects -> engine
 (qserve_tpu/engine/arg_utils.py).
 
-This slice builds a dense Llama at W4A8KV4 per-channel with random weights
+The port builds a dense Llama at W4A8KV4 per-channel with random weights
 (`random_weights=True`, the geometry from a config dict or a model dir's
-config.json) on one device, with chunked prefill off. Real checkpoints, VLM
-and TP/DP raise NotImplementedError naming their ROADMAP items.
+config.json) on one device, with the scheduler's defaults (chunked prefill
+and mixed chunk+decode steps on). Real checkpoints, VLM and TP/DP raise
+NotImplementedError naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -99,8 +100,6 @@ class EngineArgs:
             max_num_batched_tokens=self.max_num_batched_tokens,
             max_num_seqs=self.max_num_seqs,
             max_model_len=self.max_model_len,
-            # chunk steps need the prefix-prefill kernel, not ported yet
-            enable_chunked_prefill=False,
         )
         return cache_config, scheduler_config
 

@@ -25,6 +25,22 @@ from qserve_tpu_torch.worker.worker import Worker
 logger = init_logger(__name__)
 
 
+def step_kind(metadata, sched) -> Optional[str]:
+    """What the scheduler emitted for one step: "prefill" (whole prompts or
+    a long prompt's first chunk), "chunk" (a later chunk, or a prompt past
+    its computed prefix, alone), "mixed" (a chunk with the decode batch
+    riding along), "decode", or None when no model step runs."""
+    if not metadata:
+        return None
+    if not sched.prompt_run:
+        return "decode"
+    if any(not md.is_prompt for md in metadata):
+        return "mixed"
+    if any(md.chunk is not None and md.chunk[0] > 0 for md in metadata):
+        return "chunk"
+    return "prefill"
+
+
 class LLMEngine:
     def __init__(
         self,
@@ -44,6 +60,7 @@ class LLMEngine:
         # seq_id -> (group, seq) for O(1) result routing
         self._seq_index: Dict[int, Tuple[SequenceGroup, Sequence]] = {}
         self._num_generated = 0
+        self.last_step_kind: Optional[str] = None
         self._num_prompt_tokens = 0
         # periodic stats emission (the reference plumbs log_stats/_LOGGING_
         # INTERVAL_SEC but never emits, llm_engine.py:44; here it is real)
@@ -121,6 +138,7 @@ class LLMEngine:
     # ------------------------------------------------------------------
     def step(self) -> List[RequestOutput]:
         metadata, sched = self.scheduler.schedule()
+        self.last_step_kind = step_kind(metadata, sched)
         if not metadata and not sched.ignored_seq_groups:
             if not sched.is_empty():
                 self.worker.execute_model([], sched)  # swaps only

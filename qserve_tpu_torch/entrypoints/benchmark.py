@@ -95,17 +95,22 @@ def run(engine, vocab_size, batch, prompt_len, gen_len, rounds, csv_path,
         t0 = time.perf_counter()
         finished = 0
         gen_tokens = 0
-        step_ms = {"prefill": [], "decode": []}
+        step_ms = {"prefill": [], "mixed": [], "decode": []}
         with prof_cm:
             while engine.has_unfinished_requests():
-                # chunked prefill is off: a step with prompts waiting admits them
-                kind = "prefill" if engine.scheduler.waiting else "decode"
                 ts = time.perf_counter()
                 for out in engine.step():
                     if out.finished:
                         finished += 1
                         gen_tokens += sum(len(o["token_ids"]) for o in out.outputs)
-                step_ms[kind].append((time.perf_counter() - ts) * 1e3)
+                # what the scheduler emitted: prompt tokens only (a chunk
+                # alone counts as prefill), a chunk with decode rows riding
+                # along, or decode rows only
+                kind = {"chunk": "prefill"}.get(
+                    engine.last_step_kind, engine.last_step_kind
+                )
+                if kind is not None:
+                    step_ms[kind].append((time.perf_counter() - ts) * 1e3)
             _sync(engine)
         dt = time.perf_counter() - t0
         if prof is not None:
@@ -116,14 +121,22 @@ def run(engine, vocab_size, batch, prompt_len, gen_len, rounds, csv_path,
                 f.write(summary + "\n")
         tput = gen_tokens / dt
         pre = float(np.mean(step_ms["prefill"])) if step_ms["prefill"] else 0.0
+        mix = float(np.mean(step_ms["mixed"])) if step_ms["mixed"] else 0.0
         dec = float(np.median(step_ms["decode"])) if step_ms["decode"] else 0.0
         print(f"round {rnd}: {finished} seqs, {gen_tokens} tokens, "
               f"{dt:.2f}s, {tput:.1f} tok/s; {len(step_ms['prefill'])} prefill "
-              f"steps, mean {pre:.2f} ms; {len(step_ms['decode'])} decode steps, "
+              f"steps, mean {pre:.2f} ms; {len(step_ms['mixed'])} mixed steps, "
+              f"mean {mix:.2f} ms; {len(step_ms['decode'])} decode steps, "
               f"median {dec:.2f} ms")
         rows.append(dict(round=rnd, batch=batch, prompt_len=prompt_len,
                          generation_len=gen_len, seconds=dt, tokens_per_s=tput,
-                         prefill_step_ms_mean=pre, decode_step_ms_median=dec))
+                         prefill_step_ms_mean=pre, decode_step_ms_median=dec,
+                         mixed_steps=len(step_ms["mixed"]),
+                         mixed_step_ms_mean=mix))
+    if not any(r["mixed_steps"] for r in rows):
+        # the mixed column pair appears only when the run had such steps
+        for r in rows:
+            del r["mixed_steps"], r["mixed_step_ms_mean"]
     if csv_path:
         exists = os.path.exists(csv_path)
         with open(csv_path, "a", newline="") as f:

@@ -1,8 +1,8 @@
-"""Attention ops: packed-varlen prefill and paged quantized decode
-(qserve_tpu/kernels/attention.py).
+"""Attention ops: packed-varlen prefill, chunked prefill over a cached
+prefix, and paged quantized decode (qserve_tpu/kernels/attention.py).
 
 A CUDA tensor launches the op's kernel (kernels/flash_attention.py,
-kernels/paged_attention.py); a CPU tensor takes the plain version beside
+kernels/prefix_attention.py, kernels/paged_attention.py); a CPU tensor takes the plain version beside
 it, a transcription of the JAX package's XLA fallback. The plain versions
 are what the kernels are held against on the card.
 """
@@ -69,6 +69,122 @@ def prefill_attention(
             sliding_window or 0,
         )
     return prefill_attention_plain(q, k, v, segment_ids, sm_scale, sliding_window)
+
+
+def prefix_prefill_attention_plain(
+    q: torch.Tensor,  # [T, Hq, D] chunk queries (RoPE'd, positions >= start)
+    k: torch.Tensor,  # [T, Hkv, D] chunk keys
+    v: torch.Tensor,  # [T, Hkv, D]
+    segment_ids: torch.Tensor,  # [T] int32, 0 = padding (one live segment)
+    positions: torch.Tensor,  # [T] int32 absolute positions in the sequence
+    cache: kvc.KVCache,
+    block_tables: torch.Tensor,  # [1, maxP] int32, the sequence's pages
+    prefix_len: int,  # cached positions [0, prefix_len)
+    layer_idx: int,
+    kv_bits: int,
+    sm_scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Online softmax over ~1K-key chunks of the cached prefix, then the
+    chunk's own keys: transient memory is O(Hq * T * 1K) whatever
+    max_model_len is. Pages past prefix_len are not visited (their keys are
+    all masked, which leaves the running softmax as it was)."""
+    T, Hq, D = q.shape
+    rep = Hq // k.shape[1]
+    sm = sm_scale if sm_scale is not None else 1.0 / (D**0.5)
+    layer = cache.layer(layer_idx)
+    ps = layer.page_size
+    prefix_len = int(prefix_len)
+    ppc = max(1, 1024 // ps)  # pages per chunk
+    used = min(-(-prefix_len // ps), block_tables.shape[1])
+
+    qf = q.float()
+    qv = segment_ids > 0
+    pos = positions.long()
+    m = torch.full((Hq, T, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((Hq, T, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((Hq, T, D), dtype=torch.float32, device=q.device)
+
+    def merge(m, l, acc, kf, vf, mask):
+        """One block of keys kf/vf [S, Hq, D] under mask [T, S]."""
+        scores = torch.einsum("thd,shd->hts", qf, kf) * sm
+        scores = torch.where(mask[None], scores, torch.full_like(scores, NEG_INF))
+        m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("hts,shd->htd", p, vf)
+        return m_new, l, acc
+
+    def window_mask(mask, key_pos):
+        if sliding_window is None:
+            return mask
+        return mask & (key_pos[None, :] > pos[:, None] - sliding_window)
+
+    for p0 in range(0, used, ppc):
+        pages = block_tables[:1, p0 : p0 + ppc]
+        kc, vc = kvc.gather_dequant_layer(layer, pages, kv_bits)
+        kc = kc[0].repeat_interleave(rep, dim=1)  # [cS, Hq, D]
+        vc = vc[0].repeat_interleave(rep, dim=1)
+        key_pos = p0 * ps + torch.arange(kc.shape[0], device=q.device)
+        mask = (
+            (key_pos < prefix_len)[None, :] & qv[:, None]
+            & (key_pos[None, :] <= pos[:, None])
+        )
+        m, l, acc = merge(m, l, acc, kc, vc, window_mask(mask, key_pos))
+
+    # the chunk's own T keys, merged into the running softmax
+    ks = k.float().repeat_interleave(rep, dim=1)
+    vs = v.float().repeat_interleave(rep, dim=1)
+    mask = qv[None, :] & qv[:, None] & (pos[None, :] <= pos[:, None])
+    m, l, acc = merge(m, l, acc, ks, vs, window_mask(mask, pos))
+
+    out = acc / l.clamp(min=1e-30)
+    return out.transpose(0, 1).to(q.dtype)
+
+
+def prefix_prefill_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_ids: torch.Tensor,
+    positions: torch.Tensor,
+    cache: kvc.KVCache,
+    block_tables: torch.Tensor,
+    prefix_len: int,
+    layer_idx: int,
+    kv_bits: int,
+    sm_scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Chunked-prefill attention (chunked prefill and prefix compute-skip):
+    one sequence's chunk attends its cached prefix pages (keys below the
+    host integer prefix_len) plus its own tokens causally, by absolute
+    position. Rows of padding attend nothing; their values are never read
+    (the plain version averages V there, the kernel writes 0)."""
+    if q.is_cuda:
+        if kv_bits != 4:
+            raise NotImplementedError(
+                "KV8 prefix-prefill attention is not ported yet (ROADMAP "
+                "queue 1, remaining precisions)"
+            )
+        from qserve_tpu_torch.kernels.prefix_attention import (
+            prefix_prefill_attention as kernel,
+        )
+
+        D = q.shape[-1]
+        # a mixed step hands in row slices of the packed stream
+        return kernel(
+            q.contiguous(), k.contiguous(), v.contiguous(), segment_ids,
+            positions, cache.data[layer_idx], cache.scales[layer_idx],
+            block_tables[0].contiguous(), prefix_len,
+            sm_scale if sm_scale is not None else 1.0 / (D**0.5),
+            sliding_window or 0,
+        )
+    return prefix_prefill_attention_plain(
+        q, k, v, segment_ids, positions, cache, block_tables, prefix_len,
+        layer_idx, kv_bits, sm_scale, sliding_window,
+    )
 
 
 def paged_decode_attention_plain(

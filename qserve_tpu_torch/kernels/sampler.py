@@ -1,0 +1,66 @@
+"""K7: wrapper of the filtered (top-k / top-p) sampling kernel
+(csrc/sampler.cu).
+
+Replaces qserve_tpu/kernels/pallas_sampler.py _sample_call. The TPU
+kernel's shape limits (B % 8, V % 128) do not apply. Randomness is
+explicit: the kernel draws its Gumbel noise from Philox keyed by the
+(seed, offset) it is given, or takes the noise as a [B, V] operand, which
+makes a draw checkable bit for bit against the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from qserve_tpu_torch.kernels import _build
+
+NAME = "sample_filtered"
+_U64 = ctypes.c_uint64
+_ARGS = [_build.P] * 4 + [_U64, _U64, _build.P] + [_build.I] * 4 + [_build.P]
+
+
+def sample_filtered(
+    scaled: torch.Tensor,  # f32 [B, V], logits / temperature
+    k_eff: torch.Tensor,  # int32 [B] in [1, V]; V = top-k off
+    top_p: torch.Tensor,  # f32 [B], floored at 1e-9; >= 1 = top-p off
+    do_topk: bool,  # some row has k_eff < V (decided on the host)
+    do_topp: bool,  # some row has top_p < 1
+    seed: int = 0,
+    offset: int = 0,
+    noise: Optional[torch.Tensor] = None,  # f32 [B, V] Gumbel noise
+) -> torch.Tensor:
+    """Token ids int32 [B]: argmax(scaled + g) over each row's exact
+    top-k / top-p kept set."""
+    B, V = scaled.shape
+    checks = [
+        (scaled, torch.float32, (B, V), "scaled"),
+        (k_eff, torch.int32, (B,), "k_eff"),
+        (top_p, torch.float32, (B,), "top_p"),
+    ]
+    if noise is not None:
+        checks.append((noise, torch.float32, (B, V), "noise"))
+    for t, dt, shape, what in checks:
+        if not t.is_cuda or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{what}: want CUDA {dt} {shape}, got {t.device} {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+    out = torch.empty((B,), dtype=torch.int32, device=scaled.device)
+    if B == 0:
+        return out
+    fn = _build.function("sampler", "qs_sample_filtered", _ARGS)
+    mask64 = (1 << 64) - 1
+    rc = fn(
+        scaled.data_ptr(), k_eff.data_ptr(), top_p.data_ptr(),
+        noise.data_ptr() if noise is not None else None,
+        int(seed) & mask64, int(offset) & mask64, out.data_ptr(), B, V,
+        int(do_topk), int(do_topp), _build.stream(),
+    )
+    _build.check(NAME, rc)
+    _build.count_launch(NAME)
+    return out

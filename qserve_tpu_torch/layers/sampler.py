@@ -6,18 +6,23 @@ the host without reading the device.
 
   all greedy                    -> argmax
   raw temperature (no filters)  -> Gumbel-argmax over the scaled row
-  top-k / top-p                 -> on the CPU, the JAX package's sort-free
-                                   threshold bisection (threshold_mask);
-                                   on CUDA it needs the filtered-sampler
-                                   kernel, which is not ported yet, and
-                                   raises rather than run plain PyTorch in
-                                   its place.
+  top-k / top-p                 -> the exact kept sets, then a Gumbel-argmax
+                                   over them: on CUDA the filtered-sampler
+                                   kernel (kernels/sampler.py), on the CPU
+                                   its plain version, the JAX package's
+                                   sort-free threshold bisection
+                                   (threshold_mask).
 
-The random draws come from an explicit torch.Generator; they differ from
-jax.random's, so only greedy streams are comparable across the packages.
+The random draws are explicit: a torch.Generator for the plain draws, a
+(seed, offset) pair drawn on the host from `seed_generator` for the
+kernel's counter-based generator, or a caller's [B, V] Gumbel noise in
+place of either. They differ from jax.random's, so only greedy streams and
+draws under injected noise are comparable across the packages.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -25,12 +30,6 @@ NEG_INF = -1e30
 
 _BISECT_PASSES = 14  # 9^14 ~ 2^44 interval shrink: past f32 resolution
 _BISECT_SUB = 8  # 8 thresholds evaluated per pass
-
-FILTERED_SAMPLER_ITEM = (
-    "top-k/top-p sampling on CUDA needs the filtered-sampler kernel "
-    "(pallas_sampler._sample_call), not ported yet: ROADMAP queue 2, item 9"
-)
-
 
 def _bisect_threshold(values, weights, target, lo0, hi0):
     """Per-row threshold lo of the decreasing step function
@@ -80,12 +79,45 @@ def threshold_mask(scaled, top_p, top_k):
     return torch.where(masked > lo_p[:, None], masked, NEG_INF)
 
 
+def sample_filtered_plain(scaled, top_p, top_k, noise):
+    """Plain version of the filtered-sampler kernel: the Gumbel-argmax of
+    `noise` over threshold_mask's kept sets. Token ids int64 [B]."""
+    return (threshold_mask(scaled, top_p, top_k) + noise).argmax(dim=-1)
+
+
+def _sample_filtered_cuda(scaled, top_p, top_k, noise, seed_generator):
+    """The filtered-sampler kernel on host filter vectors [B]; which
+    bisections the batch needs is decided here, on the host."""
+    from qserve_tpu_torch.kernels.sampler import sample_filtered
+
+    V = scaled.shape[1]
+    k_eff = torch.where(top_k <= 0, V, top_k.clamp(1, V)).to(torch.int32)
+    p_target = top_p.clamp(min=1e-9).to(torch.float32)
+    seed = offset = 0
+    if noise is None:
+        if seed_generator is None:
+            raise ValueError(
+                "filtered sampling on CUDA needs a host seed_generator or noise"
+            )
+        seed, offset = torch.randint(
+            0, 2**62, (2,), generator=seed_generator, dtype=torch.int64
+        ).tolist()
+    dev = scaled.device
+    return sample_filtered(
+        scaled.contiguous(), k_eff.to(dev), p_target.to(dev),
+        bool((k_eff < V).any()), bool((top_p < 1.0).any()),
+        seed, offset, noise,
+    )
+
+
 def sample(
     logits: torch.Tensor,  # [B, V] f32/bf16 on the compute device
     temperature: torch.Tensor,  # host f32 [B]; 0 => greedy
     top_p: torch.Tensor,  # host f32 [B] in (0, 1]
     top_k: torch.Tensor,  # host int32 [B]; 0 or >= V => off
     generator: torch.Generator,  # on logits.device
+    seed_generator: Optional[torch.Generator] = None,  # on the host
+    noise: Optional[torch.Tensor] = None,  # f32 [B, V] Gumbel noise
 ) -> torch.Tensor:
     """Returns sampled token ids [B] int32 on logits.device."""
     logits = logits.to(torch.float32)
@@ -99,13 +131,16 @@ def sample(
     filtered = sampling & ((k_eff < V) | (top_p < 1.0))
     scaled = logits / temperature.clamp(min=1e-6).to(dev)[:, None]
     if bool(filtered.any()):
+        # rows without a filter of their own get top_p = 1, top_k = 0, so
+        # the bisections see exactly the rows that need them
+        p_eff = torch.where(filtered, top_p, 1.0)
+        k_in = torch.where(filtered, top_k, 0)
         if logits.is_cuda:
-            raise NotImplementedError(FILTERED_SAMPLER_ITEM)
-        scaled = threshold_mask(
-            scaled,
-            torch.where(filtered, top_p, 1.0),
-            torch.where(filtered, top_k, 0),
-        )
-    u = torch.rand(scaled.shape, generator=generator, device=dev)
-    sampled = (scaled - torch.log(-torch.log(u))).argmax(dim=-1).to(torch.int32)
+            sampled = _sample_filtered_cuda(scaled, p_eff, k_in, noise, seed_generator)
+            return torch.where(sampling.to(dev), sampled, greedy_ids)
+        scaled = threshold_mask(scaled, p_eff, k_in)
+    if noise is None:
+        u = torch.rand(scaled.shape, generator=generator, device=dev)
+        noise = -torch.log(-torch.log(u))
+    sampled = (scaled + noise).argmax(dim=-1).to(torch.int32)
     return torch.where(sampling.to(dev), sampled, greedy_ids)

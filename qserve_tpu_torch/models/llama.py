@@ -5,6 +5,9 @@
     quantized KV pages and computes logits on each prompt's last token only;
   * single-token decode attends the paged history plus the current token's
     exact K/V, then appends every layer's new K/V in one batched write;
+  * a prompt chunk attends the sequence's cached prefix pages plus itself
+    (chunked prefill, prefix compute-skip), alone or fused with a decode
+    batch into one packed [T+B] stream;
   * stacked [L, ...] weights stay stacked: a Python loop over layers takes
     views (`qweight[li]`), which copy nothing;
   * RMSNorm->INT8, SwiGLU->INT8 and attention-out->INT8 handoffs keep the
@@ -333,6 +336,134 @@ def prefill_from_hidden(
     return _lm_head(h_last, params, args), kv
 
 
+def _decode_slots(block_tables, context_lens, page_size):
+    """(positions, page_ids, slots) of each decode row's current token;
+    rows with ctx == 0 are padding and drop their write (page -1)."""
+    positions = context_lens - 1
+    active = context_lens > 0
+    logical_page = torch.where(active, positions // page_size, 0)
+    page_ids = torch.where(
+        active,
+        torch.gather(block_tables, 1, logical_page[:, None].long())[:, 0],
+        -1,
+    ).to(torch.int32)
+    slots = torch.where(active, positions % page_size, 0).to(torch.int32)
+    return positions, page_ids, slots
+
+
+def prefill_chunk(
+    params: LlamaParams,
+    kv: kvc.KVCache,
+    token_ids: torch.Tensor,  # [T] int32, ONE prompt's chunk (0-padded tail)
+    positions: torch.Tensor,  # [T] int32 absolute positions (>= start)
+    segment_ids: torch.Tensor,  # [T] int32, 0 = padding
+    page_ids: torch.Tensor,  # [T] int32 destination page (-1 = drop)
+    slots: torch.Tensor,  # [T] int32
+    last_token_idx: torch.Tensor,  # [1] int32
+    block_tables: torch.Tensor,  # [1, maxP] int32, for the cached prefix
+    prefix_len: int,  # host int: positions [0, prefix_len) are cached
+    args: LlamaArgs,
+) -> Tuple[torch.Tensor, kvc.KVCache]:
+    """Prefill one chunk of a prompt whose prefix KV is already cached
+    (chunked prefill / prefix compute-skip). Returns (logits [1, V], kv
+    updated in place)."""
+    h = params.embed[token_ids.long()].to(torch.bfloat16)
+    return prefill_chunk_from_hidden(
+        params, kv, h, positions, segment_ids, page_ids, slots,
+        last_token_idx, block_tables, prefix_len, args,
+    )
+
+
+def prefill_chunk_from_hidden(
+    params: LlamaParams,
+    kv: kvc.KVCache,
+    h: torch.Tensor,  # [T, E] input embeddings
+    positions: torch.Tensor,
+    segment_ids: torch.Tensor,
+    page_ids: torch.Tensor,
+    slots: torch.Tensor,
+    last_token_idx: torch.Tensor,
+    block_tables: torch.Tensor,
+    prefix_len: int,
+    args: LlamaArgs,
+) -> Tuple[torch.Tensor, kvc.KVCache]:
+    cos, sin = rope.rope_cos_sin(positions, args.head_dim, args.rope_theta)
+
+    def attend(q, k, v, li):
+        return attention.prefix_prefill_attention(
+            q, k, v, segment_ids, positions, kv, block_tables, prefix_len,
+            li, args.quant.kv_bits, sliding_window=args.sliding_window,
+        )
+
+    h, (k_all, v_all) = _run_layers(params, h, cos, sin, args, attend)
+    kv = kvc.append_all_layers(
+        kv, k_all, v_all, page_ids, slots,
+        args.quant.kv_bits, args.quant.kv_zero_point,
+    )
+    h_last = ops.rmsnorm(h[last_token_idx.long()], params.final_ln, args.rms_eps)
+    return _lm_head(h_last, params, args), kv
+
+
+def prefill_chunk_with_decode(
+    params: LlamaParams,
+    kv: kvc.KVCache,
+    token_ids: torch.Tensor,  # [T] int32, ONE prompt's chunk (0-padded tail)
+    positions: torch.Tensor,  # [T] int32 absolute positions (>= start)
+    segment_ids: torch.Tensor,  # [T] int32, 0 = padding
+    page_ids: torch.Tensor,  # [T] int32 destination page (-1 = drop)
+    slots: torch.Tensor,  # [T] int32
+    last_token_idx: torch.Tensor,  # [1] int32
+    chunk_tables: torch.Tensor,  # [1, maxP] int32, the chunk's cached prefix
+    prefix_len: int,  # host int
+    d_token_ids: torch.Tensor,  # [B] int32 decode batch current tokens
+    d_block_tables: torch.Tensor,  # [B, maxP] int32
+    d_context_lens: torch.Tensor,  # [B] int32 incl. current token; 0 = pad row
+    args: LlamaArgs,
+) -> Tuple[torch.Tensor, kvc.KVCache]:
+    """One prefill chunk AND a decode batch in a single step: the chunk's
+    [T] tokens and the decode batch's [B] tokens run as one packed [T+B]
+    stream through every GEMM and elementwise kernel, so the decode rows
+    share the chunk's pass over the weights and running sequences keep
+    generating while a long prompt admits. Attention splits by row span:
+    rows [:T] take the prefix-prefill op, rows [T:] the paged decode op.
+    Returns (logits [1+B, V], kv updated in place): row 0 = the chunk's
+    last token (meaningful on the final chunk only), rows 1: = decode rows.
+    """
+    T = token_ids.shape[0]
+    d_positions, d_page_ids, d_slots = _decode_slots(
+        d_block_tables, d_context_lens, kv.page_size
+    )
+    h = params.embed[torch.cat([token_ids, d_token_ids]).long()].to(torch.bfloat16)
+    cos, sin = rope.rope_cos_sin(
+        torch.cat([positions, d_positions]), args.head_dim, args.rope_theta
+    )
+
+    def attend(q, k, v, li):
+        oc = attention.prefix_prefill_attention(
+            q[:T], k[:T], v[:T], segment_ids, positions, kv, chunk_tables,
+            prefix_len, li, args.quant.kv_bits,
+            sliding_window=args.sliding_window,
+        )
+        od = attention.paged_decode_attention(
+            q[T:], kv, d_block_tables, d_context_lens, li, k[T:], v[T:],
+            args.quant.kv_bits, sliding_window=args.sliding_window,
+        )
+        return torch.cat([oc, od], dim=0)
+
+    h, (k_all, v_all) = _run_layers(params, h, cos, sin, args, attend)
+    kv = kvc.append_all_layers(
+        kv, k_all[:, :T], v_all[:, :T], page_ids, slots,
+        args.quant.kv_bits, args.quant.kv_zero_point,
+    )
+    kv = kvc.append_all_layers(
+        kv, k_all[:, T:], v_all[:, T:], d_page_ids, d_slots,
+        args.quant.kv_bits, args.quant.kv_zero_point,
+    )
+    h_sel = torch.cat([h[last_token_idx.long()], h[T:]], dim=0)  # [1+B, E]
+    h_sel = ops.rmsnorm(h_sel, params.final_ln, args.rms_eps)
+    return _lm_head(h_sel, params, args), kv
+
+
 def decode(
     params: LlamaParams,
     kv: kvc.KVCache,
@@ -344,16 +475,9 @@ def decode(
     """One decode step. Attention reads the cache (positions < ctx-1) and
     the current token's fresh K/V; the appends for all layers follow in one
     batched write. Returns (logits [B, V], kv updated in place)."""
-    ps = kv.page_size
-    positions = context_lens - 1
-    active = context_lens > 0
-    logical_page = torch.where(active, positions // ps, 0)
-    page_ids = torch.where(
-        active,
-        torch.gather(block_tables, 1, logical_page[:, None].long())[:, 0],
-        -1,
-    ).to(torch.int32)
-    slots = torch.where(active, positions % ps, 0).to(torch.int32)
+    positions, page_ids, slots = _decode_slots(
+        block_tables, context_lens, kv.page_size
+    )
 
     h = params.embed[token_ids.long()].to(torch.bfloat16)
     cos, sin = rope.rope_cos_sin(positions, args.head_dim, args.rope_theta)

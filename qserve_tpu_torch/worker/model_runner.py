@@ -1,9 +1,11 @@
-"""Model runner: marshals scheduler output into prefill / decode steps
-(qserve_tpu/worker/model_runner.py).
+"""Model runner: marshals scheduler output into prefill, chunk, mixed
+chunk+decode and decode steps (qserve_tpu/worker/model_runner.py).
 
-Shapes are bucketed as in the JAX package (prefill tokens to a power of two
->= 16, decode batch to a power of two), so the kernels see the same padded
-shapes. Sampling runs on the device; only the sampled ids [B] cross back.
+Shapes are bucketed as in the JAX package (prefill and chunk tokens to a
+power of two >= 16, decode batch to a power of two), so the kernels see the
+same padded shapes. Sampling runs on the device; only the sampled ids [B]
+cross back. A chunk's start is a host integer and reaches the attention
+kernel as a scalar argument, never through a device read.
 """
 
 from __future__ import annotations
@@ -20,15 +22,6 @@ from qserve_tpu_torch.sequence import SequenceGroupMetadata
 from qserve_tpu_torch.utils.utils import bucket, resolve_device
 
 _SAMPLING_EPS = 1e-5
-
-
-def chunked_prefill_unported() -> NotImplementedError:
-    return NotImplementedError(
-        "chunked prefill / prefix-continuation steps need the prefix-prefill "
-        "attention kernel (pallas_prefix_attention.prefix_prefill_attention_"
-        "pallas), not ported yet: ROADMAP queue 1, item 8 (chunked prefill); "
-        "serve with enable_chunked_prefill=False, as the port's EngineArgs does"
-    )
 
 
 def sample_host(
@@ -83,6 +76,9 @@ class ModelRunner:
         self.max_num_batched_tokens = max_num_batched_tokens
         self.max_num_seqs = max_num_seqs
         self.generator = torch.Generator(device=self.device).manual_seed(rng_seed)
+        # host generator of the filtered-sampling kernel's (seed, offset):
+        # drawing them reads nothing from the device
+        self.seed_generator = torch.Generator(device="cpu").manual_seed(rng_seed)
         self._host_rng = np.random.default_rng(rng_seed + 1)
         # seq_id -> extra candidate tokens from the latest prefill (best_of>1)
         self.last_extra_samples: Dict[int, List[int]] = {}
@@ -119,7 +115,34 @@ class ModelRunner:
 
     def _sample(self, logits, sp_list, pad_to) -> torch.Tensor:
         temp, topp, topk = self._sampling_arrays(sp_list, pad_to)
-        return sampler_mod.sample(logits, temp, topp, topk, self.generator)
+        return sampler_mod.sample(
+            logits, temp, topp, topk, self.generator,
+            seed_generator=self.seed_generator,
+        )
+
+    def _extra_samples(self, logits_row, sp) -> List[int]:
+        """best_of - 1 more first tokens of a completed prompt, host-sampled
+        from its last-token logits."""
+        return sample_host(
+            logits_row.float().cpu().numpy(), sp, self._host_rng, sp.best_of - 1
+        )
+
+    def _pack_chunk(self, md: SequenceGroupMetadata):
+        """Device inputs of one chunk [start, end) of one prompt:
+        (seq_id, start, end, prompt_len, (tok, pos, seg, pages, slots,
+        last_idx), block table [1, maxP])."""
+        (seq_id, data), = md.seq_data.items()
+        start, end = md.chunk
+        ids = data.get_token_ids()[start:end]
+        table = md.block_tables[seq_id]
+        T = bucket(len(ids), 16, self.max_num_batched_tokens * 2)
+        tok, pos, sg, pg, sl, _, li, _ = native.pack_prefill(
+            [ids], [table], self.block_size, T, 1, starts=[start]
+        )
+        bt = np.zeros((1, self.max_pages_per_seq), np.int32)
+        bt[0, : len(table)] = table
+        packed = tuple(map(self._dev, (tok, pos, sg, pg, sl, li)))
+        return seq_id, start, end, data.get_len(), packed, self._dev(bt)
 
     # ------------------------------------------------------------------
     def execute_prefill(
@@ -129,17 +152,22 @@ class ModelRunner:
     ) -> List[Tuple[int, int]]:
         """Returns [(seq_id, sampled_token)] in schedule order."""
         if any(md.chunk is not None and md.chunk[0] > 0 for md in metadata):
-            raise chunked_prefill_unported()
+            # prefix-continuation step (chunked prefill / prefix skip): the
+            # scheduler emits these alone (one sequence)
+            assert len(metadata) == 1
+            return self._execute_prefill_chunk(metadata[0], cache_engine)
 
         prompts: List[List[int]] = []
         tables: List[List[int]] = []
         seq_order: List[int] = []
         sp_list = []
+        completes: List[bool] = []  # this step finishes the prompt
         for md in metadata:
             for seq_id, data in md.seq_data.items():
                 ids = data.get_token_ids()
-                if md.chunk is not None and md.chunk[1] < data.get_len():
-                    raise chunked_prefill_unported()
+                if md.chunk is not None:  # first chunk of a long prompt
+                    ids = ids[md.chunk[0] : md.chunk[1]]
+                completes.append(md.chunk is None or md.chunk[1] >= data.get_len())
                 prompts.append(ids)
                 tables.append(md.block_tables[seq_id])
                 seq_order.append(seq_id)
@@ -159,22 +187,56 @@ class ModelRunner:
         toks = self._sample(logits, sp_list, B)
 
         self.last_extra_samples = {}
-        if any(sp.best_of > 1 for sp in sp_list):
-            logits_np = logits.float().cpu().numpy()
-            for i, (sid, sp) in enumerate(zip(seq_order, sp_list)):
-                if sp.best_of > 1:
-                    self.last_extra_samples[sid] = sample_host(
-                        logits_np[i], sp, self._host_rng, sp.best_of - 1
-                    )
+        for i, (sid, sp) in enumerate(zip(seq_order, sp_list)):
+            if sp.best_of > 1 and completes[i]:
+                self.last_extra_samples[sid] = self._extra_samples(logits[i], sp)
         out = toks.cpu().numpy()
         return [(sid, int(out[i])) for i, sid in enumerate(seq_order)]
 
     # ------------------------------------------------------------------
-    def execute_decode(
+    def _execute_prefill_chunk(
+        self, md: SequenceGroupMetadata, cache_engine
+    ) -> List[Tuple[int, int]]:
+        """One chunk of one prompt whose prefix KV is already cached."""
+        seq_id, start, end, prompt_len, packed, bt = self._pack_chunk(md)
+        logits, cache_engine.cache = llama.prefill_chunk(
+            self.params, cache_engine.cache, *packed, bt, start, self.model_args
+        )
+        sp = md.sampling_params
+        toks = self._sample(logits, [sp], 1)
+        self.last_extra_samples = {}
+        if sp.best_of > 1 and end == prompt_len:
+            # final chunk of an n>1 prompt: host-sample the extra candidates
+            self.last_extra_samples[seq_id] = self._extra_samples(logits[0], sp)
+        return [(seq_id, int(toks.cpu().numpy()[0]))]
+
+    # ------------------------------------------------------------------
+    def execute_chunk_with_decode(
         self,
-        metadata: List[SequenceGroupMetadata],
+        chunk_md: SequenceGroupMetadata,
+        decode_mds: List[SequenceGroupMetadata],
         cache_engine,
     ) -> List[Tuple[int, int]]:
+        """Mixed step: one prefill chunk + the running decode batch in a
+        single [T+B] forward, so running sequences keep generating while a
+        long prompt admits."""
+        seq_id, start, _, _, packed, bt = self._pack_chunk(chunk_md)
+        d_order, d_sps, d_packed, B = self._pack_decode(decode_mds)
+        logits, cache_engine.cache = llama.prefill_chunk_with_decode(
+            self.params, cache_engine.cache, *packed, bt, start, *d_packed,
+            self.model_args,
+        )
+        toks = self._sample(logits, [chunk_md.sampling_params] + d_sps, 1 + B)
+        self.last_extra_samples = {}
+        out = toks.cpu().numpy()
+        return [(seq_id, int(out[0]))] + [
+            (sid, int(out[1 + i])) for i, sid in enumerate(d_order)
+        ]
+
+    # ------------------------------------------------------------------
+    def _pack_decode(self, metadata: List[SequenceGroupMetadata]):
+        """(seq ids, their sampling params, device (tokens, block tables,
+        context lens), padded batch B) of a decode batch."""
         seq_order: List[int] = []
         tokens: List[int] = []
         ctx: List[int] = []
@@ -187,14 +249,21 @@ class ModelRunner:
                 ctx.append(data.get_len())
                 tables.append(md.block_tables[seq_id])
                 sp_list.append(md.sampling_params)
-
         B = bucket(len(seq_order), 1, self.max_num_seqs)
         tok, cl, bt = native.pack_decode(
             tokens, ctx, tables, B, self.max_pages_per_seq
         )
+        return seq_order, sp_list, tuple(map(self._dev, (tok, bt, cl))), B
+
+    # ------------------------------------------------------------------
+    def execute_decode(
+        self,
+        metadata: List[SequenceGroupMetadata],
+        cache_engine,
+    ) -> List[Tuple[int, int]]:
+        seq_order, sp_list, packed, B = self._pack_decode(metadata)
         logits, cache_engine.cache = llama.decode(
-            self.params, cache_engine.cache,
-            *map(self._dev, (tok, bt, cl)), self.model_args,
+            self.params, cache_engine.cache, *packed, self.model_args
         )
         toks = self._sample(logits, sp_list, B)
         self.last_extra_samples = {}

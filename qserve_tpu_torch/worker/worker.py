@@ -9,7 +9,7 @@ from qserve_tpu_torch.core.scheduler import SchedulerOutputs
 from qserve_tpu_torch.models import llama
 from qserve_tpu_torch.sequence import SequenceGroupMetadata
 from qserve_tpu_torch.worker.cache_engine import CacheEngine
-from qserve_tpu_torch.worker.model_runner import ModelRunner, chunked_prefill_unported
+from qserve_tpu_torch.worker.model_runner import ModelRunner
 
 
 class Worker:
@@ -59,12 +59,15 @@ class Worker:
         if not seq_group_metadata_list:
             return []
         if scheduler_outputs.prompt_run:
-            if any(not md.is_prompt for md in seq_group_metadata_list):
-                # mixed step: a prefill chunk riding with the decode batch
-                raise chunked_prefill_unported()
-            return self.model_runner.execute_prefill(
-                seq_group_metadata_list, self.cache_engine
-            )
+            prompt_mds = [md for md in seq_group_metadata_list if md.is_prompt]
+            decode_mds = [md for md in seq_group_metadata_list if not md.is_prompt]
+            if decode_mds:
+                # mixed step: one prefill chunk + the running decode batch
+                assert len(prompt_mds) == 1
+                return self.model_runner.execute_chunk_with_decode(
+                    prompt_mds[0], decode_mds, self.cache_engine
+                )
+            return self.model_runner.execute_prefill(prompt_mds, self.cache_engine)
         return self.model_runner.execute_decode(
             seq_group_metadata_list, self.cache_engine
         )

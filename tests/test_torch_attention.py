@@ -1,7 +1,8 @@
-"""Port parity: prefill and paged-decode attention (the plain versions the
-CUDA kernels are held to) against qserve_tpu.kernels.attention's XLA
-fallbacks, within atol 2e-2 in bf16, padding rows and ctx == 0 rows
-included. The tolerance covers bf16 output rounding plus the two sides'
+"""Port parity: prefill, prefix-prefill (chunk) and paged-decode attention
+(the plain versions the CUDA kernels are held to) against
+qserve_tpu.kernels.attention's XLA fallbacks (on the CPU the JAX ops do not
+dispatch to their Pallas kernels), within atol 2e-2 in bf16, padding rows
+and ctx == 0 rows included. The tolerance covers bf16 output rounding plus the two sides'
 different f32 summation orders."""
 
 import jax.numpy as jnp
@@ -24,6 +25,24 @@ def _bf16(shape, seed):
     return xt, jnp.asarray(to_np(xt)).astype(jnp.bfloat16)
 
 
+def _filled_cache(L, P, H, ps, D, seed):
+    """A cache whose every byte is a valid pair of nibbles, with positive
+    scales and zeros around -1.5, on both sides."""
+    cache = tkvc.create_kv_cache(L, P, H, ps, D, 4, device="cpu")
+    r = np.random.default_rng(seed)
+    cache.data.copy_(torch.from_numpy(r.integers(-128, 128, cache.data.shape)
+                                      .astype(np.int8)))
+    sc = r.random(cache.scales.shape).astype(np.float32) * 0.2
+    sc[:, :, :, H:, :] -= 1.5
+    cache.scales.copy_(torch.from_numpy(sc))
+    jcache = jkvc.KVCache(
+        jnp.asarray(cache.data.numpy()),
+        jnp.asarray(to_np(cache.scales)).astype(
+            jnp.bfloat16 if cache.scales.dtype == torch.bfloat16 else jnp.float32),
+    )
+    return cache, jcache
+
+
 @pytest.mark.parametrize("window", [None, 5])
 def test_prefill_attention(window):
     T, Hq, Hkv, D = 48, 4, 2, 32
@@ -43,19 +62,7 @@ def test_prefill_attention(window):
 def test_paged_decode_attention(H, window):
     L, P, ps, D, rep = 2, 10, 16, 32, 2
     B, Hq = 5, H * rep
-    cache = tkvc.create_kv_cache(L, P, H, ps, D, 4, device="cpu")
-    r = np.random.default_rng(H)
-    # a filled cache: every byte a valid pair of nibbles, positive scales
-    cache.data.copy_(torch.from_numpy(r.integers(-128, 128, cache.data.shape)
-                                      .astype(np.int8)))
-    sc = r.random(cache.scales.shape).astype(np.float32) * 0.2
-    sc[:, :, :, H:, :] -= 1.5  # the zero rows: offsets around -1.5
-    cache.scales.copy_(torch.from_numpy(sc))
-    jcache = jkvc.KVCache(
-        jnp.asarray(cache.data.numpy()),
-        jnp.asarray(to_np(cache.scales)).astype(
-            jnp.bfloat16 if H == 8 else jnp.float32),
-    )
+    cache, jcache = _filled_cache(L, P, H, ps, D, seed=H)
     bt = np.array([[3, 1, 7], [0, 2, 0], [5, 0, 0], [9, 8, 6], [0, 0, 0]], np.int32)
     ctx = np.array([40, 17, 1, 48, 0], np.int32)  # ctx 1: self only; 0: pad row
     (qt, qj), (kt, kj), (vt, vj) = (_bf16((B, h, D), s) for s, h in
@@ -72,3 +79,67 @@ def test_paged_decode_attention(H, window):
         out = to_np(got)
         assert np.isfinite(out).all()
         np.testing.assert_allclose(out, np.asarray(want, np.float32), atol=ATOL)
+
+
+def _chunk(T, live, Hq, H, D, prefix_len):
+    qkv = [_bf16((T, h, D), s) for s, h in ((6, Hq), (7, H), (8, H))]
+    seg = np.zeros(T, np.int32)
+    seg[:live] = 1
+    pos = np.zeros(T, np.int32)
+    pos[:live] = prefix_len + np.arange(live)
+    return qkv, seg, pos
+
+
+@pytest.mark.parametrize("H", [8, 2])  # bf16 and f32 scales
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("prefix_len", [0, 64, 97])
+def test_prefix_prefill_attention(prefix_len, window, H):
+    """A 41-token chunk (7 padding rows) over a cached prefix that ends on a
+    page boundary, mid-page, or is empty. Live rows within ATOL; padding
+    rows attend nothing and stay finite (neither side reads them)."""
+    L, P, ps, D, rep, T, live = 2, 12, 16, 32, 2, 48, 41
+    cache, jcache = _filled_cache(L, P, H, ps, D, seed=H + prefix_len)
+    bt = np.zeros((1, 10), np.int32)
+    bt[0, :7] = [5, 0, 9, 3, 11, 7, 2]
+    ((qt, qj), (kt, kj), (vt, vj)), seg, pos = _chunk(T, live, H * rep, H, D,
+                                                      prefix_len)
+    got = tattn.prefix_prefill_attention(
+        qt, kt, vt, torch.from_numpy(seg), torch.from_numpy(pos), cache,
+        torch.from_numpy(bt), prefix_len, 1, 4, sliding_window=window,
+    )
+    want = jattn.prefix_prefill_attention(
+        qj, kj, vj, jnp.asarray(seg), jnp.asarray(pos), jcache, jnp.asarray(bt),
+        jnp.int32(prefix_len), jnp.int32(1), 4, sliding_window=window,
+    )
+    out = to_np(got)
+    assert got.dtype == torch.bfloat16 and out.shape == (T, H * rep, D)
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out[:live], np.asarray(want, np.float32)[:live],
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("window", [None, 9])
+def test_prefix_prefill_without_prefix_is_prefill(window):
+    """prefix_len 0: the chunk op is the packed prefill op on one segment."""
+    H, rep, D, T, live = 2, 2, 32, 48, 41
+    cache, _ = _filled_cache(1, 4, H, 16, D, seed=0)
+    ((qt, _), (kt, _), (vt, _)), seg, pos = _chunk(T, live, H * rep, H, D, 0)
+    seg_t = torch.from_numpy(seg)
+    got = tattn.prefix_prefill_attention(
+        qt, kt, vt, seg_t, torch.from_numpy(pos), cache,
+        torch.zeros((1, 4), dtype=torch.int32), 0, 0, 4, sliding_window=window,
+    )
+    want = tattn.prefill_attention(qt, kt, vt, seg_t, sliding_window=window)
+    np.testing.assert_allclose(to_np(got)[:live], to_np(want)[:live], atol=ATOL)
+
+
+def test_prefix_kernel_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper never runs the plain version in its place."""
+    from qserve_tpu_torch.kernels import prefix_attention as kprefix
+
+    cache, _ = _filled_cache(1, 4, 2, 16, 64, seed=1)
+    ((q, _), (k, _), (v, _)), seg, pos = _chunk(16, 10, 4, 2, 64, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        kprefix.prefix_prefill_attention(
+            q, k, v, torch.from_numpy(seg), torch.from_numpy(pos), cache.data[0],
+            cache.scales[0], torch.zeros(4, dtype=torch.int32), 16, 0.125)

@@ -61,6 +61,97 @@ def test_sample_greedy_and_filtered_on_cpu():
     np.testing.assert_array_equal(picked.numpy(), greedy.numpy())
 
 
+def _filtered_case(seed, B=6, V=300):
+    r = np.random.default_rng(seed)
+    logits = (r.standard_normal((B, V)) * 2).astype(np.float32)
+    u = r.random((B, V)).astype(np.float32).clip(2.0**-24, None)
+    return logits, -np.log(-np.log(u))
+
+
+@pytest.mark.parametrize("top_k,top_p", [(5, 1.0), (0, 0.7), (7, 0.5), (40, 0.95)])
+def test_filtered_draw_with_injected_noise(top_k, top_p):
+    """The port's filtered draw under a given Gumbel noise tensor is the
+    argmax of that noise over the JAX package's kept sets; greedy and
+    unfiltered rows ride in the same batch."""
+    logits, noise = _filtered_case(3)
+    temp = np.array([0.8, 0.0, 1.3, 0.8, 0.5, 0.0], np.float32)
+    tk = np.array([top_k, 0, top_k, 0, 3, 9], np.int32)
+    tp = np.array([top_p, 1.0, 1.0, 1.0, top_p, 0.3], np.float32)
+    got = tsampler.sample(
+        torch.from_numpy(logits), torch.from_numpy(temp), torch.from_numpy(tp),
+        torch.from_numpy(tk), torch.Generator().manual_seed(0),
+        noise=torch.from_numpy(noise),
+    ).numpy()
+    sampling = temp > 0
+    filt = sampling & ((tk > 0) | (tp < 1.0))
+    scaled = logits / np.maximum(temp, 1e-6)[:, None]
+    masked = jsampler.threshold_mask(
+        jnp.asarray(scaled), jnp.asarray(np.where(filt, tp, 1.0).astype(np.float32)),
+        jnp.asarray(np.where(filt, tk, 0).astype(np.int32)))
+    want = np.where(sampling, np.asarray(masked + noise).argmax(-1),
+                    logits.argmax(-1))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_filtered_draw_keeps_ties_at_kth_value():
+    """top_k = 3 with the 3rd, 4th and 5th largest values equal keeps all
+    five; noise that favours the 5th makes it the draw."""
+    logits, noise = _filtered_case(4, B=2, V=64)
+    order = np.argsort(-logits[0])
+    logits[0, order[3:5]] = logits[0, order[2]]
+    noise[0] = 0.0
+    noise[0, order[4]] = 0.5  # wins among the tied values, not over rank 6
+    noise[0, order[5]] = 50.0  # outside the kept set whatever its noise
+    args = (torch.from_numpy(logits), torch.ones(2), torch.ones(2),
+            torch.tensor([3, 3], dtype=torch.int32), torch.Generator().manual_seed(0))
+    kept = tsampler.threshold_mask(torch.from_numpy(logits), torch.ones(2),
+                                   torch.tensor([3, 3], dtype=torch.int32)) > -1e29
+    assert kept[0].sum() == 5 and kept[1].sum() == 3
+    want_kept = np.asarray(jsampler.threshold_mask(
+        jnp.asarray(logits), jnp.ones(2), jnp.asarray([3, 3], jnp.int32))) > -1e29
+    np.testing.assert_array_equal(kept.numpy(), want_kept)
+    got = tsampler.sample(*args, noise=torch.from_numpy(noise)).numpy()
+    cand = order[:5]
+    assert got[0] == cand[np.argmax((logits[0] + noise[0])[cand])]
+
+
+@pytest.mark.parametrize("top_p", [1e-6, 0.0])
+def test_filtered_draw_tiny_top_p_keeps_the_argmax(top_p):
+    logits, noise = _filtered_case(5)
+    B = logits.shape[0]
+    got = tsampler.sample(
+        torch.from_numpy(logits), torch.full((B,), 0.9), torch.full((B,), top_p),
+        torch.zeros(B, dtype=torch.int32), torch.Generator().manual_seed(0),
+        noise=torch.from_numpy(noise),
+    ).numpy()
+    np.testing.assert_array_equal(got, logits.argmax(-1))
+
+
+def test_filtered_draw_own_generator_stays_in_kept_set():
+    """Without injected noise the CPU draw comes from the torch.Generator:
+    it repeats for the same seed and never leaves the kept set."""
+    logits, _ = _filtered_case(6)
+    B = logits.shape[0]
+    lt, temp = torch.from_numpy(logits), torch.full((B,), 0.8)
+    tp, tk = torch.full((B,), 0.8), torch.full((B,), 10, dtype=torch.int32)
+    kept = tsampler.threshold_mask(lt / 0.8, tp, tk) > -1e29
+    draws = [tsampler.sample(lt, temp, tp, tk, torch.Generator().manual_seed(s))
+             for s in (1, 1, 2, 3, 4, 5)]
+    assert torch.equal(draws[0], draws[1])
+    for d in draws:
+        assert bool(kept[torch.arange(B), d.long()].all())
+    assert len({tuple(d.tolist()) for d in draws}) > 1
+
+
+def test_filtered_kernel_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper never runs the plain version in its place."""
+    from qserve_tpu_torch.kernels import sampler as ksampler
+
+    with pytest.raises(ValueError, match="CUDA"):
+        ksampler.sample_filtered(torch.zeros(2, 8), torch.ones(2, dtype=torch.int32),
+                                 torch.ones(2), True, True)
+
+
 def test_pack_prefill_and_decode_match():
     prompts = [[5, 6, 7], list(range(1, 21)), [9]]
     tables = [[4], [0, 2], [7]]
