@@ -6,31 +6,47 @@
 1. Builds every CUDA kernel from qserve_tpu_torch/kernels/csrc (one nvcc
    per source, all at once) and prints what ptxas reported for each; the
    Triton kernel compiles at its first launch.
-2. Kernel phases: each of the seven kernels at the main paths' Llama-3-8B
-   shapes (decode B = 64, prefill and chunk T = 2048, context ~1024 and a
-   4096-token prefix over 256-token pages, sampling at [64, 128256], plus
-   small-H, D = 64, f32-scale and sliding-window cases) against its plain
-   PyTorch version on the same inputs, with the tolerance stated in the
-   phase; times the kernel, the plain version and, where one exists, one
-   PyTorch library call computing the same function (CUDA events, median
-   of 20).
+2. Kernel phases: each of the nine kernels at the main paths' shapes
+   (Llama-3-8B: decode B = 64, prefill and chunk T = 2048, context ~1024 and
+   a 4096-token prefix over 256-token pages, sampling at [64, 128256];
+   Llama-2-7B: its qkv, gate_up and ragged K = 11008 down projections,
+   SwiGLU at I = 11008, prefill, decode and chunk attention and the cache
+   append without GQA (32 kv heads), sampling at [64, 32000]; both cache
+   modes, KV4 and KV8; plus small-H, D = 64, f32-scale and sliding-window
+   cases) against its plain PyTorch version on the same
+   inputs, with the tolerance stated in the phase; times the kernel, the
+   plain version and, where one exists, one PyTorch library call computing
+   the same function (CUDA events, median of 20).
 3. Reference phase: a small model served by the kernels on the card and by
    the plain versions on the CPU (prefill, decode, one chunk step, one mixed
-   chunk+decode step); logits must agree.
-4. Engine phase: one EngineArgs -> LLMEngine at Llama-3-8B's full geometry
-   (32 layers, random W4A8KV4 per-channel weights from a seed, default
-   scheduler: chunked prefill and mixed steps on) drives two paths, the
-   launch counts set to 0 before each and read after it:
-   a. whole-prompt prefill + paged decode: 8 requests of 128-1024 prompt
-      tokens and 32 output tokens (6 greedy, 2 at temperature 0.8);
-   b. chunked prefill: 7 short requests are decoding when a ~6000-token
-      prompt arrives and admits in three chunks that ride with the decode
-      batch; two more requests share a page-aligned prefix with an earlier
-      one through prefix_pos (one rides with the decode batch, one runs
-      alone); half of the requests sample with temperature 0.8, top_p 0.9,
-      top_k 50. Every one of the seven kernels must have launched.
-5. Refusal phase: KV8 decode attention on CUDA raises (its kernel is not
-   ported yet) instead of running plain PyTorch.
+   chunk+decode step) at W4A8KV4 per-channel, W4A8KV4 g128, W4A8KV8 g128
+   with the W8 lm_head, W8A8KV8 with the W8 lm_head and W16A16KV8; logits
+   must agree.
+4. Engine phase: EngineArgs -> LLMEngine at full width and depth (32
+   layers, random weights from a seed, default scheduler: chunked prefill
+   and mixed steps on), each engine built and freed in turn, the launch
+   counts set to 0 before each path and read after it:
+   a. Llama-3-8B W4A8KV4 per-channel, whole-prompt prefill + paged decode:
+      8 requests of 128-1024 prompt tokens and 32 output tokens (6 greedy, 2
+      at temperature 0.8);
+   b. the same engine, chunked prefill: 7 short requests are decoding when a
+      ~6000-token prompt arrives and admits in three chunks that ride with
+      the decode batch; two more requests share a page-aligned prefix with
+      an earlier one through prefix_pos (one rides with the decode batch,
+      one runs alone); half of the requests sample with temperature 0.8,
+      top_p 0.9, top_k 50;
+   c. Llama-3-8B W4A8KV4 g128 with the W8 lm_head: 6 requests decode, a
+      3000-token prompt admits beside them in two mixed steps, a 2500-token
+      prompt then runs alone (a prefill and a chunk step);
+   d. Llama-2-7B W4A8KV8 g128 (43 groups a nibble plane at K = 11008, 32 kv
+      heads: attention without GQA over KV8 pages), the same traffic;
+   e. Llama-3-8B W8A8KV8, the same traffic;
+   f. Llama-3-8B W16A16KV8, the same traffic: the attention, append and
+      sampling kernels over bf16 library products, no quantizing kernel.
+   Every kernel a path's precision calls must have launched on it, and the
+   GEMMs of the other precisions must not.
+5. Refusal phase: what is still unported (tensor parallelism) raises
+   instead of running something else.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 and, last, {"ok": true, "device": {...}}. Exits non-zero, without those
@@ -54,6 +70,12 @@ LLAMA3_8B = dict(
     num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
     rope_theta=500000.0, rms_norm_eps=1e-5,
 )
+# Llama-2-7B (meta-llama/Llama-2-7b-hf config.json)
+LLAMA2_7B = dict(
+    vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+    rope_theta=10000.0, rms_norm_eps=1e-5,
+)
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and int8 ops/s
 HBM_BPS = 3.35e12
 BF16_OPS = 989e12
@@ -64,6 +86,10 @@ ROUTES = {
                     "qserve_tpu/kernels/pallas_elementwise.py:159"),
     "w4a8_gemm_per_chn": ("cuda", "qserve_tpu_torch/kernels/csrc/w4a8_gemm.cu",
                           "qserve_tpu/kernels/pallas_gemm.py:200"),
+    "w4a8_gemm_per_group": ("cuda", "qserve_tpu_torch/kernels/csrc/w4a8_gemm_per_group.cu",
+                            "qserve_tpu/kernels/pallas_gemm.py:448"),
+    "w8a8_gemm": ("cuda", "qserve_tpu_torch/kernels/csrc/w8a8_gemm.cu",
+                  "qserve_tpu/kernels/pallas_gemm.py:680"),
     "flash_prefill_attention": ("cuda", "qserve_tpu_torch/kernels/csrc/flash_attention.cu",
                                 "qserve_tpu/kernels/pallas_flash_attention.py:124"),
     "paged_decode_attention": ("cuda", "qserve_tpu_torch/kernels/csrc/paged_attention.cu",
@@ -109,7 +135,8 @@ def bound(nbytes, ops, peak):
 
 class Results:
     def __init__(self):
-        self.rows = {}
+        self.rows = {}  # kernel -> its headline row
+        self.all = []  # every (kernel, shape) row of the run
 
     def add(self, name, shape, err, ms, plain_ms, nbytes, ops, peak, library_ms):
         b, by = bound(nbytes, ops, peak)
@@ -119,6 +146,7 @@ class Results:
         row = dict(shape=shape, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                    bound_ms=b, bound_by=by, library_ms=library_ms)
         self.rows.setdefault(name, row)  # the first shape is the headline one
+        self.all.append(dict(row, name=name))
         return row
 
 
@@ -141,7 +169,8 @@ def phase_elementwise(res, dev):
     from qserve_tpu_torch.kernels import ops
 
     g = torch.Generator(device=dev).manual_seed(1)
-    E, I = LLAMA3_8B["hidden_size"], LLAMA3_8B["intermediate_size"]
+    E = LLAMA3_8B["hidden_size"]  # Llama-2-7B's too
+    widths = (LLAMA3_8B["intermediate_size"], LLAMA2_7B["intermediate_size"])
 
     def check_codes(got, want, exact):
         d = (got[0].int() - want[0].int()).abs()
@@ -182,40 +211,58 @@ def phase_elementwise(res, dev):
                 cuda_ms(lambda: ops.rmsnorm_quant_plain(x, w, 1e-5, True)),
                 T * E * 2 + E * 4 + T * E + 8 * T, 0, BF16_OPS, None)
 
-        gu = (2 * torch.randn(T, 2 * I, generator=g, device=dev)).to(torch.bfloat16)
-        err = check_codes(ops.silu_mul_quant(gu, True),
-                          ops.silu_mul_quant_plain(gu, True), exact=False)
-        res.add("elementwise", f"silu_mul_quant T={T} I={I}", err,
-                cuda_ms(lambda: ops.silu_mul_quant(gu, True)),
-                cuda_ms(lambda: ops.silu_mul_quant_plain(gu, True)),
-                T * 2 * I * 2 + T * I + 8 * T, 0, BF16_OPS, None)
+        for I in widths:
+            gu = (2 * torch.randn(T, 2 * I, generator=g, device=dev)).to(torch.bfloat16)
+            err = check_codes(ops.silu_mul_quant(gu, True),
+                              ops.silu_mul_quant_plain(gu, True), exact=False)
+            res.add("elementwise", f"silu_mul_quant T={T} I={I}", err,
+                    cuda_ms(lambda: ops.silu_mul_quant(gu, True)),
+                    cuda_ms(lambda: ops.silu_mul_quant_plain(gu, True)),
+                    T * 2 * I * 2 + T * I + 8 * T, 0, BF16_OPS, None)
 
 
 def phase_gemm(res, dev):
+    """K2, K8 and K9 against their plain versions, bit for bit: integer
+    products, then the same f32 epilogue in the same order."""
     import torch
 
     from qserve_tpu_torch.kernels import ops
-    from qserve_tpu_torch.quant import packing
+    from qserve_tpu_torch.layers import linear as lin
+    from qserve_tpu_torch.quant import packing, qoq
 
     g = torch.Generator(device=dev).manual_seed(2)
-    E, I = LLAMA3_8B["hidden_size"], LLAMA3_8B["intermediate_size"]
-    shapes = dict(gate_up=(E, 2 * I), qkv=(E, 4096 + 2 * 1024), o=(E, E), down=(I, E))
+    def linears(cfg):
+        E, I = cfg["hidden_size"], cfg["intermediate_size"]
+        kv = E // cfg["num_attention_heads"] * cfg["num_key_value_heads"]
+        return dict(gate_up=(E, 2 * I), qkv=(E, E + 2 * kv), o=(E, E), down=(I, E))
+
+    E = LLAMA3_8B["hidden_size"]
+    shapes = linears(LLAMA3_8B)
+
+    def acts(M, K):
+        a = torch.randint(-128, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+        return a, torch.rand(M, 1, generator=g, device=dev) * 0.05
+
+    def weight(K, N):
+        return torch.randn(K, N, generator=g, device=dev) * 0.02
+
+    def check(name, tag, got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        assert got.dtype == want.dtype and torch.equal(got, want), \
+            f"{name} {tag}: max err {err}"
+        return err
+
     for M in (64, 2048):
         for name, (K, N) in shapes.items():
             qw = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev,
                                dtype=torch.int8)
             s1 = torch.rand(N, generator=g, device=dev) * 1e-3
             sz = torch.rand(N, generator=g, device=dev) * 8e-3
-            a = torch.randint(-128, 128, (M, K), generator=g, device=dev,
-                              dtype=torch.int8)
-            asc = torch.rand(M, 1, generator=g, device=dev) * 0.05
+            a, asc = acts(M, K)
             asum = torch.randn(M, 1, generator=g, device=dev)
             args = (a, asc, asum, qw, s1, sz)
-            got = ops.w4a8_gemm_per_chn(*args)
-            want = ops.w4a8_gemm_per_chn_plain(*args)
-            # integer products, the same f32 epilogue in the same order: exact
-            err = (got.float() - want.float()).abs().max().item()
-            assert torch.equal(got, want), f"gemm {name} M={M}: max err {err}"
+            err = check("w4a8_gemm_per_chn", f"{name} M={M}",
+                        ops.w4a8_gemm_per_chn(*args), ops.w4a8_gemm_per_chn_plain(*args))
             wu = packing.unpack_w4(qw)
             nbytes = M * K + K // 2 * N + 8 * N + 8 * M + 2 * M * N
             res.add("w4a8_gemm_per_chn", f"{name} M={M} K={K} N={N}", err,
@@ -223,6 +270,75 @@ def phase_gemm(res, dev):
                     cuda_ms(lambda: ops.w4a8_gemm_per_chn_plain(*args)),
                     nbytes, 2 * M * K * N, INT8_OPS,
                     library_or_none(lambda: torch._int_mm(a, wu)))
+
+    # K8. Its weights come from the quantizer, not from random bytes as
+    # K2's above: q * s2 + z2 must fit an int8, which only the quantizer's
+    # (s2, z2) guarantee. Off that lattice the TPU kernel (no wrap) and its
+    # reference (wraps to int8) part; the port wraps like the reference.
+    # Llama-2-7B's o is the 8B's; its down is the ragged one: 43 groups a
+    # nibble plane.
+    G = 128
+    group_shapes = dict(shapes, **{f"llama2_7b_{n}": s
+                                   for n, s in linears(LLAMA2_7B).items() if n != "o"})
+    for name, (K, N) in group_shapes.items():
+        p = lin.quantize_linear_from_float(weight(K, N), 4, G)
+        w8 = qoq.pergroup_level2_int8(
+            qoq.PerGroupW4(packing.unpack_w4(p.qweight), *p[1:]), G)
+        for M in (64, 2048):
+            a, asc = acts(M, K)
+            args = (a, asc, *p, G)
+            err = check("w4a8_gemm_per_group", f"{name} M={M}",
+                        ops.w4a8_gemm_per_group(*args),
+                        ops.w4a8_gemm_per_group_plain(*args))
+            nbytes = (M * K + K // 2 * N + 2 * (K // G) * N + 4 * N + 4 * M
+                      + 2 * M * N)
+            res.add("w4a8_gemm_per_group", f"{name} M={M} K={K} N={N} G={G}", err,
+                    cuda_ms(lambda: ops.w4a8_gemm_per_group(*args)),
+                    cuda_ms(lambda: ops.w4a8_gemm_per_group_plain(*args)),
+                    nbytes, 2 * M * K * N, INT8_OPS,
+                    library_or_none(lambda: torch._int_mm(a, w8)))
+        if name == "qkv":  # the f32 output: no path asks K8 for it, held here
+            args = (a, asc, *p, G, torch.float32)
+            check("w4a8_gemm_per_group", "qkv M=2048 f32 out",
+                  ops.w4a8_gemm_per_group(*args), ops.w4a8_gemm_per_group_plain(*args))
+            log("  w4a8_gemm_per_group [qkv M=2048, f32 out]: equal to the plain version")
+        del p, w8
+    # off the lattice (random bytes: s2 up to 255, sums past an int8) the
+    # kernel wraps as the plain version's cast does; not timed
+    K, N = shapes["qkv"]
+
+    def rand_i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    p = lin.W4GrpLinear(rand_i8(K // 2, N), rand_i8(K // G, N), rand_i8(K // G, N),
+                        torch.rand(N, generator=g, device=dev) * 1e-3)
+    a, asc = acts(64, K)
+    check("w4a8_gemm_per_group", "random bytes",
+          ops.w4a8_gemm_per_group(a, asc, *p, G),
+          ops.w4a8_gemm_per_group_plain(a, asc, *p, G))
+    log("  w4a8_gemm_per_group [random bytes qkv M=64]: equal to the plain version")
+    del p
+
+    # K9: the four linears in bf16 and the W8 lm_head in f32
+    V = LLAMA3_8B["vocab_size"]
+    w8_shapes = [(n, k, nn, torch.bfloat16, (64, 2048)) for n, (k, nn) in shapes.items()]
+    w8_shapes.append(("lm_head", E, V, torch.float32, (64,)))
+    for name, K, N, out_dtype, Ms in w8_shapes:
+        p = lin.quantize_linear_from_float(weight(K, N), 8)
+        for M in Ms:
+            a, asc = acts(M, K)
+            args = (a, asc, *p, out_dtype)
+            err = check("w8a8_gemm", f"{name} M={M}", ops.w8a8_gemm(*args),
+                        ops.w8a8_gemm_plain(*args))
+            nbytes = (M * K + K * N + 4 * N + 4 * M
+                      + M * N * (4 if out_dtype == torch.float32 else 2))
+            res.add("w8a8_gemm",
+                    f"{name} M={M} K={K} N={N} out={str(out_dtype)[6:]}", err,
+                    cuda_ms(lambda: ops.w8a8_gemm(*args)),
+                    cuda_ms(lambda: ops.w8a8_gemm_plain(*args)),
+                    nbytes, 2 * M * K * N, INT8_OPS,
+                    library_or_none(lambda: torch._int_mm(a, p.qweight)))
+        del p
 
 
 def _segments(T, lens):
@@ -241,9 +357,11 @@ def phase_flash(res, dev):
     from qserve_tpu_torch.kernels import attention
 
     g = torch.Generator(device=dev).manual_seed(3)
-    # 8B: 1948 tokens + 100 padding, as the engine packs; then a ragged T
-    # with a sliding window and D = 64 (paths off the Llama-3 main path)
+    # 8B: 1948 tokens + 100 padding, as the engine packs; Llama-2-7B: the
+    # same without GQA (32 kv heads); then a ragged T with a sliding window
+    # and D = 64 (off the main paths)
     cases = [(2048, 32, 8, 128, [700, 512, 436, 300], None),
+             (2048, 32, LLAMA2_7B["num_key_value_heads"], 128, [700, 512, 436, 300], None),
              (300, 8, 2, 64, [150, 100], 37)]
     for T, Hq, Hkv, D, lens, window in cases:
         seg = torch.from_numpy(_segments(T, lens)).to(dev)
@@ -276,18 +394,21 @@ def phase_flash(res, dev):
                     qs, ks, vs, attn_mask=mask, enable_gqa=True)))
 
 
-def _paged_case(dev, g, B, H, rep, D, ps, ctx):
-    """One layer of a filled KV4 cache plus the decode inputs."""
+def _paged_case(dev, g, B, H, rep, D, ps, ctx, kv_bits=4):
+    """One layer of a filled KV4 or KV8 cache (every byte is a valid code in
+    both modes) plus the decode inputs."""
     import torch
 
     from qserve_tpu_torch.kernels import kv_cache as kvc
 
     pages_per = [-(-int(c) // ps) for c in ctx]
     P = sum(pages_per) + 1
-    cache = kvc.create_kv_cache(1, P, H, ps, D, 4, device=dev)
+    cache = kvc.create_kv_cache(1, P, H, ps, D, kv_bits, device=dev)
     cache.data.copy_(torch.randint(-128, 128, cache.data.shape, generator=g,
                                    device=dev, dtype=torch.int8))
-    sc = torch.rand(cache.scales.shape, generator=g, device=dev) * 0.2
+    # KV8 codes reach 255, KV4 codes 15: scales keep the values' range
+    sc = torch.rand(cache.scales.shape, generator=g, device=dev) * (
+        0.2 if kv_bits == 4 else 0.0125)
     sc[:, :, :, H:, :] -= 1.5
     cache.scales.copy_(sc)
     perm = torch.randperm(P, generator=g, device=dev).to(torch.int32)
@@ -313,28 +434,43 @@ def phase_paged(res, dev):
     g = torch.Generator(device=dev).manual_seed(4)
     rng = np.random.default_rng(4)
     small_ctx = np.array([0, 1, 2, 17, 40, 100, 255, 300])
+    ctx_8b = rng.integers(512, 1537, 64)
     cases = [
-        ("8B", 64, 8, 4, 128, 256, rng.integers(512, 1537, 64), None),
-        ("f32 scales", 8, 2, 2, 64, 16, small_ctx, None),
-        ("f32 scales, window 50", 8, 2, 2, 64, 16, small_ctx, 50),
+        ("8B", 64, 8, 4, 128, 256, ctx_8b, None, 4),
+        ("f32 scales", 8, 2, 2, 64, 16, small_ctx, None, 4),
+        ("f32 scales, window 50", 8, 2, 2, 64, 16, small_ctx, 50, 4),
+        ("8B KV8", 64, 8, 4, 128, 256, ctx_8b, None, 8),
+        ("Llama-2-7B KV8, rep 1", 64, 32, 1, 128, 256, ctx_8b, None, 8),
+        ("KV8 f32 scales, window 50", 8, 2, 2, 64, 16, small_ctx, 50, 8),
     ]
-    for tag, B, H, rep, D, ps, ctx, window in cases:
+    for tag, B, H, rep, D, ps, ctx, window, kv_bits in cases:
         ctx = ctx.tolist()
-        cache, bt, cl, q, kc, vc = _paged_case(dev, g, B, H, rep, D, ps, ctx)
-        args = (q, cache, bt, cl, 0, kc, vc, 4)
+        cache, bt, cl, q, kc, vc = _paged_case(dev, g, B, H, rep, D, ps, ctx, kv_bits)
+        assert cache.data.shape[-1] == H * D * kv_bits // 8
+        args = (q, cache, bt, cl, 0, kc, vc, kv_bits)
         got = attention.paged_decode_attention(*args, sliding_window=window)
         want = attention.paged_decode_attention_plain(*args, sliding_window=window)
+        # both sides sum in f32 (in other orders) and round once to bf16:
+        # each element within one bf16 step of the plain value (2^-7 |want|)
+        # plus 1e-3 of the largest output, as the prefix kernel is held. A
+        # flat atol would pass a lost key among ~1000.
         assert torch.isfinite(got.float()).all()
-        err = (got.float() - want.float()).abs().max().item()
-        assert err <= 2e-2, f"paged decode ({tag}) err {err}"
+        wf = want.float()
+        limit = 2.0**-7 * wf.abs() + 1e-3 * wf.abs().max()
+        diff = (got.float() - wf).abs()
+        err = diff.max().item()
+        log(f"  {tag}: max_abs_err {err:.3g} at {(diff / limit).max().item():.3g} of "
+            f"its limit (one bf16 step + 1e-3 x max |out| = {wf.abs().max().item():.3g}; "
+            f"mean |out| {wf.abs().mean().item():.3g})")
+        assert bool((diff <= limit).all()), f"paged decode ({tag}) err {err}"
         # history keys read: positions < ctx-1 within the last window-1
         hist = sum(min(max(c - 1, 0), window - 1 if window else c) for c in ctx)
         sb = cache.scales.element_size()
-        nbytes = (2 * hist * H * (D // 2 + 2 * sb) + 2 * B * H * rep * D * 2
+        nbytes = (2 * hist * H * (D * kv_bits // 8 + 2 * sb) + 2 * B * H * rep * D * 2
                   + 2 * B * H * D * 2 + bt.numel() * 4 + B * 4)
         ops_ = 4 * (hist + B) * H * rep * D
         # yardstick: SDPA over the already dequantized history
-        k, v = kvc.gather_dequant_layer(cache.layer(0), bt, 4)
+        k, v = kvc.gather_dequant_layer(cache.layer(0), bt, kv_bits)
         k = torch.cat([k, kc.float()[:, None]], 1).to(torch.bfloat16).transpose(1, 2)
         v = torch.cat([v, vc.float()[:, None]], 1).to(torch.bfloat16).transpose(1, 2)
         S = k.shape[2]
@@ -345,7 +481,7 @@ def phase_paged(res, dev):
         mask = mask[:, None, None, :]
         qs = q[:, :, None, :]
         res.add("paged_decode_attention",
-                f"{tag}: B={B} Hq={H * rep} H={H} D={D} ps={ps} "
+                f"{tag}: KV{kv_bits} B={B} Hq={H * rep} H={H} D={D} ps={ps} "
                 f"ctx~{int(np.mean(ctx))} scales={cache.scales.dtype}",
                 err,
                 cuda_ms(lambda: attention.paged_decode_attention(
@@ -374,20 +510,25 @@ def phase_kv_append(res, dev):
         p0 += -(-n // ps)
     pages += [-1] * (2048 - len(pages))
     slots += [0] * (2048 - len(slots))
-    cases.append(("8B prefill", 8, 128, ps, p0 + 2, pages, slots))
+    cases.append(("8B prefill", 8, 128, ps, p0 + 2, pages, slots, 4))
     # decode: 64 tokens, each into its own sequence's last page
-    cases.append(("8B decode", 8, 128, ps, 70, list(range(3, 67)),
-                  np.random.default_rng(5).integers(0, ps, 64).tolist()))
+    d_slots = np.random.default_rng(5).integers(0, ps, 64).tolist()
+    cases.append(("8B decode", 8, 128, ps, 70, list(range(3, 67)), d_slots, 4))
     cases.append(("f32 scales", 2, 64, 16, 12, [0, 5, -1, 7, 11, 2],
-                  [0, 15, 3, 9, 1, 4]))
-    for tag, H, D, ps, P, pages, slots in cases:
+                  [0, 15, 3, 9, 1, 4], 4))
+    # KV8 rows are H * D bytes wide: the scatter takes any row width
+    cases.append(("8B KV8 decode", 8, 128, ps, 70, list(range(3, 67)), d_slots, 8))
+    cases.append(("Llama-2-7B KV8 prefill", 32, 128, ps, p0 + 2, pages, slots, 8))
+    cases.append(("Llama-2-7B KV8 decode", 32, 128, ps, 70, list(range(3, 67)), d_slots, 8))
+    for tag, H, D, ps, P, pages, slots, kv_bits in cases:
         T = len(pages)
-        cache = kvc.create_kv_cache(L, P, H, ps, D, 4, device=dev)
+        cache = kvc.create_kv_cache(L, P, H, ps, D, kv_bits, device=dev)
         cache.data.copy_(torch.randint(-128, 128, cache.data.shape, generator=g,
                                        device=dev, dtype=torch.int8))
         k = torch.randn(L, T, H, D, generator=g, device=dev).to(torch.bfloat16)
         v = torch.randn(L, T, H, D, generator=g, device=dev).to(torch.bfloat16)
-        rows, sc = kvc._quantize_rows(k, v, 4, True)
+        rows, sc = kvc._quantize_rows(k, v, kv_bits, True)
+        del k, v
         sc = sc.to(cache.scales.dtype).contiguous()
         pg = torch.tensor(pages, dtype=torch.int32, device=dev)
         sl = torch.tensor(slots, dtype=torch.int32, device=dev)
@@ -399,7 +540,7 @@ def phase_kv_append(res, dev):
             f"kv_append ({tag}) scale bytes differ"
         valid = int((pg >= 0).sum())
         nbytes = 2 * valid * L * (rows.shape[-1] * 2 + sc.shape[-1] * 2 * sc.element_size()) + 8 * T
-        res.add("kv_append", f"{tag}: L={L} T={T} H={H} D={D} ps={ps} "
+        res.add("kv_append", f"{tag}: KV{kv_bits} L={L} T={T} H={H} D={D} ps={ps} "
                 f"scales={cache.scales.dtype}", 0.0,
                 cuda_ms(lambda: kv_append.kv_append(cache.data, cache.scales, rows,
                                                     sc, pg, sl)),
@@ -407,7 +548,7 @@ def phase_kv_append(res, dev):
                 nbytes, 0, BF16_OPS, None)
 
 
-def _prefix_case(dev, g, H, rep, D, ps, prefix_len, T, live, maxP):
+def _prefix_case(dev, g, H, rep, D, ps, prefix_len, T, live, maxP, kv_bits=4):
     """One layer of a cache whose first prefix_len positions were written
     through the port's own append, plus one chunk's inputs."""
     import torch
@@ -415,14 +556,14 @@ def _prefix_case(dev, g, H, rep, D, ps, prefix_len, T, live, maxP):
     from qserve_tpu_torch.kernels import kv_cache as kvc
 
     P = maxP + 3
-    cache = kvc.create_kv_cache(1, P, H, ps, D, 4, device=dev)
+    cache = kvc.create_kv_cache(1, P, H, ps, D, kv_bits, device=dev)
     table = torch.randperm(P, generator=g, device=dev)[:maxP].to(torch.int32)
     if prefix_len:
         pk = torch.randn(1, prefix_len, H, D, generator=g, device=dev).to(torch.bfloat16)
         pv = torch.randn(1, prefix_len, H, D, generator=g, device=dev).to(torch.bfloat16)
         s = torch.arange(prefix_len, device=dev)
         kvc.append_all_layers(cache, pk, pv, table[s // ps], (s % ps).to(torch.int32),
-                              4, True)
+                              kv_bits, True)
     q = torch.randn(T, H * rep, D, generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn(T, H, D, generator=g, device=dev).to(torch.bfloat16)
     v = torch.randn(T, H, D, generator=g, device=dev).to(torch.bfloat16)
@@ -441,15 +582,19 @@ def phase_prefix(res, dev):
 
     g = torch.Generator(device=dev).manual_seed(6)
     cases = [
-        ("8B", 8, 4, 128, 256, 4096, 2048, 1900, 32, None),
-        ("f32 scales", 2, 2, 64, 16, 97, 80, 70, 12, None),
-        ("f32 scales, window 50", 2, 2, 64, 16, 97, 80, 70, 12, 50),
-        ("no prefix", 2, 4, 64, 16, 0, 300, 290, 4, None),
+        ("8B", 8, 4, 128, 256, 4096, 2048, 1900, 32, None, 4),
+        ("f32 scales", 2, 2, 64, 16, 97, 80, 70, 12, None, 4),
+        ("f32 scales, window 50", 2, 2, 64, 16, 97, 80, 70, 12, 50, 4),
+        ("no prefix", 2, 4, 64, 16, 0, 300, 290, 4, None, 4),
+        ("8B KV8", 8, 4, 128, 256, 4096, 2048, 1900, 32, None, 8),
+        ("Llama-2-7B KV8, rep 1", 32, 1, 128, 256, 2048, 2048, 1900, 16, None, 8),
+        ("KV8 f32 scales, window 50", 2, 2, 64, 16, 97, 80, 70, 12, 50, 8),
     ]
-    for tag, H, rep, D, ps, S, T, live, maxP, window in cases:
+    for tag, H, rep, D, ps, S, T, live, maxP, window, kv_bits in cases:
         cache, bt, q, k, v, seg, pos = _prefix_case(dev, g, H, rep, D, ps, S, T,
-                                                    live, maxP)
-        args = (q, k, v, seg, pos, cache, bt, S, 0, 4)
+                                                    live, maxP, kv_bits)
+        assert cache.data.shape[-1] == H * D * kv_bits // 8
+        args = (q, k, v, seg, pos, cache, bt, S, 0, kv_bits)
         got = attention.prefix_prefill_attention(*args, sliding_window=window)
         want = attention.prefix_prefill_attention_plain(*args, sliding_window=window)
         # padding rows attend nothing: the kernel writes 0, the plain version
@@ -479,10 +624,11 @@ def phase_prefix(res, dev):
         pairs = int((p_live.clamp(max=window) if window else p_live).sum())
         lo = max(0, S - window + 1) if window else 0  # prefix keys any row reads
         sb = cache.scales.element_size()
-        nbytes = (2 * (S - lo) * H * (D // 2 + 2 * sb) + 2 * T * D * 2 * (H * rep + H)
+        nbytes = (2 * (S - lo) * H * (D * kv_bits // 8 + 2 * sb)
+                  + 2 * T * D * 2 * (H * rep + H)
                   + 8 * T + 4 * maxP)
         # yardstick: SDPA over the already dequantized prefix + the chunk
-        pk, pv = kvc.gather_dequant_layer(cache.layer(0), bt, 4)
+        pk, pv = kvc.gather_dequant_layer(cache.layer(0), bt, kv_bits)
         kf = torch.cat([pk[0, :S].to(torch.bfloat16), k]).transpose(0, 1)[None]
         vf = torch.cat([pv[0, :S].to(torch.bfloat16), v]).transpose(0, 1)[None]
         kp = torch.cat([torch.arange(S, device=dev, dtype=torch.int32),
@@ -493,7 +639,7 @@ def phase_prefix(res, dev):
         mask[live:, 0] = True  # SDPA needs one open key on padding rows
         qs = q.transpose(0, 1)[None]
         res.add("prefix_prefill_attention",
-                f"{tag}: T={T} live={live} prefix={S} Hq={H * rep} H={H} D={D} "
+                f"{tag}: KV{kv_bits} T={T} live={live} prefix={S} Hq={H * rep} H={H} D={D} "
                 f"ps={ps} window={window} scales={cache.scales.dtype}", err,
                 cuda_ms(lambda: attention.prefix_prefill_attention(
                     *args, sliding_window=window), iters=10),
@@ -504,13 +650,12 @@ def phase_prefix(res, dev):
                     qs, kf, vf, attn_mask=mask, enable_gqa=True)))
 
 
-def phase_sampler(res, dev):
+def _sampler_case(res, dev, B, V):
     import torch
 
     from qserve_tpu_torch.kernels import sampler as ksampler
     from qserve_tpu_torch.layers import sampler
 
-    B, V = 64, LLAMA3_8B["vocab_size"]
     g = torch.Generator(device=dev).manual_seed(7)
     logits = 3 * torch.randn(B, V, generator=g, device=dev)
     # rows cycle through: greedy, raw temperature, top-k 50, top-p 0.9, both,
@@ -576,7 +721,7 @@ def phase_sampler(res, dev):
     freq = torch.stack([(many == t).float().mean() for t in top8.indices])
     ferr = (freq - probs).abs().max().item()
     assert ferr <= 0.02, f"draw frequencies off the softmax by {ferr}"
-    log(f"  own generator: 300 draws in the kept sets, {int(distinct.max())} distinct "
+    log(f"  V={V} own generator: 300 draws in the kept sets, {int(distinct.max())} distinct "
         f"tokens at most per row; top-8 frequencies within {ferr:.3g} of softmax")
 
     res.add("sample_filtered",
@@ -595,25 +740,34 @@ def phase_sampler(res, dev):
             2 * B * V * 4 + 12 * B, 0, BF16_OPS, None)
 
 
+def phase_sampler(res, dev):
+    for cfg in (LLAMA3_8B, LLAMA2_7B):
+        _sampler_case(res, dev, 64, cfg["vocab_size"])
+
+
 # --------------------------------------------------------------------------
 # reference, engine and refusal phases
 # --------------------------------------------------------------------------
 
 
-def phase_reference(dev):
+def phase_reference(dev, precision="w4a8kv4", group_size=-1, lm_head_bits=16):
     """A small model on the card (kernels) and on the CPU (plain versions):
     same params, same packed inputs, logits within 5% of their range, over
     a packed prefill, four decode steps, one chunk step over a cached prefix
-    and one mixed chunk+decode step."""
+    and one mixed chunk+decode step. hidden 256 / intermediate 512 keep K/2
+    a multiple of the 128-wide group at every linear."""
     import torch
 
     from qserve_tpu_torch.config import QuantSpec
-    from qserve_tpu_torch.kernels import kv_cache as kvc
+    from qserve_tpu_torch.kernels import _build, kv_cache as kvc
     from qserve_tpu_torch.models import llama
 
+    quant = QuantSpec.from_precision(precision, group_size, lm_head_bits=lm_head_bits)
     args = llama.LlamaArgs(vocab_size=512, hidden_size=256, intermediate_size=512,
                            num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
-                           quant=QuantSpec.from_precision("w4a8kv4"))
+                           quant=quant)
+    tag = f"{precision} group {group_size} lm_head W{lm_head_bits}"
+    before = dict(_build.LAUNCHES)
 
     def to(x, d):  # a tensor, or a (nested) NamedTuple of tensors
         if isinstance(x, torch.Tensor):
@@ -632,7 +786,8 @@ def phase_reference(dev):
                      + [-1] * 7, np.int32)
     slots = np.concatenate([np.arange(37) % ps, np.arange(20) % ps, np.zeros(7)]).astype(np.int32)
     last = np.array([36, 56], np.int32)
-    caches = {d: kvc.create_kv_cache(2, 10, 2, ps, 64, 4, device=d) for d in ("cpu", dev)}
+    caches = {d: kvc.create_kv_cache(2, 10, 2, ps, 64, quant.kv_bits, device=d)
+              for d in ("cpu", dev)}
     params = {"cpu": cpu, dev: gpu}
     worst = 0.0
 
@@ -698,11 +853,13 @@ def phase_reference(dev):
             for d in params}
     assert outs[dev].shape == (4, 512)
     compare({d: o[:3] for d, o in outs.items()})  # row 3 is the pad row
-    log(f"  reference: card vs CPU logits over prefill, 4 decode steps, a chunk "
-        f"step and a mixed step, worst max|diff| / max|logit| = {worst:.3g}")
+    ran = sorted(k for k, v in _build.LAUNCHES.items() if v > before.get(k, 0))
+    log(f"  reference {tag}: card vs CPU logits over prefill, 4 decode steps, a "
+        f"chunk step and a mixed step, worst max|diff| / max|logit| = {worst:.3g}; "
+        f"kernels: {ran}")
 
 
-def _drive(engine, want_tokens, arrivals=()):
+def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"]):
     """Step the engine until idle. arrivals: [(after_step, fn)], fn adds
     requests once that many steps have run. Returns per-kind step times and
     launch deltas, and checks every finished request."""
@@ -734,7 +891,7 @@ def _drive(engine, want_tokens, arrivals=()):
                 toks = out.outputs[0]["token_ids"]
                 assert len(toks) == want_tokens[out.request_id], \
                     f"{out.request_id}: {len(toks)} tokens"
-                assert all(0 <= x < LLAMA3_8B["vocab_size"] for x in toks)
+                assert all(0 <= x < vocab for x in toks)
                 tokens_out += len(toks)
     run_s = time.perf_counter() - t_run
     assert finished == len(want_tokens), \
@@ -762,28 +919,43 @@ def _report(tag, r, launches):
     )
 
 
-def phase_engine(dev):
+def _build_engine(dev, tag, cfg, **kw):
     import torch
 
     from qserve_tpu_torch.engine.arg_utils import EngineArgs
-    from qserve_tpu_torch.kernels import _build
-    from qserve_tpu_torch.sampling_params import SamplingParams
 
-    V = LLAMA3_8B["vocab_size"]
     t0 = time.perf_counter()
     engine = EngineArgs(
-        hf_config=LLAMA3_8B, random_weights=True, seed=0, device=dev,
-        precision="w4a8kv4", group_size=-1, block_size=256,
-        max_num_batched_tokens=2048, max_num_seqs=64, max_model_len=8192,
-        num_device_pages=160,
+        hf_config=cfg, random_weights=True, seed=0, device=dev, block_size=256,
+        max_num_batched_tokens=2048, max_num_seqs=64, **kw,
     ).build_engine()
     sc = engine.scheduler.scheduler_config
     assert sc.enable_chunked_prefill and sc.mixed_chunk_decode, "default scheduler"
     torch.cuda.synchronize()
-    log(f"  engine built in {time.perf_counter() - t0:.1f} s "
-        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    cache = engine.worker.cache_engine.cache
+    log(f"  {tag}: engine built in {time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; cache rows "
+        f"of {cache.data.shape[-1]} bytes, {cache.num_kv_heads} kv heads)")
+    return engine
 
-    # ---- path a: whole-prompt prefill + paged decode ----
+
+def _release():
+    """Return a deleted engine's weights and cache to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+
+
+def _path_a(engine):
+    """Whole-prompt prefill + paged decode."""
+    from qserve_tpu_torch.kernels import _build
+    from qserve_tpu_torch.sampling_params import SamplingParams
+
+    V = LLAMA3_8B["vocab_size"]
     rng = np.random.default_rng(0)
     lens = rng.integers(128, 1025, 8)
     want = {}
@@ -798,13 +970,28 @@ def phase_engine(dev):
     ra = _drive(engine, want)
     launches_a = dict(_build.LAUNCHES)
     summary_a = _report("path a", ra, launches_a)
-    first = ("elementwise", "w4a8_gemm_per_chn", "flash_prefill_attention",
-             "paged_decode_attention", "kv_append")
-    missing = [k for k in first if launches_a.get(k, 0) == 0]
-    assert not missing, f"kernels never launched on path a: {missing}"
+    _require("path a", launches_a,
+             ran=("elementwise", "w4a8_gemm_per_chn", "flash_prefill_attention",
+                  "paged_decode_attention", "kv_append"),
+             idle=("w4a8_gemm_per_group", "w8a8_gemm"))
     assert set(ra["ms"]) == {"prefill", "decode"}, set(ra["ms"])
+    return launches_a, summary_a
 
-    # ---- path b: chunked prefill, mixed steps, prefix skip, top-k/top-p ----
+
+def _require(tag, launches, ran, idle=()):
+    missing = [k for k in ran if launches.get(k, 0) == 0]
+    assert not missing, f"kernels never launched on {tag}: {missing}"
+    stray = [k for k in idle if launches.get(k, 0)]
+    assert not stray, f"{tag} launched kernels of another precision: {stray}"
+
+
+def _path_b(engine):
+    """Chunked prefill, mixed steps, prefix skip, top-k/top-p."""
+    from qserve_tpu_torch.kernels import _build
+    from qserve_tpu_torch.sampling_params import SamplingParams
+
+    V = LLAMA3_8B["vocab_size"]
+
     def sp(i, n):
         if i % 2:
             return SamplingParams(max_tokens=n, ignore_eos=True, temperature=0.8,
@@ -845,32 +1032,135 @@ def phase_engine(dev):
     rb = _drive(engine, want, [(8, add_long), (10**9, add_alone)])
     launches_b = dict(_build.LAUNCHES)
     summary_b = _report("path b", rb, launches_b)
-    missing = [k for k in ROUTES if launches_b.get(k, 0) == 0]
-    assert not missing, f"kernels never launched on path b: {missing}"
+    _require("path b", launches_b,
+             ran=[k for k in ROUTES if k not in ("w4a8_gemm_per_group", "w8a8_gemm")],
+             idle=("w4a8_gemm_per_group", "w8a8_gemm"))
     assert len(rb["ms"].get("mixed", [])) >= 4, "the long prompt did not admit in mixed steps"
     assert rb["ms"].get("chunk"), "no chunk step ran alone"
-    return launches_a, launches_b, dict(path_a=summary_a, path_b=summary_b)
+    return launches_b, summary_b
+
+
+def _path_mixed(engine, tag, vocab, seed, ran, idle):
+    """Paths c-f: 6 requests decode; after 4 steps a 3000-token prompt
+    admits beside them in two mixed steps; when all is done a 2500-token
+    prompt runs alone (its first chunk a prefill step, its second a chunk
+    step over the cached first). One request samples at temperature 0.8
+    with top-k/top-p."""
+    from qserve_tpu_torch.kernels import _build
+    from qserve_tpu_torch.sampling_params import SamplingParams
+
+    def sp(n, filtered=False):
+        if filtered:
+            return SamplingParams(max_tokens=n, ignore_eos=True, temperature=0.8,
+                                  top_p=0.9, top_k=50)
+        return SamplingParams(max_tokens=n, ignore_eos=True, temperature=0.0)
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(128, 1025, 6)
+    want = {}
+    for i, n in enumerate(lens):
+        want[f"{tag}{i}"] = 24
+        engine.add_request(f"{tag}{i}", prompt_token_ids=rng.integers(0, vocab, int(n)).tolist(),
+                           sampling_params=sp(24, filtered=i == 5))
+
+    def add_long():
+        want[f"{tag}long"] = 8
+        engine.add_request(f"{tag}long", prompt_token_ids=rng.integers(0, vocab, 3000).tolist(),
+                           sampling_params=sp(8))
+
+    def add_alone():
+        want[f"{tag}alone"] = 4
+        engine.add_request(f"{tag}alone", prompt_token_ids=rng.integers(0, vocab, 2500).tolist(),
+                           sampling_params=sp(4))
+
+    log(f"  path {tag}: 6 requests, prompt lengths {lens.tolist()}, 24 output tokens; "
+        f"after 4 steps a 3000-token prompt; last a 2500-token prompt alone")
+    _build.reset_launch_counts()
+    r = _drive(engine, want, [(4, add_long), (10**9, add_alone)], vocab=vocab)
+    launches = dict(_build.LAUNCHES)
+    summary = _report(f"path {tag}", r, launches)
+    _require(f"path {tag}", launches, ran, idle)
+    assert {"prefill", "mixed", "chunk", "decode"} <= set(r["ms"]), set(r["ms"])
+    assert len(r["ms"]["mixed"]) >= 2, "the long prompt did not admit in mixed steps"
+    return launches, summary
+
+
+def phase_engine(dev):
+    """Paths a-f. Returns ({path: launches}, {path: summary})."""
+    import torch
+
+    launches, summary = {}, {}
+    common = ("elementwise", "flash_prefill_attention", "paged_decode_attention",
+              "kv_append", "prefix_prefill_attention", "sample_filtered")
+
+    engine = _build_engine(dev, "paths a, b (Llama-3-8B w4a8kv4 per-channel)",
+                           LLAMA3_8B, precision="w4a8kv4", group_size=-1,
+                           max_model_len=8192, num_device_pages=160)
+    launches["a"], summary["path_a"] = _path_a(engine)
+    launches["b"], summary["path_b"] = _path_b(engine)
+    del engine
+    _release()
+
+    engine = _build_engine(dev, "path c (Llama-3-8B w4a8kv4 g128, W8 lm_head)",
+                           LLAMA3_8B, precision="w4a8kv4", group_size=128,
+                           quant_lm_head=True, max_model_len=8192,
+                           num_device_pages=160)
+    launches["c"], summary["path_c"] = _path_mixed(
+        engine, "c", LLAMA3_8B["vocab_size"], 2,
+        ran=common + ("w4a8_gemm_per_group", "w8a8_gemm"), idle=("w4a8_gemm_per_chn",))
+    del engine
+    _release()
+
+    engine = _build_engine(dev, "path d (Llama-2-7B w4a8kv8 g128)",
+                           LLAMA2_7B, precision="w4a8kv8", group_size=128,
+                           max_model_len=4096, num_device_pages=96)
+    cache = engine.worker.cache_engine.cache
+    assert cache.data.shape[-1] == 32 * 128, "KV8 rows of 32 kv heads"
+    launches["d"], summary["path_d"] = _path_mixed(
+        engine, "d", LLAMA2_7B["vocab_size"], 3,
+        ran=common + ("w4a8_gemm_per_group",), idle=("w4a8_gemm_per_chn", "w8a8_gemm"))
+    del cache
+    del engine
+    _release()
+
+    engine = _build_engine(dev, "path e (Llama-3-8B w8a8kv8)",
+                           LLAMA3_8B, precision="w8a8kv8", max_model_len=8192,
+                           num_device_pages=160)
+    cache = engine.worker.cache_engine.cache
+    assert cache.data.shape[-1] == 8 * 128, "KV8 rows of 8 kv heads"
+    launches["e"], summary["path_e"] = _path_mixed(
+        engine, "e", LLAMA3_8B["vocab_size"], 4,
+        ran=common + ("w8a8_gemm",), idle=("w4a8_gemm_per_chn", "w4a8_gemm_per_group"))
+    del cache
+    del engine
+    _release()
+
+    # W16A16: norms and products are library calls (as XLA ran them beside
+    # the TPU kernels), so K3-K7 launch and neither K1 nor any GEMM kernel
+    engine = _build_engine(dev, "path f (Llama-3-8B w16a16kv8)",
+                           LLAMA3_8B, precision="w16a16kv8", max_model_len=8192,
+                           num_device_pages=160)
+    assert engine.worker.model_runner.params.layers.qkv.weight.dtype == torch.bfloat16
+    launches["f"], summary["path_f"] = _path_mixed(
+        engine, "f", LLAMA3_8B["vocab_size"], 5, ran=common[1:],
+        idle=("elementwise", "w4a8_gemm_per_chn", "w4a8_gemm_per_group", "w8a8_gemm"))
+    del engine
+    _release()
+    return launches, summary
 
 
 def phase_refusal(dev):
-    """What is still unported on CUDA raises; nothing runs the plain version
-    in a kernel's place."""
-    import torch
+    """What is still unported raises; nothing else runs in its place."""
+    from qserve_tpu_torch.engine.arg_utils import EngineArgs
 
-    from qserve_tpu_torch.kernels import attention, kv_cache as kvc
-
-    cache = kvc.create_kv_cache(1, 4, 2, 16, 64, 8, device=dev)
-    q = torch.zeros(1, 4, 64, dtype=torch.bfloat16, device=dev)
-    kc = torch.zeros(1, 2, 64, dtype=torch.bfloat16, device=dev)
-    bt = torch.zeros(1, 2, dtype=torch.int32, device=dev)
-    cl = torch.ones(1, dtype=torch.int32, device=dev)
     try:
-        attention.paged_decode_attention(q, cache, bt, cl, 0, kc, kc, 8)
+        EngineArgs(hf_config=LLAMA3_8B, random_weights=True, device=dev,
+                   tensor_parallel_size=2).build_engine()
     except NotImplementedError as e:
         assert "ROADMAP" in str(e)
-        log(f"  KV8 decode on CUDA refused: {e}")
+        log(f"  tensor_parallel_size=2 refused: {e}")
     else:
-        raise AssertionError("KV8 decode attention ran on CUDA without its kernel")
+        raise AssertionError("a tensor-parallel engine was built without its port")
 
 
 def main() -> int:
@@ -921,21 +1211,29 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"  phase {name} ok in {time.perf_counter() - t:.1f} s")
     log("phase reference")
-    phase_reference(dev)
+    for spec in (("w4a8kv4", -1, 16), ("w4a8kv4", 128, 16), ("w4a8kv8", 128, 8),
+                 ("w8a8kv8", -1, 8), ("w16a16kv8", -1, 16)):
+        phase_reference(dev, *spec)
     log("phase engine")
-    launches_a, launches, summary = phase_engine(dev)
+    t = time.perf_counter()
+    launches, summary = phase_engine(dev)
+    log(f"  phase engine ok in {time.perf_counter() - t:.1f} s")
     log("phase refusal")
     phase_refusal(dev)
+    log(f"kernel rows: {json.dumps(res.all)}")
     log(f"engine summary: {json.dumps(summary)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
+    # every kernel ran on some path, counted from 0 at that path's start
+    idle = [k for k in ROUTES if not any(l.get(k, 0) for l in launches.values())]
+    assert not idle, f"kernels launched on no path: {idle}"
     kernels = []
     for name, (route, source, replaces) in ROUTES.items():
         r = res.rows[name]
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=launches.get(name, 0),
-            launches_first_path=launches_a.get(name, 0),
+            launches=sum(l.get(name, 0) for l in launches.values()),
+            launches_by_path={k: l.get(name, 0) for k, l in launches.items()},
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],

@@ -25,21 +25,27 @@ def tensor_from_numpy(x, device) -> torch.Tensor:
     return torch.from_numpy(x).to(device)
 
 
-def params_from_numpy(tree, args: llama.LlamaArgs, device="cuda") -> llama.LlamaParams:
+def params_from_numpy(tree, device="cuda") -> llama.LlamaParams:
     """JAX LlamaParams with numpy leaves and stacked [L, ...] layers (the
-    JAX package's scan_layers=True form) -> the port's LlamaParams."""
+    JAX package's scan_layers=True form) -> the port's LlamaParams. Each
+    linear keeps its flavor (per-channel or per-group W4, W8, W16) and the
+    lm_head its form (bf16 or W8)."""
     device = resolve_device(device)
 
     def t(x):
         return tensor_from_numpy(x, device)
 
     def linear(p):
-        if not hasattr(p, "s1_szero"):
-            raise NotImplementedError(
-                f"{type(p).__name__} weights are not ported yet (ROADMAP "
-                "queue 1, remaining precisions)"
+        """One linear flavor, told by its field names."""
+        if hasattr(p, "s1_szero"):
+            return lin.W4ChnLinear(t(p.qweight), t(p.s1_scale), t(p.s1_szero))
+        if hasattr(p, "s2_scale"):
+            return lin.W4GrpLinear(
+                t(p.qweight), t(p.s2_scale), t(p.s2_zero), t(p.s1_scale)
             )
-        return lin.W4ChnLinear(t(p.qweight), t(p.s1_scale), t(p.s1_szero))
+        if hasattr(p, "qweight"):
+            return lin.W8Linear(t(p.qweight), t(p.scale))
+        return lin.W16Linear(t(p.weight))
 
     layers = tree.layers
     if not hasattr(layers, "input_ln"):  # a tuple of per-layer params
@@ -55,5 +61,6 @@ def params_from_numpy(tree, args: llama.LlamaArgs, device="cuda") -> llama.Llama
             down=linear(layers.down),
         ),
         final_ln=t(tree.final_ln),
-        lm_head=llama.make_lm_head(t(tree.lm_head), args.quant),
+        lm_head=(linear(tree.lm_head) if hasattr(tree.lm_head, "qweight")
+                 else t(tree.lm_head)),
     )

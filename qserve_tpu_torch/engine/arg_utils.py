@@ -1,11 +1,13 @@
 """EngineArgs: the CLI flag surface -> config objects -> engine
 (qserve_tpu/engine/arg_utils.py).
 
-The port builds a dense Llama at W4A8KV4 per-channel with random weights
-(`random_weights=True`, the geometry from a config dict or a model dir's
-config.json) on one device, with the scheduler's defaults (chunked prefill
-and mixed chunk+decode steps on). Real checkpoints, VLM and TP/DP raise
-NotImplementedError naming their ROADMAP items.
+The port builds a dense Llama with random weights (`random_weights=True`,
+the geometry from a config dict or a model dir's config.json) on one device,
+at any precision of config._PRECISIONS (W4A8, W8A8 or W16A16 over a KV4 or
+KV8 cache), per-channel or per-group W4 (`group_size`), with a bf16 or a W8
+lm_head (`quant_lm_head`), and with the scheduler's defaults (chunked
+prefill and mixed chunk+decode steps on). Real checkpoints, VLM and TP/DP
+raise NotImplementedError naming their ROADMAP items.
 """
 
 from __future__ import annotations

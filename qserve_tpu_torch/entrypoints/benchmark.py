@@ -5,7 +5,9 @@ GLOBAL_BATCH_SIZE requests of fixed prompt/generation lengths with random
 token ids, run for N rounds; prints and appends output tok/s to a CSV.
 
   python -m qserve_tpu_torch.entrypoints.benchmark --model <dir with config.json> \
-      --random-weights --precision w4a8kv4
+      --random-weights --precision w4a8kv4 [--group-size 128] [--quant-lm-head]
+
+Each CSV row names the precision, the W4 group size and the lm_head bits.
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ def run(engine, vocab_size, batch, prompt_len, gen_len, rounds, csv_path,
     from qserve_tpu_torch.sampling_params import SamplingParams
 
     rng = np.random.default_rng(0)
+    quant = engine.worker.model_runner.model_args.quant
     rows = []
     for rnd in range(rounds):
         prof = None
@@ -128,7 +131,9 @@ def run(engine, vocab_size, batch, prompt_len, gen_len, rounds, csv_path,
               f"steps, mean {pre:.2f} ms; {len(step_ms['mixed'])} mixed steps, "
               f"mean {mix:.2f} ms; {len(step_ms['decode'])} decode steps, "
               f"median {dec:.2f} ms")
-        rows.append(dict(round=rnd, batch=batch, prompt_len=prompt_len,
+        rows.append(dict(precision=quant.precision, group_size=quant.group_size,
+                         lm_head_bits=quant.lm_head_bits,
+                         round=rnd, batch=batch, prompt_len=prompt_len,
                          generation_len=gen_len, seconds=dt, tokens_per_s=tput,
                          prefill_step_ms_mean=pre, decode_step_ms_median=dec,
                          mixed_steps=len(step_ms["mixed"]),

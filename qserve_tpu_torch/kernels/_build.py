@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels; count their launches.
 
-Every `csrc/*.cu` file is one shared library with a plain C interface. At
+Every `csrc/*.cu` file is one shared library with a plain C interface
+(`csrc/*.cuh` are headers they share). At
 first use all of them are compiled together, one `nvcc` process per source
 started at once, into `build/` beside this file (listed in .gitignore), and
 loaded with ctypes. Pointers cross as `c_void_p`; every entry point returns
@@ -61,9 +62,14 @@ def _sources():
 
 
 def _target(src: str) -> str:
-    with open(os.path.join(CSRC, src), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{src[:-3]}-{digest}.so")
+    """build/<stem>-<digest>.so; the digest covers the source and every
+    csrc/*.cuh, so an edit to a shared header rebuilds each library."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in [src, *headers]:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read() + b"\0")
+    return os.path.join(BUILD_DIR, f"{src[:-3]}-{h.hexdigest()[:16]}.so")
 
 
 def build_all() -> Dict[str, str]:

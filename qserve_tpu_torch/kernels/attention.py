@@ -2,9 +2,10 @@
 prefix, and paged quantized decode (qserve_tpu/kernels/attention.py).
 
 A CUDA tensor launches the op's kernel (kernels/flash_attention.py,
-kernels/prefix_attention.py, kernels/paged_attention.py); a CPU tensor takes the plain version beside
-it, a transcription of the JAX package's XLA fallback. The plain versions
-are what the kernels are held against on the card.
+kernels/prefix_attention.py, kernels/paged_attention.py); a CPU tensor
+takes the plain version beside it, a transcription of the JAX package's XLA
+fallback. The plain versions are what the kernels are held against on the
+card. The kernels serve both cache modes, KV4 and KV8.
 """
 
 from __future__ import annotations
@@ -163,11 +164,6 @@ def prefix_prefill_attention(
     position. Rows of padding attend nothing; their values are never read
     (the plain version averages V there, the kernel writes 0)."""
     if q.is_cuda:
-        if kv_bits != 4:
-            raise NotImplementedError(
-                "KV8 prefix-prefill attention is not ported yet (ROADMAP "
-                "queue 1, remaining precisions)"
-            )
         from qserve_tpu_torch.kernels.prefix_attention import (
             prefix_prefill_attention as kernel,
         )
@@ -241,11 +237,6 @@ def paged_decode_attention(
     (positions < ctx-1) plus the current token's exact K/V. Rows with
     ctx == 0 are padding and attend only their own k_cur/v_cur."""
     if q.is_cuda:
-        if kv_bits != 4:
-            raise NotImplementedError(
-                "KV8 decode attention is not ported yet (ROADMAP queue 1, "
-                "remaining precisions)"
-            )
         from qserve_tpu_torch.kernels.paged_attention import (
             paged_decode_attention as kernel,
         )

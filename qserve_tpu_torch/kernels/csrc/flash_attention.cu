@@ -25,15 +25,14 @@
 // this is the simple, correct version; moving QK^T and PV onto the tensor
 // cores (mma/wgmma) is a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attn_common.cuh"
+
+using namespace qs_attn;
 
 namespace {
 
 constexpr int BQ = 16;   // query tokens per block
 constexpr int BK = 32;   // keys per shared-memory tile
-constexpr float NEG_INF = -1e30f;
 
 template <int D>
 __global__ void flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
@@ -79,20 +78,7 @@ __global__ void flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   kstart = (kstart / BK) * BK;
 
   for (int k0 = kstart; k0 <= qlast; k0 += BK) {
-    // stage K/V tile: BK keys x D bf16, 16-byte granules
-    constexpr int GR = D / 8;  // granules per key row
-    for (int i = tid; i < BK * GR; i += blockDim.x) {
-      const int j = i / GR, gi = i % GR;
-      const int s = k0 + j;
-      int4 kv = make_int4(0, 0, 0, 0), vv = make_int4(0, 0, 0, 0);
-      if (s < T) {
-        const size_t off = ((size_t)s * Hkv + h) * D + gi * 8;
-        kv = *reinterpret_cast<const int4*>(k + off);
-        vv = *reinterpret_cast<const int4*>(v + off);
-      }
-      *reinterpret_cast<int4*>(Ks + j * D + gi * 8) = kv;
-      *reinterpret_cast<int4*>(Vs + j * D + gi * 8) = vv;
-    }
+    stage_bf16_tile<D, BK>(Ks, Vs, k, v, k0, T, Hkv, h);
     for (int j = tid; j < BK; j += blockDim.x)
       segk[j] = (k0 + j < T) ? seg[k0 + j] : -1;
     __syncthreads();

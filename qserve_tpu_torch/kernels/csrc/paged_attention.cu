@@ -1,13 +1,15 @@
-// Paged KV4 decode attention with fused dequantization, for Hopper.
+// Paged quantized (KV4 or KV8) decode attention with fused dequantization,
+// for Hopper.
 //
 // Replaces: qserve_tpu/kernels/pallas_paged_attention.py
 // paged_decode_attention_pallas (and the batched epilogue of its dispatch
 // that merges the current token's exact K/V, _paged_attn_dispatch).
 //
 // One query token per sequence. q [B, Hq, D] bf16; one layer of the cache:
-// data int8 [P, 2, ps, H*D/2] (KV4, two values per byte, dims [0, D/2) in
-// the low nibble and [D/2, D) in the high nibble) and scales [P, 2, 2H, ps]
-// in bf16 or f32 (row h = per-slot scale of head h, row H+h = its zero);
+// data int8 [P, 2, ps, H*Dc] (KV4: Dc = D/2, two values per byte, dims
+// [0, D/2) in the low nibble and [D/2, D) in the high nibble; KV8: Dc = D,
+// one byte u - 128 per value) and scales [P, 2, 2H, ps] in bf16 or f32
+// (row h = per-slot scale of head h, row H+h = its zero);
 // block_tables [B, maxP], context_lens [B] (including the current token),
 // k_cur/v_cur [B, H, D] bf16 -> out [B, Hq, D] bf16. The cache holds
 // positions < ctx-1; the current token is attended exactly from k_cur/v_cur.
@@ -18,30 +20,29 @@
 // them to int8 for its MXU); this kernel follows the XLA fallback, which is
 // the port's plain version.
 //
-// What bounds it on an H100: the bytes of the paged history, (D/2 + 2 scale
+// What bounds it on an H100: the bytes of the paged history, (Dc + 2 scale
 // values) per key per head for K and for V, read once from HBM (3.35 TB/s).
 //
 // Design: one block of 128 threads per (sequence, kv head); the rep = Hq/H
 // query heads of that kv head share each staged page chunk (GQA). The block
-// walks its block table 64 keys at a time: it stages the packed K and V rows
+// walks its block table 64 keys at a time: it stages the cached K and V rows
 // (16-byte loads) and the per-slot scales/zeros in shared memory, two
-// threads per key unpack nibbles in registers and dot them against the fp32
-// query, the chunk's scores update an fp32 online softmax, and each thread
-// accumulates P.V for one head_dim column of every query head. The current
-// token is merged into (m, l, acc) at the end.
+// threads per key dequantize the codes in registers (attn_common.cuh) and
+// dot them against the fp32 query, the chunk's scores update an fp32 online
+// softmax, and each thread accumulates P.V for one head_dim column of every
+// query head. The current token is merged into (m, l, acc) at the end.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attn_common.cuh"
+
+using namespace qs_attn;
 
 namespace {
 
 constexpr int THREADS = 128;
 constexpr int CK = 64;      // keys per chunk (two threads per key)
 constexpr int MAXREP = 8;   // query heads per kv head
-constexpr float NEG_INF = -1e30f;
 
-template <int D>
+template <int D, int BITS>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const int8_t* __restrict__ data,
@@ -52,7 +53,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ v_cur,
                     __nv_bfloat16* __restrict__ out, int Hq, int H, int ps,
                     int maxP, float sm_scale, int window) {
-  constexpr int DC = D / 2;      // packed bytes of one head's row
+  constexpr int DC = D * BITS / 8;      // bytes of one head's row
   constexpr int LDK = DC + 16;   // shared row stride (16-byte aligned)
   constexpr int GR = DC / 16;    // 16-byte granules per row
   __shared__ __align__(16) uint8_t Kp[CK * LDK];
@@ -105,9 +106,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int kv = e >> 1, rowi = (e & 1) ? H + h : h;
           const size_t idx = (((size_t)page * 2 + kv) * 2 * H + rowi) * ps + slot;
-          v4[e] = scale_bf16
-                      ? __bfloat162float(((const __nv_bfloat16*)scales)[idx])
-                      : ((const float*)scales)[idx];
+          v4[e] = load_scale(scales, scale_bf16, idx);
         }
       }
       ksc[j] = v4[0];
@@ -117,7 +116,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    // scores: two threads per key, each unpacking half of the packed row
+    // scores: two threads per key, each taking half of the cached row
     {
       const int j = tid >> 1, half = tid & 1;
       const float sc = ksc[j], zp = kzp[j];
@@ -132,14 +131,21 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int idx = half * (DC / 2) + w + e;
           const uint32_t byte = (word >> (8 * e)) & 0xFFu;
-          const float klo = __fadd_rn(__fmul_rn((float)(byte & 0xFu), sc), zp);
-          const float khi = __fadd_rn(__fmul_rn((float)(byte >> 4), sc), zp);
+          if constexpr (BITS == 4) {
+            const float klo = dequant(byte & 0xFu, sc, zp);
+            const float khi = dequant(byte >> 4, sc, zp);
 #pragma unroll
-          for (int r = 0; r < MAXREP; ++r) {
-            if (r < rep) {
-              dot[r] = fmaf(qs[r * D + idx], klo, dot[r]);
-              dot[r] = fmaf(qs[r * D + idx + DC], khi, dot[r]);
+            for (int r = 0; r < MAXREP; ++r) {
+              if (r < rep) {
+                dot[r] = fmaf(qs[r * D + idx], klo, dot[r]);
+                dot[r] = fmaf(qs[r * D + idx + DC], khi, dot[r]);
+              }
             }
+          } else {
+            const float kval = dequant(kv8_code(byte), sc, zp);
+#pragma unroll
+            for (int r = 0; r < MAXREP; ++r)
+              if (r < rep) dot[r] = fmaf(qs[r * D + idx], kval, dot[r]);
           }
         }
       }
@@ -173,15 +179,18 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       lrun[tid] = lrun[tid] * alph[tid] + sum;
     }
     if (tid < D) {
-      const int bi = tid % DC;
-      const bool hi = tid >= DC;
+      // this thread's dim: byte tid of a KV8 row; in KV4 byte tid % DC,
+      // low nibble for dims < D/2 and high nibble above
+      const int bi = BITS == 4 ? tid % DC : tid;
+      const bool hi = BITS == 4 && tid >= DC;
 #pragma unroll
       for (int r = 0; r < MAXREP; ++r)
         if (r < rep) acc[r] *= alph[r];
       for (int j = 0; j < CK; ++j) {
         const uint32_t byte = Vp[j * LDK + bi];
-        const float nib = (float)(hi ? (byte >> 4) : (byte & 0xFu));
-        const float vv = __fadd_rn(__fmul_rn(nib, vsc[j]), vzp[j]);
+        const uint32_t code =
+            BITS == 4 ? (hi ? (byte >> 4) : (byte & 0xFu)) : kv8_code(byte);
+        const float vv = dequant(code, vsc[j], vzp[j]);
 #pragma unroll
         for (int r = 0; r < MAXREP; ++r)
           if (r < rep) acc[r] = fmaf(S[r * CK + j], vv, acc[r]);
@@ -223,28 +232,31 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace
 
-// data/scales are ONE layer of the cache ([P, 2, ps, H*D/2], [P, 2, 2H, ps]).
-// The wrapper keeps rep <= 8 and D in {64, 128}.
+// data/scales are ONE layer of the cache ([P, 2, ps, H*Dc], [P, 2, 2H, ps]).
+// The wrapper keeps rep <= 8, D in {64, 128} and kv_bits in {4, 8}.
 extern "C" int qs_paged_decode_attention(
     const void* q, const void* data, const void* scales, int scale_bf16,
     const void* block_tables, const void* context_lens, const void* k_cur,
-    const void* v_cur, void* out, int B, int Hq, int H, int D, int ps,
-    int maxP, float sm_scale, int window, void* stream) {
+    const void* v_cur, void* out, int B, int Hq, int H, int D, int kv_bits,
+    int ps, int maxP, float sm_scale, int window, void* stream) {
   const dim3 grid(B, H);
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 128)
-    paged_decode_kernel<128><<<grid, THREADS, 0, st>>>(
-        (const __nv_bfloat16*)q, (const int8_t*)data, scales, scale_bf16,
-        (const int*)block_tables, (const int*)context_lens,
-        (const __nv_bfloat16*)k_cur, (const __nv_bfloat16*)v_cur,
-        (__nv_bfloat16*)out, Hq, H, ps, maxP, sm_scale, window);
-  else if (D == 64)
-    paged_decode_kernel<64><<<grid, THREADS, 0, st>>>(
-        (const __nv_bfloat16*)q, (const int8_t*)data, scales, scale_bf16,
-        (const int*)block_tables, (const int*)context_lens,
-        (const __nv_bfloat16*)k_cur, (const __nv_bfloat16*)v_cur,
-        (__nv_bfloat16*)out, Hq, H, ps, maxP, sm_scale, window);
+#define QS_LAUNCH(D_, BITS_)                                                 \
+  paged_decode_kernel<D_, BITS_><<<grid, THREADS, 0, st>>>(                  \
+      (const __nv_bfloat16*)q, (const int8_t*)data, scales, scale_bf16,      \
+      (const int*)block_tables, (const int*)context_lens,                    \
+      (const __nv_bfloat16*)k_cur, (const __nv_bfloat16*)v_cur,              \
+      (__nv_bfloat16*)out, Hq, H, ps, maxP, sm_scale, window)
+  if (D == 128 && kv_bits == 4)
+    QS_LAUNCH(128, 4);
+  else if (D == 128 && kv_bits == 8)
+    QS_LAUNCH(128, 8);
+  else if (D == 64 && kv_bits == 4)
+    QS_LAUNCH(64, 4);
+  else if (D == 64 && kv_bits == 8)
+    QS_LAUNCH(64, 8);
   else
     return (int)cudaErrorInvalidValue;
+#undef QS_LAUNCH
   return (int)cudaGetLastError();
 }

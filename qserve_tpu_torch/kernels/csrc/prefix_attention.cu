@@ -1,5 +1,5 @@
-// Chunked-prefill attention over a KV4 paged prefix plus the chunk itself,
-// for Hopper.
+// Chunked-prefill attention over a quantized (KV4 or KV8) paged prefix plus
+// the chunk itself, for Hopper.
 //
 // Replaces: qserve_tpu/kernels/pallas_prefix_attention.py
 // prefix_prefill_attention_pallas.
@@ -7,9 +7,10 @@
 // One prompt chunk of one sequence. q [T, Hq, D], k/v [T, Hkv, D] bf16 (the
 // chunk's own rows, RoPE applied), seg [T] int32 (0 = padding), pos [T]
 // int32 absolute positions; one layer of the cache: data int8
-// [P, 2, ps, H*D/2] (KV4: dims [0, D/2) in the low nibble, [D/2, D) in the
-// high nibble) and scales [P, 2, 2H, ps] in bf16 or f32 (row h = per-slot
-// scale of head h, row H+h = its zero); table [maxP] int32, the sequence's
+// [P, 2, ps, H*Dc] (KV4: Dc = D/2, dims [0, D/2) in the low nibble, [D/2, D)
+// in the high nibble; KV8: Dc = D, one byte u - 128 per value) and scales
+// [P, 2, 2H, ps] in bf16 or f32 (row h = per-slot scale of head h, row H+h =
+// its zero); table [maxP] int32, the sequence's
 // pages; prefix_len: positions [0, prefix_len) are cached -> out [T, Hq, D]
 // bf16. Row t sees prefix key s when s < prefix_len, seg[t] > 0,
 // s <= pos[t] (and s > pos[t] - window); it sees chunk key j when both rows
@@ -17,12 +18,12 @@
 // through both. Rows of padding attend nothing and come out 0.
 //
 // As in the paged decode kernel, q and P stay fp32 (the TPU kernel
-// requantizes q and p.v_scale to int8 for its MXU) and nibbles dequantize
-// as the plain version does: __fmul_rn by the per-slot scale, then
-// __fadd_rn of the zero.
+// requantizes q and p.v_scale to int8 for its MXU) and codes dequantize
+// as the plain version does (attn_common.cuh): __fmul_rn by the per-slot
+// scale, then __fadd_rn of the zero.
 //
 // What bounds it on an H100: 4 * Hq * T * (S + T/2) * D flops against the
-// bytes of the prefix pages (D/2 + 2 scale values per key and head, K and V)
+// bytes of the prefix pages (Dc + 2 scale values per key and head, K and V)
 // and the chunk's q, k, v, out once each: arithmetic, 989 TFLOP/s in bf16
 // on the tensor cores.
 //
@@ -38,19 +39,19 @@
 // visible). The arithmetic is fp32 on the CUDA cores: the simple, correct
 // version; tensor cores are a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <limits.h>
-#include <stdint.h>
+
+#include "attn_common.cuh"
+
+using namespace qs_attn;
 
 namespace {
 
 constexpr int BQ = 16;   // query tokens per block
 constexpr int BK = 32;   // keys per shared-memory tile
 constexpr int MAX_THREADS = 4 * 8 * BQ;
-constexpr float NEG_INF = -1e30f;
 
-template <int D>
+template <int D, int BITS>
 __global__ void __launch_bounds__(MAX_THREADS)
 prefix_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -63,9 +64,8 @@ prefix_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                       __nv_bfloat16* __restrict__ out, int T, int Hq, int H,
                       int ps, int prefix_len, float sm_scale, int window) {
   constexpr int NP = D / 8;   // float pairs per thread (D / 4 dims)
-  constexpr int DC = D / 2;   // packed bytes of one head's row
-  constexpr int GR = DC / 16; // 16-byte granules per packed row
-  constexpr int GB = D / 8;   // 16-byte granules per bf16 row
+  constexpr int DC = D * BITS / 8;      // bytes of one head's row
+  constexpr int GR = DC / 16;  // 16-byte granules per cached row
   __shared__ __align__(16) float Ks[BK * D];
   __shared__ __align__(16) float Vs[BK * D];
   __shared__ int kpos[BK];
@@ -125,7 +125,7 @@ prefix_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int it = 0; it < n1 + n2; ++it) {
     if (it < n1) {
-      // stage 32 prefix keys: each packed 16-byte granule dequantized once
+      // stage 32 prefix keys: each cached 16-byte granule dequantized once
       const int c0 = lo + it * BK;
       for (int i = tid; i < 2 * BK * GR; i += blockDim.x) {
         const int kv = i / (BK * GR);
@@ -138,28 +138,28 @@ prefix_prefill_kernel(const __nv_bfloat16* __restrict__ q,
               data + (((size_t)page * 2 + kv) * ps + slot) * HDc + h * DC +
               gi * 16);
           const size_t si = (((size_t)page * 2 + kv) * 2 * H + h) * ps + slot;
-          const size_t zi = si + (size_t)H * ps;
-          float sc, zp;
-          if (scale_bf16) {
-            sc = __bfloat162float(((const __nv_bfloat16*)scales)[si]);
-            zp = __bfloat162float(((const __nv_bfloat16*)scales)[zi]);
-          } else {
-            sc = ((const float*)scales)[si];
-            zp = ((const float*)scales)[zi];
-          }
+          const float sc = load_scale(scales, scale_bf16, si);
+          const float zp = load_scale(scales, scale_bf16, si + (size_t)H * ps);
+          // 32 values in KV4 (16 low-nibble dims, 16 high-nibble dims), 16
+          // in KV8. Written out here, not as a helper of attn_common.cuh:
+          // nvcc 12.8 schedules the helper's KV4 form 13% slower.
           const uint32_t words[4] = {(uint32_t)w.x, (uint32_t)w.y,
                                      (uint32_t)w.z, (uint32_t)w.w};
 #pragma unroll
           for (int e = 0; e < 16; ++e) {
             const uint32_t byte = (words[e >> 2] >> (8 * (e & 3))) & 0xFFu;
-            dst[e] = __fadd_rn(__fmul_rn((float)(byte & 0xFu), sc), zp);
-            dst[DC + e] = __fadd_rn(__fmul_rn((float)(byte >> 4), sc), zp);
+            if constexpr (BITS == 4) {
+              dst[e] = dequant(byte & 0xFu, sc, zp);
+              dst[D / 2 + e] = dequant(byte >> 4, sc, zp);
+            } else {
+              dst[e] = dequant(kv8_code(byte), sc, zp);
+            }
           }
-        } else {
+        } else {  // a key past the end of the tile
 #pragma unroll
           for (int e = 0; e < 16; ++e) {
             dst[e] = 0.f;
-            dst[DC + e] = 0.f;
+            if constexpr (BITS == 4) dst[D / 2 + e] = 0.f;
           }
         }
       }
@@ -168,26 +168,7 @@ prefix_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     } else {
       // stage 32 of the chunk's own keys (bf16 -> fp32)
       const int k0 = kstart + (it - n1) * BK;
-      for (int i = tid; i < 2 * BK * GB; i += blockDim.x) {
-        const int kv = i / (BK * GB);
-        const int j = (i / GB) % BK, gi = i % GB;
-        const int s = k0 + j;
-        float* dst = (kv ? Vs : Ks) + j * D + gi * 8;
-        if (s < T) {
-          const int4 w = *reinterpret_cast<const int4*>(
-              (kv ? v : k) + ((size_t)s * H + h) * D + gi * 8);
-          const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&w);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(b[e]);
-            dst[2 * e] = f.x;
-            dst[2 * e + 1] = f.y;
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) dst[e] = 0.f;
-        }
-      }
+      stage_bf16_tile<D, BK>(Ks, Vs, k, v, k0, T, H, h);
       for (int j = tid; j < BK; j += blockDim.x) {
         const int s = k0 + j;
         kpos[j] = (s < T && seg[s] > 0) ? pos[s] : INT_MAX;
@@ -260,31 +241,34 @@ prefix_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace
 
-// data/scales are ONE layer of the cache ([P, 2, ps, H*D/2], [P, 2, 2H, ps]).
+// data/scales are ONE layer of the cache ([P, 2, ps, H*Dc], [P, 2, 2H, ps]).
 // Threads per block = 4 * rep * BQ; the wrapper keeps rep <= 8, D in
-// {64, 128} and prefix_len <= maxP * ps.
+// {64, 128}, kv_bits in {4, 8} and prefix_len <= maxP * ps.
 extern "C" int qs_prefix_prefill_attention(
     const void* q, const void* k, const void* v, const void* seg,
     const void* pos, const void* data, const void* scales, int scale_bf16,
-    const void* table, void* out, int T, int Hq, int H, int D, int ps,
-    int prefix_len, float sm_scale, int window, void* stream) {
+    const void* table, void* out, int T, int Hq, int H, int D, int kv_bits,
+    int ps, int prefix_len, float sm_scale, int window, void* stream) {
   const int rep = Hq / H;
   const dim3 grid((T + BQ - 1) / BQ, H);
   const int threads = 4 * rep * BQ;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 128)
-    prefix_prefill_kernel<128><<<grid, threads, 0, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (const int*)seg, (const int*)pos,
-        (const int8_t*)data, scales, scale_bf16, (const int*)table,
-        (__nv_bfloat16*)out, T, Hq, H, ps, prefix_len, sm_scale, window);
-  else if (D == 64)
-    prefix_prefill_kernel<64><<<grid, threads, 0, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (const int*)seg, (const int*)pos,
-        (const int8_t*)data, scales, scale_bf16, (const int*)table,
-        (__nv_bfloat16*)out, T, Hq, H, ps, prefix_len, sm_scale, window);
+#define QS_LAUNCH(D_, BITS_)                                                  \
+  prefix_prefill_kernel<D_, BITS_><<<grid, threads, 0, st>>>(                 \
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,                       \
+      (const __nv_bfloat16*)v, (const int*)seg, (const int*)pos,              \
+      (const int8_t*)data, scales, scale_bf16, (const int*)table,             \
+      (__nv_bfloat16*)out, T, Hq, H, ps, prefix_len, sm_scale, window)
+  if (D == 128 && kv_bits == 4)
+    QS_LAUNCH(128, 4);
+  else if (D == 128 && kv_bits == 8)
+    QS_LAUNCH(128, 8);
+  else if (D == 64 && kv_bits == 4)
+    QS_LAUNCH(64, 4);
+  else if (D == 64 && kv_bits == 8)
+    QS_LAUNCH(64, 8);
   else
     return (int)cudaErrorInvalidValue;
+#undef QS_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,12 @@
-"""K2: wrapper of the W4A8 per-channel GEMM kernel (csrc/w4a8_gemm.cu).
+"""K2, K8, K9: wrappers of the quantized GEMM kernels (csrc/w4a8_gemm.cu,
+csrc/w4a8_gemm_per_group.cu, csrc/w8a8_gemm.cu; shared main loop in
+csrc/gemm_common.cuh).
 
-Replaces qserve_tpu/kernels/pallas_gemm.py w4a8_gemm_per_chn_pallas and
-w4a8_gemm_per_chn_bigm_pallas. A stacked [L, K/2, N] weight is passed as
-its layer view (`qweight[li]`, no copy), so the kernel takes no index.
+Replace qserve_tpu/kernels/pallas_gemm.py w4a8_gemm_per_chn_pallas and
+w4a8_gemm_per_chn_bigm_pallas (K2), w4a8_gemm_per_group_pallas and
+w4a8_gemm_per_group_whole_pallas (K8) and w8a8_gemm_pallas (K9). A stacked
+[L, ...] weight is passed as its layer view (`qweight[li]`, no copy), so the
+kernels take no index.
 """
 
 from __future__ import annotations
@@ -12,7 +16,29 @@ import torch
 from qserve_tpu_torch.kernels import _build
 
 NAME = "w4a8_gemm_per_chn"
+NAME_GROUP = "w4a8_gemm_per_group"
+NAME_W8 = "w8a8_gemm"
 _ARGS = [_build.P] * 7 + [_build.I] * 3 + [_build.P]
+_ARGS_GROUP = [_build.P] * 7 + [_build.I] * 5 + [_build.P]
+_ARGS_W8 = [_build.P] * 5 + [_build.I] * 4 + [_build.P]
+
+
+def _check(operands) -> None:
+    """Each (tensor, dtype, shape, name): on the card, typed, shaped, dense."""
+    for t, dt, shape, what in operands:
+        if not t.is_cuda or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{what}: want CUDA {dt} {shape}, got {t.device} {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+
+
+def _out_f32(name: str, out_dtype) -> int:
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} writes bf16 or f32, not {out_dtype}")
+    return int(out_dtype == torch.float32)
 
 
 def w4a8_gemm_per_chn(
@@ -26,21 +52,14 @@ def w4a8_gemm_per_chn(
     """bf16 [M, N] = (A.Wq * s1) * a_scale - s1_szero * a_sum."""
     M, K = a_i8.shape
     K2, N = qweight.shape
-    for t, dt, shape, what in (
+    _check((
         (a_i8, torch.int8, (M, K), "a_i8"),
         (a_scale, torch.float32, (M, 1), "a_scale"),
         (a_sum, torch.float32, (M, 1), "a_sum"),
         (qweight, torch.int8, (K // 2, N), "qweight"),
         (s1_scale, torch.float32, (N,), "s1_scale"),
         (s1_szero, torch.float32, (N,), "s1_szero"),
-    ):
-        if not t.is_cuda or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{what}: want CUDA {dt} {shape}, got {t.device} {t.dtype} "
-                f"{tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{what} must be contiguous")
+    ))
     if K % 64 or N % 64 or K2 * 2 != K:
         raise ValueError(f"w4a8_gemm_per_chn needs K, N % 64 == 0 (K={K}, N={N})")
     out = torch.empty((M, N), dtype=torch.bfloat16, device=a_i8.device)
@@ -54,4 +73,82 @@ def w4a8_gemm_per_chn(
     )
     _build.check(NAME, rc)
     _build.count_launch(NAME)
+    return out
+
+
+def w4a8_gemm_per_group(
+    a_i8: torch.Tensor,  # int8 [M, K]
+    a_scale: torch.Tensor,  # f32 [M, 1]
+    qweight: torch.Tensor,  # int8 [K/2, N], half-split nibbles
+    s2_scale: torch.Tensor,  # int8 [K/G, N], uint8 values
+    s2_zero: torch.Tensor,  # int8 [K/G, N]
+    s1_scale: torch.Tensor,  # f32 [N]
+    group_size: int = 128,
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """[M, N] = (A.(Wq * s2 + z2)) * s1 * a_scale, in bf16 or f32."""
+    M, K = a_i8.shape
+    K2, N = qweight.shape
+    G = int(group_size)
+    # 32 packed rows a step: a step must not straddle a group of either
+    # nibble plane, and the planes must split on a group boundary
+    if G <= 0 or G % 32 or K % 64 or N % 64 or K2 * 2 != K or K2 % G:
+        raise ValueError(
+            f"w4a8_gemm_per_group needs K, N % 64 == 0, group_size % 32 == 0 "
+            f"and (K/2) % group_size == 0 (K={K}, N={N}, group_size={G})"
+        )
+    _check((
+        (a_i8, torch.int8, (M, K), "a_i8"),
+        (a_scale, torch.float32, (M, 1), "a_scale"),
+        (qweight, torch.int8, (K // 2, N), "qweight"),
+        (s2_scale, torch.int8, (K // G, N), "s2_scale"),
+        (s2_zero, torch.int8, (K // G, N), "s2_zero"),
+        (s1_scale, torch.float32, (N,), "s1_scale"),
+    ))
+    f32 = _out_f32(NAME_GROUP, out_dtype)
+    out = torch.empty((M, N), dtype=out_dtype, device=a_i8.device)
+    if M == 0:
+        return out
+    fn = _build.function(
+        "w4a8_gemm_per_group", "qs_w4a8_gemm_per_group", _ARGS_GROUP
+    )
+    rc = fn(
+        a_i8.data_ptr(), qweight.data_ptr(), s2_scale.data_ptr(),
+        s2_zero.data_ptr(), s1_scale.data_ptr(), a_scale.data_ptr(),
+        out.data_ptr(), f32, M, N, K, G, _build.stream(),
+    )
+    _build.check(NAME_GROUP, rc)
+    _build.count_launch(NAME_GROUP)
+    return out
+
+
+def w8a8_gemm(
+    a_i8: torch.Tensor,  # int8 [M, K]
+    a_scale: torch.Tensor,  # f32 [M, 1]
+    qweight: torch.Tensor,  # int8 [K, N]
+    w_scale: torch.Tensor,  # f32 [N]
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """[M, N] = (A.W) * w_scale * a_scale, in bf16 or f32."""
+    M, K = a_i8.shape
+    N = qweight.shape[1]
+    if K % 64 or N % 64:
+        raise ValueError(f"w8a8_gemm needs K, N % 64 == 0 (K={K}, N={N})")
+    _check((
+        (a_i8, torch.int8, (M, K), "a_i8"),
+        (a_scale, torch.float32, (M, 1), "a_scale"),
+        (qweight, torch.int8, (K, N), "qweight"),
+        (w_scale, torch.float32, (N,), "w_scale"),
+    ))
+    f32 = _out_f32(NAME_W8, out_dtype)
+    out = torch.empty((M, N), dtype=out_dtype, device=a_i8.device)
+    if M == 0:
+        return out
+    fn = _build.function("w8a8_gemm", "qs_w8a8_gemm", _ARGS_W8)
+    rc = fn(
+        a_i8.data_ptr(), qweight.data_ptr(), w_scale.data_ptr(),
+        a_scale.data_ptr(), out.data_ptr(), f32, M, N, K, _build.stream(),
+    )
+    _build.check(NAME_W8, rc)
+    _build.count_launch(NAME_W8)
     return out

@@ -6,8 +6,9 @@ defined next to it. There is no switch and no fallback: a kernel that cannot
 take its input raises. The plain versions are the oracles the kernels are
 held against on the card.
 
-rmsnorm (the final norm), silu_mul and matmul (the bf16 lm_head) were XLA in
-the JAX package, not Pallas; they are plain PyTorch on every device.
+rmsnorm (the final norm and the W16A16 layers), silu_mul and matmul (the
+bf16 lm_head and the W16A16 linears) were XLA in the JAX package, not
+Pallas; they are plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -142,10 +143,64 @@ def w4a8_gemm_per_chn(
     )
 
 
+# --- W4A8 per-group GEMM -------------------------------------------------
+
+
+def w4a8_gemm_per_group_plain(
+    a_i8: torch.Tensor, a_scale: torch.Tensor, qweight_packed: torch.Tensor,
+    s2_scale: torch.Tensor, s2_zero: torch.Tensor, s1_scale: torch.Tensor,
+    group_size: int = 128, out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    p = qoq.PerGroupW4(
+        packing.unpack_w4(qweight_packed), s2_scale, s2_zero, s1_scale
+    )
+    return qoq.w4a8_gemm_per_group_ref(a_i8, a_scale, p, group_size, out_dtype)
+
+
+def w4a8_gemm_per_group(
+    a_i8: torch.Tensor, a_scale: torch.Tensor, qweight_packed: torch.Tensor,
+    s2_scale: torch.Tensor, s2_zero: torch.Tensor, s1_scale: torch.Tensor,
+    group_size: int = 128, out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """int8 [M, K] x packed UINT4 [K/2, N] with per-group integer scale and
+    zero [K/G, N] -> out_dtype [M, N] (bf16 or f32)."""
+    if a_i8.is_cuda:
+        from qserve_tpu_torch.kernels.gemm import w4a8_gemm_per_group as kernel
+
+        return kernel(a_i8, a_scale, qweight_packed, s2_scale, s2_zero,
+                      s1_scale, group_size, out_dtype)
+    return w4a8_gemm_per_group_plain(
+        a_i8, a_scale, qweight_packed, s2_scale, s2_zero, s1_scale,
+        group_size, out_dtype,
+    )
+
+
+# --- W8A8 GEMM -----------------------------------------------------------
+
+
+def w8a8_gemm_plain(
+    a_i8: torch.Tensor, a_scale: torch.Tensor, qweight: torch.Tensor,
+    w_scale: torch.Tensor, out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    return qoq.w8a8_gemm_ref(a_i8, a_scale, qoq.W8(qweight, w_scale), out_dtype)
+
+
+def w8a8_gemm(
+    a_i8: torch.Tensor, a_scale: torch.Tensor, qweight: torch.Tensor,
+    w_scale: torch.Tensor, out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """int8 [M, K] x int8 [K, N] -> out_dtype [M, N] (bf16 or f32)."""
+    if a_i8.is_cuda:
+        from qserve_tpu_torch.kernels.gemm import w8a8_gemm as kernel
+
+        return kernel(a_i8, a_scale, qweight, w_scale, out_dtype)
+    return w8a8_gemm_plain(a_i8, a_scale, qweight, w_scale, out_dtype)
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """bf16 [M, K] x bf16 [K, N] with fp32 accumulation and fp32 result,
-    cast to out_dtype (the lm_head; XLA in the JAX package, a library
-    product here)."""
+    cast to out_dtype (the bf16 lm_head and the W16A16 linears; XLA in the
+    JAX package, a library product here)."""
     out_dtype = out_dtype or x.dtype
     if x.is_cuda:
         return torch.mm(x, w, out_dtype=torch.float32).to(out_dtype)

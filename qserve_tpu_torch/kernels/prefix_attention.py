@@ -4,7 +4,9 @@
 Replaces qserve_tpu/kernels/pallas_prefix_attention.py
 prefix_prefill_attention_pallas. Takes one layer of the stacked cache
 (`data[li]`, `scales[li]`: views, no copy), scales in bf16 or f32, and
-`prefix_len` as a host integer: it crosses as a scalar argument.
+`prefix_len` as a host integer: it crosses as a scalar argument. The cache
+mode is read off the width of a data row: H*D/2 bytes is KV4, H*D bytes is
+KV8.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from qserve_tpu_torch.kernels import _build
 
 NAME = "prefix_prefill_attention"
 _ARGS = (
-    [_build.P] * 7 + [_build.I] + [_build.P] * 2 + [_build.I] * 6
+    [_build.P] * 7 + [_build.I] + [_build.P] * 2 + [_build.I] * 7
     + [_build.F, _build.I, _build.P]
 )
 
@@ -26,7 +28,7 @@ def prefix_prefill_attention(
     v: torch.Tensor,  # bf16 [T, H, D]
     segment_ids: torch.Tensor,  # int32 [T], 0 = padding
     positions: torch.Tensor,  # int32 [T], absolute positions
-    data: torch.Tensor,  # int8 [P, 2, ps, H*D/2], one layer
+    data: torch.Tensor,  # int8 [P, 2, ps, H*Dc], one layer
     scales: torch.Tensor,  # bf16/f32 [P, 2, 2H, ps], one layer
     block_table: torch.Tensor,  # int32 [maxP], the sequence's pages
     prefix_len: int,
@@ -43,7 +45,7 @@ def prefix_prefill_attention(
         (v, torch.bfloat16, (T, H, D), "v"),
         (segment_ids, torch.int32, (T,), "segment_ids"),
         (positions, torch.int32, (T,), "positions"),
-        (data, torch.int8, (P, 2, ps, H * D // 2), "data"),
+        (data, torch.int8, (P, 2, ps, hdc), "data"),
         (scales, scales.dtype, (P, 2, 2 * H, ps), "scales"),
         (block_table, torch.int32, (maxP,), "block_table"),
     ):
@@ -56,9 +58,10 @@ def prefix_prefill_attention(
             raise ValueError(f"{what} must be contiguous")
     if scales.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"scales must be bf16 or f32, got {scales.dtype}")
-    if D not in (64, 128) or Hq % H or Hq // H > 8:
-        raise ValueError(f"prefix prefill needs KV4, D in (64, 128), Hq/H <= 8 "
-                         f"(D={D}, Hq={Hq}, H={H}, row bytes={hdc})")
+    kv_bits = {H * D // 2: 4, H * D: 8}.get(hdc)
+    if kv_bits is None or D not in (64, 128) or Hq % H or Hq // H > 8:
+        raise ValueError(f"prefix prefill needs KV4 or KV8 rows, D in (64, 128), "
+                         f"Hq/H <= 8 (D={D}, Hq={Hq}, H={H}, row bytes={hdc})")
     prefix_len = int(prefix_len)
     if not 0 <= prefix_len <= maxP * ps:
         raise ValueError(f"prefix_len {prefix_len} outside the block table "
@@ -71,7 +74,7 @@ def prefix_prefill_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
         positions.data_ptr(), data.data_ptr(), scales.data_ptr(),
         int(scales.dtype == torch.bfloat16), block_table.data_ptr(),
-        out.data_ptr(), T, Hq, H, D, ps, prefix_len, float(sm_scale),
+        out.data_ptr(), T, Hq, H, D, kv_bits, ps, prefix_len, float(sm_scale),
         int(window), _build.stream(),
     )
     _build.check(NAME, rc)

@@ -2,14 +2,14 @@
 (qserve_tpu/layers/linear.py).
 
 Parameters are plain tensors in [K, N] layout, W4 packed with the JAX
-package's global half-split (quant/packing.py). This slice serves the
-per-channel W4A8 path; the per-group, W8 and W16 flavors wait for their
-kernels (ROADMAP queue 1, remaining precisions).
+package's global half-split (quant/packing.py). Four flavors: per-channel
+W4, per-group W4, W8 and W16 (bf16). Model weights are stacked on a leading
+[L] layer axis; `.layer(li)` takes one layer's views, which copy nothing.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -35,40 +35,110 @@ class W4ChnLinear(NamedTuple):
         return W4ChnLinear(self.qweight[li], self.s1_scale[li], self.s1_szero[li])
 
 
-LinearParams = W4ChnLinear
+class W4GrpLinear(NamedTuple):
+    qweight: torch.Tensor  # int8 [(L,) K//2, N] packed nibbles
+    s2_scale: torch.Tensor  # int8 (uint8 values) [(L,) K//G, N]
+    s2_zero: torch.Tensor  # int8 [(L,) K//G, N]
+    s1_scale: torch.Tensor  # f32 [(L,) N]
+
+    def layer(self, li: int) -> "W4GrpLinear":
+        return W4GrpLinear(*(x[li] for x in self))
+
+
+class W8Linear(NamedTuple):
+    qweight: torch.Tensor  # int8 [(L,) K, N]
+    scale: torch.Tensor  # f32 [(L,) N]
+
+    def layer(self, li: int) -> "W8Linear":
+        return W8Linear(self.qweight[li], self.scale[li])
+
+
+class W16Linear(NamedTuple):
+    weight: torch.Tensor  # bf16 [(L,) K, N]
+
+    def layer(self, li: int) -> "W16Linear":
+        return W16Linear(self.weight[li])
+
+
+LinearParams = Union[W4ChnLinear, W4GrpLinear, W8Linear, W16Linear]
 
 
 def needs_act_sum(p: LinearParams) -> bool:
     return isinstance(p, W4ChnLinear)
 
 
-def _unported(what) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} linear layers are not ported yet (ROADMAP queue 1, remaining "
-        "precisions: per-group, W8A8, W16A16)"
-    )
-
-
-def apply_linear(p: LinearParams, x: QuantAct) -> torch.Tensor:
-    """QuantAct [T, K] x one layer's W4 weight [K/2, N] -> bf16 [T, N]."""
-    if not isinstance(p, W4ChnLinear):
-        raise _unported(type(p).__name__)
-    if x.asum is None:
-        raise ValueError("per-channel W4 needs the act-sum")
-    return ops.w4a8_gemm_per_chn(
-        x.q, x.scale, x.asum, p.qweight, p.s1_scale, p.s1_szero
-    )
+def apply_linear(
+    p: LinearParams,
+    x: Union[QuantAct, torch.Tensor],
+    group_size: int = 128,
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """One layer's weight [K, N] applied to [T, K] activations -> out_dtype
+    [T, N]: a QuantAct for the quantized flavors, a bf16 tensor for W16."""
+    if isinstance(p, W16Linear):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError("the W16 path takes float activations")
+        return ops.matmul(x, p.weight, out_dtype)
+    if not isinstance(x, QuantAct):
+        raise TypeError("the quantized path takes a QuantAct")
+    if isinstance(p, W4ChnLinear):
+        if x.asum is None:
+            raise ValueError("per-channel W4 needs the act-sum")
+        if out_dtype != torch.bfloat16:
+            raise ValueError("the per-channel W4 GEMM writes bf16 only")
+        return ops.w4a8_gemm_per_chn(
+            x.q, x.scale, x.asum, p.qweight, p.s1_scale, p.s1_szero
+        )
+    if isinstance(p, W4GrpLinear):
+        return ops.w4a8_gemm_per_group(
+            x.q, x.scale, p.qweight, p.s2_scale, p.s2_zero, p.s1_scale,
+            group_size, out_dtype,
+        )
+    if isinstance(p, W8Linear):
+        return ops.w8a8_gemm(x.q, x.scale, p.qweight, p.scale, out_dtype)
+    raise TypeError(f"unknown linear params {type(p)}")
 
 
 def quantize_linear_from_float(
     w: torch.Tensor, weight_bits: int, group_size: int = -1
 ) -> LinearParams:
     """Quantize a float [K, N] weight into the packed serving format."""
-    if weight_bits != 4 or group_size != -1:
-        raise _unported(f"w{weight_bits} group {group_size}")
-    p = qoq.quantize_weight_per_channel(w)
-    return W4ChnLinear(
-        qweight=packing.pack_w4(p.qweight),
-        s1_scale=p.s1_scale,
-        s1_szero=p.s1_szero,
-    )
+    if weight_bits == 16:
+        return W16Linear(weight=w.to(torch.bfloat16))
+    if weight_bits == 8:
+        p = qoq.quantize_weight_w8(w)
+        return W8Linear(qweight=p.qweight, scale=p.scale)
+    if weight_bits == 4:
+        if group_size == -1:
+            p = qoq.quantize_weight_per_channel(w)
+            return W4ChnLinear(
+                qweight=packing.pack_w4(p.qweight),
+                s1_scale=p.s1_scale,
+                s1_szero=p.s1_szero,
+            )
+        p = qoq.quantize_weight_per_group(w, group_size)
+        return W4GrpLinear(
+            qweight=packing.pack_w4(p.qweight),
+            s2_scale=p.s2_scale,
+            s2_zero=p.s2_zero,
+            s1_scale=p.s1_scale,
+        )
+    raise ValueError(f"weight_bits={weight_bits}")
+
+
+def dequantize_linear(p: LinearParams, group_size: int = 128) -> torch.Tensor:
+    """Float reconstruction [K, N] of one layer's weight (for tests)."""
+    if isinstance(p, W16Linear):
+        return p.weight.to(torch.float32)
+    if isinstance(p, W8Linear):
+        return qoq.dequantize_w8(qoq.W8(p.qweight, p.scale))
+    q = packing.unpack_w4(p.qweight)
+    if isinstance(p, W4ChnLinear):
+        return qoq.dequantize_per_channel(
+            qoq.PerChannelW4(q, p.s1_scale, p.s1_szero)
+        )
+    if isinstance(p, W4GrpLinear):
+        return qoq.dequantize_per_group(
+            qoq.PerGroupW4(q, p.s2_scale, p.s2_zero, p.s1_scale), group_size
+        )
+    raise TypeError(type(p))

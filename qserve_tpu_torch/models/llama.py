@@ -1,4 +1,5 @@
-"""Dense Llama-family model over W4A8 layers and a paged KV4 cache
+"""Dense Llama-family model over quantized linear layers (W4A8 per-channel
+or per-group, W8A8, or W16A16) and a paged KV4/KV8 cache
 (qserve_tpu/models/llama.py, dense path).
 
   * packed varlen prefill (segment-id masked causal attention) writes the
@@ -10,9 +11,10 @@
     batch into one packed [T+B] stream;
   * stacked [L, ...] weights stay stacked: a Python loop over layers takes
     views (`qweight[li]`), which copy nothing;
-  * RMSNorm->INT8, SwiGLU->INT8 and attention-out->INT8 handoffs keep the
-    int8 activation contract, and each layer's residual add rides inside the
-    next norm (`add_rmsnorm_quant`).
+  * with INT8 activations the RMSNorm->INT8, SwiGLU->INT8 and
+    attention-out->INT8 handoffs keep the int8 activation contract, and each
+    layer's residual add rides inside the next norm (`add_rmsnorm_quant`);
+    W16A16 adds eagerly and runs plain norms and bf16 products.
 
 bf16 rounding happens where the JAX package does it: the residual h, the
 qkv/o/down GEMM outputs and the K/V handed to the cache are bf16; logits are
@@ -89,18 +91,18 @@ class LlamaLayerParams(NamedTuple):
     """Stacked over layers: every field has a leading [L] dim."""
 
     input_ln: torch.Tensor  # f32 [L, E]
-    qkv: lin.W4ChnLinear  # [L, E/2, (Hq+2Hkv)*D]
-    o: lin.W4ChnLinear  # [L, Hq*D/2, E]
+    qkv: lin.LinearParams  # [L, E, (Hq+2Hkv)*D]
+    o: lin.LinearParams  # [L, Hq*D, E]
     post_ln: torch.Tensor  # f32 [L, E]
-    gate_up: lin.W4ChnLinear  # [L, E/2, 2*I]
-    down: lin.W4ChnLinear  # [L, I/2, E]
+    gate_up: lin.LinearParams  # [L, E, 2*I]
+    down: lin.LinearParams  # [L, I, E]
 
 
 class LlamaParams(NamedTuple):
     embed: torch.Tensor  # bf16 [V, E]
     layers: LlamaLayerParams
     final_ln: torch.Tensor  # f32 [E]
-    lm_head: torch.Tensor  # bf16 [E, V]
+    lm_head: Any  # bf16 [E, V], or lin.W8Linear (quant.lm_head_bits == 8)
 
 
 # ---------------------------------------------------------------------------
@@ -108,38 +110,49 @@ class LlamaParams(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def make_lm_head(w: torch.Tensor, qspec: QuantSpec) -> torch.Tensor:
-    """bf16 lm_head. The W8 lm_head needs the W8A8 GEMM kernel, which is not
-    ported yet."""
+def make_lm_head(w: torch.Tensor, qspec: QuantSpec) -> Any:
+    """bf16 lm_head, or W8 per-channel when qspec.lm_head_bits == 8 (half
+    the weight bytes of the logits product)."""
     if getattr(qspec, "lm_head_bits", 16) == 8:
-        raise NotImplementedError(
-            "the W8 lm_head needs the W8A8 GEMM kernel (ROADMAP queue 2, "
-            "item 13), not ported yet"
-        )
+        return lin.quantize_linear_from_float(w.to(torch.float32), 8)
     return w.to(torch.bfloat16)
 
 
-def lm_head_matmul(h: torch.Tensor, lmh: torch.Tensor, out_dtype) -> torch.Tensor:
+def lm_head_matmul(h: torch.Tensor, lmh, out_dtype) -> torch.Tensor:
+    """Logits product against either lm_head form."""
+    if isinstance(lmh, lin.W8Linear):
+        q, s, _ = ops.quant_per_token(h, False)
+        return lin.apply_linear(lmh, lin.QuantAct(q, s, None), out_dtype=out_dtype)
     return ops.matmul(h, lmh, out_dtype)
 
 
-def _check_dense_w4a8(args: LlamaArgs) -> None:
+def _check_dense(args: LlamaArgs) -> None:
     assert args.num_experts == 0, (
         "MoE args need the Mixtral builder (this one makes DENSE layers)"
     )
-    q = args.quant
-    if (q.weight_bits, q.act_bits, q.group_size) != (4, 8, -1):
-        raise NotImplementedError(
-            f"{q.precision} group {q.group_size} is not ported yet (ROADMAP "
-            "queue 1, remaining precisions); the port serves W4A8 per-channel"
+
+
+def _empty_linear(L, K, N, device, quant: QuantSpec) -> lin.LinearParams:
+    """Uninitialised stacked [L, ...] weights of quant's flavor."""
+
+    def empty(shape, dtype):
+        return torch.empty((L, *shape), dtype=dtype, device=device)
+
+    wb, gs = quant.weight_bits, quant.group_size
+    if wb == 16:
+        return lin.W16Linear(empty((K, N), torch.bfloat16))
+    if wb == 8:
+        return lin.W8Linear(empty((K, N), torch.int8), empty((N,), torch.float32))
+    if wb != 4:
+        raise ValueError(f"weight_bits={wb}")
+    if gs == -1:
+        return lin.W4ChnLinear(
+            empty((K // 2, N), torch.int8), empty((N,), torch.float32),
+            empty((N,), torch.float32),
         )
-
-
-def _empty_linear(L, K, N, device) -> lin.W4ChnLinear:
-    return lin.W4ChnLinear(
-        torch.empty((L, K // 2, N), dtype=torch.int8, device=device),
-        torch.empty((L, N), dtype=torch.float32, device=device),
-        torch.empty((L, N), dtype=torch.float32, device=device),
+    return lin.W4GrpLinear(
+        empty((K // 2, N), torch.int8), empty((K // gs, N), torch.int8),
+        empty((K // gs, N), torch.int8), empty((N,), torch.float32),
     )
 
 
@@ -150,7 +163,7 @@ def _stacked_layers(args: LlamaArgs, device, weight_of) -> LlamaLayerParams:
     shapes = dict(
         qkv=(E, args.qkv_out), o=(args.q_size, E), gate_up=(E, 2 * I), down=(I, E)
     )
-    lins = {n: _empty_linear(L, *s, device) for n, s in shapes.items()}
+    lins = {n: _empty_linear(L, *s, device, args.quant) for n, s in shapes.items()}
     for li in range(L):
         for name, shape in shapes.items():
             p = lin.quantize_linear_from_float(
@@ -171,7 +184,7 @@ def random_quantized_params(
 ) -> LlamaParams:
     """Random weights from a seeded torch.Generator, quantized layer by layer
     on the device."""
-    _check_dense_w4a8(args)
+    _check_dense(args)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -198,7 +211,7 @@ def random_quantized_params(
 def quantize_params(float_params: dict, args: LlamaArgs, device="cuda") -> LlamaParams:
     """Quantize float weights (dict of [K, N] arrays per layer, the JAX
     package's random_float_params layout) into the serving format."""
-    _check_dense_w4a8(args)
+    _check_dense(args)
     device = resolve_device(device)
 
     def t(x, dtype=torch.float32):
@@ -239,29 +252,41 @@ def _layer_forward(
     append is the caller's, batched across layers."""
     T = h.shape[0]
     eps = args.rms_eps
+    int8_act = args.quant.act_bits == 8
+    gs = args.quant.group_size if args.quant.group_size > 0 else 128
     qkv_p, o_p = layers.qkv.layer(li), layers.o.layer(li)
     gu_p, down_p = layers.gate_up.layer(li), layers.down.layer(li)
 
-    h, q8, s8, a8 = ops.add_rmsnorm_quant(
-        h, delta, layers.input_ln[li], eps, lin.needs_act_sum(qkv_p)
-    )
-    qkv = lin.apply_linear(qkv_p, lin.QuantAct(q8, s8, a8))
+    if int8_act:
+        h, q8, s8, a8 = ops.add_rmsnorm_quant(
+            h, delta, layers.input_ln[li], eps, lin.needs_act_sum(qkv_p)
+        )
+        qkv = lin.apply_linear(qkv_p, lin.QuantAct(q8, s8, a8), gs)
+    else:
+        h = h + delta.to(h.dtype)
+        qkv = lin.apply_linear(qkv_p, ops.rmsnorm(h, layers.input_ln[li], eps), gs)
     q, k, v = qkv.split([args.q_size, args.kv_size, args.kv_size], dim=-1)
     q = rope.apply_rope(q.reshape(T, args.num_heads, args.head_dim), cos, sin)
     k = rope.apply_rope(k.reshape(T, args.num_kv_heads, args.head_dim), cos, sin)
     v = v.reshape(T, args.num_kv_heads, args.head_dim)
 
     attn = attend(q, k, v, li).reshape(T, args.q_size)
-    o = lin.apply_linear(
-        o_p, lin.QuantAct(*ops.quant_per_token(attn, lin.needs_act_sum(o_p)))
-    )
-
-    h, g8, gsc, gsum = ops.add_rmsnorm_quant(
-        h, o, layers.post_ln[li], eps, lin.needs_act_sum(gu_p)
-    )
-    gu = lin.apply_linear(gu_p, lin.QuantAct(g8, gsc, gsum))
-    y8, ysc, ysum = ops.silu_mul_quant(gu, lin.needs_act_sum(down_p))
-    d = lin.apply_linear(down_p, lin.QuantAct(y8, ysc, ysum))
+    if int8_act:
+        o = lin.apply_linear(
+            o_p, lin.QuantAct(*ops.quant_per_token(attn, lin.needs_act_sum(o_p))),
+            gs,
+        )
+        h, g8, gsc, gsum = ops.add_rmsnorm_quant(
+            h, o, layers.post_ln[li], eps, lin.needs_act_sum(gu_p)
+        )
+        gu = lin.apply_linear(gu_p, lin.QuantAct(g8, gsc, gsum), gs)
+        y8, ysc, ysum = ops.silu_mul_quant(gu, lin.needs_act_sum(down_p))
+        d = lin.apply_linear(down_p, lin.QuantAct(y8, ysc, ysum), gs)
+    else:
+        o = lin.apply_linear(o_p, attn, gs)
+        h = h + o.to(h.dtype)
+        gu = lin.apply_linear(gu_p, ops.rmsnorm(h, layers.post_ln[li], eps), gs)
+        d = lin.apply_linear(down_p, ops.silu_mul(gu), gs)
     return h, d.to(h.dtype), (k.to(torch.bfloat16), v.to(torch.bfloat16))
 
 

@@ -1,7 +1,9 @@
 """Port parity at the engine: the JAX package's LLMEngine and the port's,
 on the same tiny quantized params, give identical greedy token streams,
 with whole-prompt prefill and with chunked prefill, mixed chunk+decode
-steps and prefix compute-skip. Also the port's refusals: what the port does
+steps and prefix compute-skip, at W4A8KV4 per-channel and at the other
+precisions (per-group W4, the W8 lm_head, W8A8, W16A16, KV8). Also that
+EngineArgs serves every precision string, and the port's refusals: what the port does
 not carry yet raises NotImplementedError naming its ROADMAP item."""
 
 import numpy as np
@@ -133,6 +135,48 @@ def test_chunked_prefill_matches_jax_engine(pair, seed):
     assert len(want) == 3 and got == want
     # 100 tokens in four chunks, 45 in two, every one riding with "s"
     assert kinds[:6] == ["mixed"] * 6 and set(kinds[6:]) == {"decode"}
+
+
+STREAM_CONFIGS = {
+    "w4a8kv4-g128-w8head": dict(precision="w4a8kv4", group_size=128, lm_head_bits=8),
+    "w4a8kv8-g128": dict(precision="w4a8kv8", group_size=128),
+    "w8a8kv8": dict(precision="w8a8kv8"),
+    "w16a16kv8": dict(precision="w16a16kv8"),
+}
+_stream_pairs = {}
+
+
+def _stream_pair(name):
+    if name not in _stream_pairs:
+        _stream_pairs[name] = tiny_pair(**STREAM_CONFIGS[name])
+    return _stream_pairs[name]
+
+
+@pytest.mark.parametrize("mode,seed", [("whole", 1), ("chunked", 1), ("chunked", 3)])
+@pytest.mark.parametrize("name", sorted(STREAM_CONFIGS))
+def test_precision_greedy_streams_match_jax_engine(name, mode, seed):
+    """The other precisions against the JAX engine, whole-prompt prefill and
+    chunked with mixed steps: identical greedy streams on these pinned prompt
+    seeds. As at W4A8KV4 per-channel, other seeds (0 and 2 here) can break on
+    a near-tie of this flat tiny model's logits: the f32 sums of the two
+    sides land an ulp apart, a bf16 value moves to its neighbour, and logits
+    closer than ~1e-2 swap (test_torch_llama bounds the logits)."""
+    jargs, jparams, targs, tparams = _stream_pair(name)
+    if mode == "whole":
+        prompts = _prompts(4, seed=seed)
+        kw = dict(max_tokens=8, temperature=0.0)
+        want = _run(_jax_engine(jargs, jparams), prompts, JSamplingParams, **kw)
+        got = _run(_port_engine(targs, tparams), prompts, SamplingParams, **kw)
+        assert len(want) == 4
+    else:
+        r = np.random.default_rng(seed)
+        prompts = [r.integers(1, TINY["vocab_size"], n).tolist() for n in (5, 100, 45)]
+        want, _ = _run_staggered(_jax_engine(jargs, jparams, **CHUNKED), prompts,
+                                 JSamplingParams)
+        got, kinds = _run_staggered(_port_engine(targs, tparams, **CHUNKED), prompts,
+                                    SamplingParams)
+        assert len(want) == 3 and kinds[:6] == ["mixed"] * 6
+    assert got == want
 
 
 def test_long_prompt_chunked_matches_unchunked(pair):
@@ -287,7 +331,6 @@ def test_benchmark_labels_steps_by_what_the_scheduler_emitted(pair, tmp_path):
     dict(tensor_parallel_size=2),
     dict(data_parallel_size=2),
     dict(random_weights=False),
-    dict(precision="w8a8kv4"),
 ])
 def test_engine_args_refuse_unported(kw):
     args = dict(hf_config=_hf_config(), random_weights=True, device="cpu",
@@ -306,6 +349,37 @@ def _hf_config():
     )
 
 
+@pytest.mark.parametrize("group_size,quant_lm_head", [(-1, False), (128, True)])
+@pytest.mark.parametrize("precision", [
+    "w4a8kv4", "w4a8kv8", "w4a8", "w8a8kv4", "w8a8kv8", "w8a8",
+    "w16a16kv4", "w16a16kv8", "w16a16"])
+def test_engine_args_serve_every_precision(precision, group_size, quant_lm_head):
+    """EngineArgs builds and serves the dense Llama at every precision
+    string, per-channel or g128, bf16 or W8 lm_head, through a prefill, a
+    chunked prompt riding with a decode, and decode steps."""
+    from qserve_tpu_torch.layers import linear as tlin
+
+    engine = EngineArgs(
+        hf_config=_hf_config(), random_weights=True, device="cpu",
+        precision=precision, group_size=group_size, quant_lm_head=quant_lm_head,
+        num_device_pages=32, block_size=BS, max_model_len=128,
+        max_num_batched_tokens=32, max_num_seqs=4,
+    ).build_engine()
+    runner = engine.worker.model_runner
+    q = runner.model_args.quant
+    flavor = {16: tlin.W16Linear, 8: tlin.W8Linear}.get(
+        q.weight_bits, tlin.W4ChnLinear if group_size == -1 else tlin.W4GrpLinear)
+    assert type(runner.params.layers.qkv) is flavor
+    assert isinstance(runner.params.lm_head, tlin.W8Linear) == quant_lm_head
+    kv8 = not precision.endswith("kv4")
+    assert engine.worker.cache_engine.cache.data.shape[-1] == (
+        TINY["num_kv_heads"] * TINY["head_dim"] // (1 if kv8 else 2))
+    outs, kinds = _run_staggered(
+        engine, [[1, 2, 3], list(range(1, 51))], SamplingParams)
+    assert len(outs["s"]) == 20 and len(outs["r0"]) == 8
+    assert "mixed" in kinds and "decode" in kinds
+
+
 def test_engine_args_build_and_benchmark_entry_point(tmp_path):
     """EngineArgs -> engine from a config dict with random weights, driven
     by the port's benchmark entry point."""
@@ -321,6 +395,8 @@ def test_engine_args_build_and_benchmark_entry_point(tmp_path):
     rows = benchmark.run(engine, TINY["vocab_size"], batch=3, prompt_len=20,
                          gen_len=4, rounds=1, csv_path=str(tmp_path / "r.csv"))
     assert rows[0]["batch"] == 3 and rows[0]["tokens_per_s"] > 0
+    assert (rows[0]["precision"], rows[0]["group_size"], rows[0]["lm_head_bits"]) \
+        == ("w4a8kv4", -1, 16)
     assert (tmp_path / "r.csv").exists()
 
 

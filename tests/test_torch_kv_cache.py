@@ -16,10 +16,10 @@ from torch_port_util import to_np, to_torch
 L, P, PS, D = 2, 6, 16, 32
 
 
-def _both_caches(H, seed):
+def _both_caches(H, seed, kv_bits=4):
     """The same non-zero starting cache on both sides, so untouched bytes
     are checked too."""
-    t = tkvc.create_kv_cache(L, P, H, PS, D, 4, device="cpu")
+    t = tkvc.create_kv_cache(L, P, H, PS, D, kv_bits, device="cpu")
     r = np.random.default_rng(seed)
     t.data.copy_(torch.from_numpy(r.integers(-128, 128, t.data.shape).astype(np.int8)))
     t.scales.copy_(torch.from_numpy(r.random(t.scales.shape).astype(np.float32)))
@@ -98,6 +98,34 @@ def test_gather_dequant_layer_identical(H):
     bt = np.array([[3, 0, 5], [1, 1, 2]], np.int32)
     kt, vt = tkvc.gather_dequant_layer(t.layer(1), torch.from_numpy(bt), 4)
     kj, vj = jkvc.gather_dequant_layer(j.layer(1), jnp.asarray(bt), 4)
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+
+
+@pytest.mark.parametrize("zero_point", [True, False])
+@pytest.mark.parametrize("H", [8, 2])
+def test_kv8_append_and_gather_identical(H, zero_point):
+    """KV8: a row is H * D bytes of u - 128. Prefill and decode appends leave
+    the same bytes on both sides, and the pages dequantize to equal values."""
+    t, j = _both_caches(H, seed=H, kv_bits=8)
+    assert t.data.shape[-1] == H * D and t.head_dim(8) == D
+    steps = [
+        (np.array([0] * 16 + [1] * 4 + [4] * 7 + [-1] * 5, np.int32),
+         np.array(list(range(16)) + list(range(4)) + list(range(7)) + [0] * 5, np.int32)),
+        (np.array([1, 4, -1], np.int32), np.array([4, 7, 0], np.int32)),
+    ]
+    for i, (pages, slots) in enumerate(steps):
+        k, v = _kv(len(pages), H, seed=20 + i)
+        tkvc.append_all_layers(t, k, v, torch.from_numpy(pages),
+                               torch.from_numpy(slots), 8, zero_point)
+        j = jkvc.append_all_layers(j, jnp.asarray(to_np(k)).astype(jnp.bfloat16),
+                                   jnp.asarray(to_np(v)).astype(jnp.bfloat16),
+                                   jnp.asarray(pages), jnp.asarray(slots), 8,
+                                   zero_point, max_stages=0)
+        _assert_same(t, j)
+    bt = np.array([[0, 1, 5], [4, 4, 2]], np.int32)
+    kt, vt = tkvc.gather_dequant_layer(t.layer(1), torch.from_numpy(bt), 8)
+    kj, vj = jkvc.gather_dequant_layer(j.layer(1), jnp.asarray(bt), 8)
     np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
 

