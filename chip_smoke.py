@@ -6,22 +6,28 @@
 1. Builds every CUDA kernel from qserve_tpu_torch/kernels/csrc (one nvcc
    per source, all at once) and prints what ptxas reported for each; the
    Triton kernel compiles at its first launch.
-2. Kernel phases: each of the nine kernels at the main paths' shapes
+2. Kernel phases: each of the twelve kernels at the main paths' shapes
    (Llama-3-8B: decode B = 64, prefill and chunk T = 2048, context ~1024 and
    a 4096-token prefix over 256-token pages, sampling at [64, 128256];
    Llama-2-7B: its qkv, gate_up and ragged K = 11008 down projections,
    SwiGLU at I = 11008, prefill, decode and chunk attention and the cache
    append without GQA (32 kv heads), sampling at [64, 32000]; both cache
    modes, KV4 and KV8; plus small-H, D = 64, f32-scale and sliding-window
-   cases) against its plain PyTorch version on the same
+   cases; the three routed MoE GEMMs at Mixtral-8x7B's gate_up and down
+   over a stream of M = 6144 rows in 24 blocks of 256, laid out by a real
+   top-2 routing of 2048 tokens over 8 experts, and the per-group one at
+   the ragged K = 11008) against its plain PyTorch version on the same
    inputs, with the tolerance stated in the phase; times the kernel, the
    plain version and, where one exists, one PyTorch library call computing
    the same function (CUDA events, median of 20).
 3. Reference phase: a small model served by the kernels on the card and by
    the plain versions on the CPU (prefill, decode, one chunk step, one mixed
    chunk+decode step) at W4A8KV4 per-channel, W4A8KV4 g128, W4A8KV8 g128
-   with the W8 lm_head, W8A8KV8 with the W8 lm_head and W16A16KV8; logits
-   must agree.
+   with the W8 lm_head, W8A8KV8 with the W8 lm_head and W16A16KV8, and a
+   small Mixtral (4 experts, top-2, routed in 64-row blocks from 16 rows
+   up) at W4A8KV4 per-channel, W4A8KV4 g128, W8A8KV8 and W16A16KV8; logits
+   must agree, and where the two sides route a token to other experts the
+   top-k margin must be a near-tie (below 1e-3).
 4. Engine phase: EngineArgs -> LLMEngine at full width and depth (32
    layers, random weights from a seed, default scheduler: chunked prefill
    and mixed steps on), each engine built and freed in turn, the launch
@@ -42,7 +48,12 @@
       heads: attention without GQA over KV8 pages), the same traffic;
    e. Llama-3-8B W8A8KV8, the same traffic;
    f. Llama-3-8B W16A16KV8, the same traffic: the attention, append and
-      sampling kernels over bf16 library products, no quantizing kernel.
+      sampling kernels over bf16 library products, no quantizing kernel;
+   g. Mixtral-8x7B W4A8KV4 per-channel, the same traffic: steps of 1024
+      rows or more take the routed GEMMs (2 a layer), shorter ones the
+      masked loop over all 8 experts (18 dense GEMMs a layer);
+   h. Mixtral-8x7B W4A8KV4 g128, the same;
+   i. Mixtral-8x7B W8A8KV8, the same.
    Every kernel a path's precision calls must have launched on it, and the
    GEMMs of the other precisions must not.
 5. Refusal phase: what is still unported (tensor parallelism) raises
@@ -76,6 +87,13 @@ LLAMA2_7B = dict(
     num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
     rope_theta=10000.0, rms_norm_eps=1e-5,
 )
+# Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1 config.json)
+MIXTRAL_8X7B = dict(
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    rope_theta=1e6, rms_norm_eps=1e-5, sliding_window=None,
+    num_local_experts=8, num_experts_per_tok=2,
+)
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and int8 ops/s
 HBM_BPS = 3.35e12
 BF16_OPS = 989e12
@@ -101,7 +119,18 @@ ROUTES = {
         "qserve_tpu/kernels/pallas_prefix_attention.py:268"),
     "sample_filtered": ("cuda", "qserve_tpu_torch/kernels/csrc/sampler.cu",
                         "qserve_tpu/kernels/pallas_sampler.py:172"),
+    "w4a8_gemm_per_chn_routed": ("cuda", "qserve_tpu_torch/kernels/csrc/w4a8_gemm.cu",
+                                 "qserve_tpu/kernels/pallas_gemm.py:742"),
+    # one kernel for the tiled (:854) and the ragged (:925) group counts
+    "w4a8_gemm_per_group_routed": (
+        "cuda", "qserve_tpu_torch/kernels/csrc/w4a8_gemm_per_group.cu",
+        "qserve_tpu/kernels/pallas_gemm.py:854"),
+    "w8a8_gemm_routed": ("cuda", "qserve_tpu_torch/kernels/csrc/w8a8_gemm.cu",
+                         "qserve_tpu/kernels/pallas_gemm.py:805"),
 }
+DENSE_GEMMS = ("w4a8_gemm_per_chn", "w4a8_gemm_per_group", "w8a8_gemm")
+ROUTED_GEMMS = ("w4a8_gemm_per_chn_routed", "w4a8_gemm_per_group_routed",
+                "w8a8_gemm_routed")
 
 
 def log(*a):
@@ -138,13 +167,15 @@ class Results:
         self.rows = {}  # kernel -> its headline row
         self.all = []  # every (kernel, shape) row of the run
 
-    def add(self, name, shape, err, ms, plain_ms, nbytes, ops, peak, library_ms):
+    def add(self, name, shape, err, ms, plain_ms, nbytes, ops, peak, library_ms,
+            **extra):
         b, by = bound(nbytes, ops, peak)
         lib = "null" if library_ms is None else f"{library_ms:.4g}"
+        more = "".join(f"  {k} {v:.4g}" for k, v in extra.items())
         log(f"  {name} [{shape}]: max_abs_err {err:.3g}  kernel {ms:.4g} ms  "
-            f"plain {plain_ms:.4g} ms  library {lib} ms  bound {b:.3g} ms ({by})")
+            f"plain {plain_ms:.4g} ms  library {lib} ms  bound {b:.3g} ms ({by}){more}")
         row = dict(shape=shape, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
-                   bound_ms=b, bound_by=by, library_ms=library_ms)
+                   bound_ms=b, bound_by=by, library_ms=library_ms, **extra)
         self.rows.setdefault(name, row)  # the first shape is the headline one
         self.all.append(dict(row, name=name))
         return row
@@ -339,6 +370,114 @@ def phase_gemm(res, dev):
                     nbytes, 2 * M * K * N, INT8_OPS,
                     library_or_none(lambda: torch._int_mm(a, p.qweight)))
         del p
+
+
+def _routed_stream(dev, g, T=2048):
+    """A real top-2 routing of T random tokens over Mixtral-8x7B's 8 experts
+    (a random router), laid out as the MoE dispatch lays it out: (st, dest,
+    block_expert, P, live rows, experts used)."""
+    import torch
+
+    from qserve_tpu_torch.kernels import ops
+    from qserve_tpu_torch.models import llama
+
+    E, n_exp = MIXTRAL_8X7B["hidden_size"], MIXTRAL_8X7B["num_local_experts"]
+    kk = MIXTRAL_8X7B["num_experts_per_tok"]
+    x = torch.randn(T, E, generator=g, device=dev).to(torch.bfloat16)
+    router = torch.randn(E, n_exp, generator=g, device=dev) * 0.02
+    probs = torch.softmax(ops.matmul(x, router.to(torch.bfloat16), torch.float32), -1)
+    topi = torch.topk(probs, kk, dim=-1).indices
+    st, dest, _, block_expert, P = llama.route_layout(topi, n_exp, 256)
+    counts = torch.bincount(topi.reshape(-1), minlength=n_exp).tolist()
+    used = sum(c > 0 for c in counts)
+    log(f"  routing of {T} tokens: rows per expert {counts}, stream M={P} in "
+        f"{P // 256} blocks of 256, block experts {block_expert.tolist()}")
+    return st, dest, block_expert, P, T * kk, used
+
+
+def phase_gemm_routed(res, dev):
+    """The routed K2, K8 and K9 against their plain versions, bit for bit,
+    at Mixtral-8x7B's gate_up (K 4096, N 28672) and down (K 14336, N 4096)
+    over a stream laid out by a real top-2 routing (uneven counts, pad rows,
+    an all-pad tail), and the per-group one at the ragged K = 11008. Beside
+    each: the dense kernel at the same M on one expert's weights (no single
+    PyTorch call computes a grouped int8 product: library null)."""
+    import torch
+
+    from qserve_tpu_torch.kernels import ops
+    from qserve_tpu_torch.layers import linear as lin
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    st, dest, be, M, R, used = _routed_stream(dev, g)
+    live = torch.zeros(M, dtype=torch.bool, device=dev)
+    live[dest] = True
+    n_exp = MIXTRAL_8X7B["num_local_experts"]
+    E, I = MIXTRAL_8X7B["hidden_size"], MIXTRAL_8X7B["intermediate_size"]
+    shapes = [("gate_up", E, 2 * I), ("down", I, E)]
+
+    def stream(K):
+        """int8 rows of the T tokens scattered into the stream; pad rows
+        q = 0, scale 0, sum 0."""
+        a = torch.zeros(M, K, dtype=torch.int8, device=dev)
+        a[dest] = torch.randint(-128, 128, (R, K), generator=g, device=dev,
+                                dtype=torch.int8)
+        asc = torch.rand(M, 1, generator=g, device=dev) * 0.05 * live[:, None]
+        asum = torch.randn(M, 1, generator=g, device=dev) * live[:, None]
+        return a, asc, asum
+
+    def check(name, tag, got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        assert got.dtype == want.dtype and torch.equal(got, want), \
+            f"{name} {tag}: max err {err}"
+        assert not got[~live].any(), f"{name} {tag}: pad rows must come out 0"
+        return err
+
+    def rand_i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    def timed(name, tag, K, N, wbytes, routed, plain, dense):
+        err = check(name, tag, routed(), plain())
+        nbytes = M * K + used * wbytes + 8 * M + 2 * M * N
+        res.add(name, f"{tag} M={M} ({R} live rows, {M // 256} blocks) K={K} N={N}",
+                err, cuda_ms(routed, iters=10), cuda_ms(plain, iters=3, warmup=1),
+                nbytes, 2 * R * K * N, INT8_OPS, None, dense_ms=cuda_ms(dense, iters=10))
+
+    for tag, K, N in shapes:  # K2 routed: random bytes, as the dense phase
+        a, asc, asum = stream(K)
+        qw, s1 = rand_i8(n_exp, K // 2, N), torch.rand(n_exp, N, generator=g, device=dev) * 1e-3
+        sz = torch.rand(n_exp, N, generator=g, device=dev) * 8e-3
+        args = (a, asc, asum, qw, s1, sz, be)
+        timed("w4a8_gemm_per_chn_routed", tag, K, N, K // 2 * N + 8 * N,
+              lambda: ops.w4a8_gemm_per_chn_routed(*args),
+              lambda: ops.w4a8_gemm_per_chn_routed_plain(*args),
+              lambda: ops.w4a8_gemm_per_chn(a, asc, asum, qw[0], s1[0], sz[0]))
+        del qw, s1, sz, args
+
+    # K8 routed: quantizer-made weights (q * s2 + z2 must fit an int8); the
+    # ragged K = 11008 (43 groups a nibble plane) is the TPU's second kernel
+    G = 128
+    for tag, K, N in shapes + [("ragged down (Llama-2-7B's I)", 11008, E)]:
+        a, asc, _ = stream(K)
+        ps = [lin.quantize_linear_from_float(
+            torch.randn(K, N, generator=g, device=dev) * 0.02, 4, G) for _ in range(n_exp)]
+        p = lin.W4GrpLinear(*(torch.stack(x) for x in zip(*ps)))
+        del ps
+        args = (a, asc, *p, be, G)
+        timed("w4a8_gemm_per_group_routed", tag, K, N, K // 2 * N + 2 * (K // G) * N + 4 * N,
+              lambda: ops.w4a8_gemm_per_group_routed(*args),
+              lambda: ops.w4a8_gemm_per_group_routed_plain(*args),
+              lambda: ops.w4a8_gemm_per_group(a, asc, *(x[0] for x in p), G))
+        del p, args
+
+    for tag, K, N in shapes:  # K9 routed: 8 experts of W8 gate_up are 939 MB
+        a, asc, _ = stream(K)
+        qw, ws = rand_i8(n_exp, K, N), torch.rand(n_exp, N, generator=g, device=dev) * 1e-3
+        args = (a, asc, qw, ws, be)
+        timed("w8a8_gemm_routed", tag, K, N, K * N + 4 * N,
+              lambda: ops.w8a8_gemm_routed(*args),
+              lambda: ops.w8a8_gemm_routed_plain(*args),
+              lambda: ops.w8a8_gemm(a, asc, qw[0], ws[0]))
+        del qw, ws, args
 
 
 def _segments(T, lens):
@@ -750,23 +889,73 @@ def phase_sampler(res, dev):
 # --------------------------------------------------------------------------
 
 
-def phase_reference(dev, precision="w4a8kv4", group_size=-1, lm_head_bits=16):
+class MoERecorder:
+    """While active, every MoE block (models/llama.py `_moe_mlp`) first
+    records the length of its token stream and, with probs=True, its router
+    probabilities (f32 on the CPU, by device), then runs as it would have."""
+
+    def __init__(self, probs=False):
+        self.keep_probs = probs
+        self.rows, self.probs = [], {}
+
+    def __enter__(self):
+        import torch
+
+        from qserve_tpu_torch.kernels import ops
+        from qserve_tpu_torch.models import llama
+
+        self.real = real = llama._moe_mlp
+
+        def recorded(router, gu_p, down_p, x, *rest):
+            self.rows.append(x.shape[0])
+            if self.keep_probs:
+                logits = ops.matmul(x, router.to(torch.bfloat16), torch.float32)
+                self.probs.setdefault(x.device.type, []).append(
+                    torch.softmax(logits, -1).cpu())
+            return real(router, gu_p, down_p, x, *rest)
+
+        llama._moe_mlp = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from qserve_tpu_torch.models import llama
+
+        llama._moe_mlp = self.real
+
+
+def phase_reference(dev, precision="w4a8kv4", group_size=-1, lm_head_bits=16,
+                    moe=False):
+    with MoERecorder(probs=moe) as rec:
+        _reference(dev, precision, group_size, lm_head_bits, moe, rec)
+
+
+def _reference(dev, precision, group_size, lm_head_bits, moe, rec):
     """A small model on the card (kernels) and on the CPU (plain versions):
     same params, same packed inputs, logits within 5% of their range, over
     a packed prefill, four decode steps, one chunk step over a cached prefix
     and one mixed chunk+decode step. hidden 256 / intermediate 512 keep K/2
-    a multiple of the 128-wide group at every linear."""
+    a multiple of the 128-wide group at every linear. moe: a small Mixtral
+    (4 experts, top-2) whose streams of 16 rows or more take the routed
+    GEMMs in 64-row blocks (prefill, chunk, mixed) and shorter ones the
+    masked loop (decode). Its routing is held too: where a token's experts
+    differ between the two sides, the CPU's top-2 versus 3rd probability
+    margin must be below 1e-3 (a near-tie an ulp can flip; a flip changes
+    that token's MoE output entirely, so from that step on the logits are
+    reported and not held to the limit)."""
     import torch
 
     from qserve_tpu_torch.config import QuantSpec
     from qserve_tpu_torch.kernels import _build, kv_cache as kvc
-    from qserve_tpu_torch.models import llama
+    from qserve_tpu_torch.models import llama, mixtral
 
     quant = QuantSpec.from_precision(precision, group_size, lm_head_bits=lm_head_bits)
-    args = llama.LlamaArgs(vocab_size=512, hidden_size=256, intermediate_size=512,
-                           num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
-                           quant=quant)
-    tag = f"{precision} group {group_size} lm_head W{lm_head_bits}"
+    geo = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+               num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64)
+    if moe:
+        geo.update(num_experts=4, moe_top_k=2, moe_route_block=64,
+                   moe_route_min_tokens=16)
+    args = llama.LlamaArgs(quant=quant, **geo)
+    tag = f"{'Mixtral ' if moe else ''}{precision} group {group_size} lm_head W{lm_head_bits}"
     before = dict(_build.LAUNCHES)
 
     def to(x, d):  # a tensor, or a (nested) NamedTuple of tensors
@@ -774,7 +963,7 @@ def phase_reference(dev, precision="w4a8kv4", group_size=-1, lm_head_bits=16):
             return x.to(d)
         return type(x)(*(to(y, d) for y in x))
 
-    cpu = llama.random_quantized_params(0, args, device="cpu")
+    cpu = (mixtral if moe else llama).random_quantized_params(0, args, device="cpu")
     gpu = to(cpu, dev)
     ps, lens, T = 16, [37, 20], 64
     rng = np.random.default_rng(7)
@@ -789,13 +978,45 @@ def phase_reference(dev, precision="w4a8kv4", group_size=-1, lm_head_bits=16):
     caches = {d: kvc.create_kv_cache(2, 10, 2, ps, 64, quant.kv_bits, device=d)
               for d in ("cpu", dev)}
     params = {"cpu": cpu, dev: gpu}
-    worst = 0.0
+    worst, flips, routed = 0.0, [], set()
+    seen = 0
 
-    def compare(outs):
+    def routing_flips(live):
+        """Live tokens of the MoE calls since the last look whose experts
+        differ between the two sides, with the CPU's margin at each. Padding
+        rows are left out: their attention output differs by design (the
+        kernels write 0, the plain versions an average of V) and nothing
+        reads them."""
+        nonlocal seen
+        pc, pd = rec.probs.get("cpu", []), rec.probs.get("cuda", [])
+        assert len(pc) == len(pd), "the two sides ran other MoE calls"
+        live = torch.from_numpy(np.asarray(live, bool))
+        for c, d in zip(pc[seen:], pd[seen:]):
+            assert c.shape[0] == live.shape[0], (c.shape, live.shape)
+            k = args.moe_top_k
+            ic = c.topk(k, -1).indices.sort(-1).values
+            idv = d.topk(k, -1).indices.sort(-1).values
+            diff = (ic != idv).any(-1) & live
+            if diff.any():
+                srt = c[diff].sort(-1, descending=True).values
+                margin = (srt[:, k - 1] - srt[:, k]).max().item()
+                assert margin < 1e-3, f"routing differs at a clear margin {margin:.3g}"
+                flips.append(margin)
+        seen = len(pc)
+
+    def compare(outs, live):
+        """live: the step's stream rows that are real tokens."""
         nonlocal worst
         a, b = outs["cpu"], outs[dev].cpu()
         assert torch.isfinite(b).all()
         rel = (a - b).abs().max().item() / a.abs().max().item()
+        if moe:
+            routed.update(r for r in rec.rows if r >= args.moe_route_min_tokens)
+            routing_flips(live)
+        if flips:
+            log(f"    after {len(flips)} routing flips (margins {flips}): "
+                f"logits differ by {rel:.3g} of their range (not held)")
+            return a
         worst = max(worst, rel)
         assert rel <= 0.05, f"card vs CPU logits differ by {rel:.3g} of their range"
         return a
@@ -804,7 +1025,7 @@ def phase_reference(dev, precision="w4a8kv4", group_size=-1, lm_head_bits=16):
     outs = {d: llama.prefill(params[d], caches[d],
                              *(torch.from_numpy(x).to(d) for x in inp), args)[0]
             for d in params}
-    logits = compare(outs)
+    logits = compare(outs, seg > 0)
     bt = np.array([[0, 1, 2], [3, 4, 0]], np.int32)
     for step in range(4):
         tok_d = logits.argmax(-1).to(torch.int32).numpy()
@@ -813,7 +1034,7 @@ def phase_reference(dev, precision="w4a8kv4", group_size=-1, lm_head_bits=16):
                                 *(torch.from_numpy(x).to(d) for x in (tok_d, bt, ctx)),
                                 args)[0]
                 for d in params}
-        logits = compare(outs)
+        logits = compare(outs, ctx > 0)
     # one chunk step: a third prompt whose first 32 tokens (two pages) are
     # cached by a prefill, then tokens 32..52 as a chunk over that prefix
     ids3 = rng.integers(1, 512, 53).astype(np.int32)
@@ -834,12 +1055,12 @@ def phase_reference(dev, precision="w4a8kv4", group_size=-1, lm_head_bits=16):
                              *(torch.from_numpy(x).to(d)
                                for x in packed(ids3[:32], 0, 32, table3)), args)[0]
             for d in params}
-    compare(outs)
+    compare(outs, np.ones(32, bool))
     outs = {d: llama.prefill_chunk(
         params[d], caches[d],
         *(torch.from_numpy(x).to(d) for x in packed(ids3[32:45], 32, 16, table3)),
         torch.from_numpy(bt3).to(d), 32, args)[0] for d in params}
-    compare(outs)
+    compare(outs, np.arange(16) < 13)
     # one mixed step: the rest of that prompt (prefix 45, not page-aligned)
     # riding with the two decoding sequences and one pad row
     tok_d = np.concatenate([logits.argmax(-1).to(torch.int32).numpy(), [0]]).astype(np.int32)
@@ -852,29 +1073,40 @@ def phase_reference(dev, precision="w4a8kv4", group_size=-1, lm_head_bits=16):
         *(torch.from_numpy(x).to(d) for x in (tok_d, bt_d, ctx_d)), args)[0]
             for d in params}
     assert outs[dev].shape == (4, 512)
-    compare({d: o[:3] for d, o in outs.items()})  # row 3 is the pad row
+    compare({d: o[:3] for d, o in outs.items()},  # row 3 is the pad row
+            np.concatenate([np.arange(16) < 8, ctx_d > 0]))
     ran = sorted(k for k, v in _build.LAUNCHES.items() if v > before.get(k, 0))
     log(f"  reference {tag}: card vs CPU logits over prefill, 4 decode steps, a "
         f"chunk step and a mixed step, worst max|diff| / max|logit| = {worst:.3g}; "
         f"kernels: {ran}")
+    if moe:
+        log(f"    routed streams of {sorted(routed)} rows; {len(flips)} routing flips")
+        assert routed, "no step took the routed dispatch"
+        if quant.act_bits == 8:
+            want = {(4, -1): "w4a8_gemm_per_chn_routed", (8, -1): "w8a8_gemm_routed"}.get(
+                (quant.weight_bits, group_size), "w4a8_gemm_per_group_routed")
+            assert want in ran, f"{want} did not launch"
 
 
-def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"]):
+def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"], moe=None):
     """Step the engine until idle. arrivals: [(after_step, fn)], fn adds
     requests once that many steps have run. Returns per-kind step times and
-    launch deltas, and checks every finished request."""
+    launch deltas, and checks every finished request. moe: a MoERecorder
+    whose stream lengths label each step's launches in `log`."""
     import torch
 
     from qserve_tpu_torch.kernels import _build
 
     arrivals = sorted(arrivals, key=lambda a: a[0])
-    ms, per_kind, finished, tokens_out, steps = {}, {}, 0, 0, 0
+    ms, per_kind, finished, tokens_out, steps, step_log = {}, {}, 0, 0, 0, []
     t_run = time.perf_counter()
     while engine.has_unfinished_requests() or arrivals:
         while arrivals and (arrivals[0][0] <= steps
                             or not engine.has_unfinished_requests()):
             arrivals.pop(0)[1]()
         before = dict(_build.LAUNCHES)
+        if moe is not None:
+            moe.rows.clear()
         t = time.perf_counter()
         outs = engine.step()
         torch.cuda.synchronize()
@@ -882,9 +1114,12 @@ def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"]):
         steps += 1
         kind = engine.last_step_kind
         ms.setdefault(kind, []).append(dt)
-        per_kind.setdefault(kind, {k: v - before.get(k, 0)
-                                   for k, v in _build.LAUNCHES.items()
-                                   if v - before.get(k, 0)})
+        delta = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                 if v - before.get(k, 0)}
+        per_kind.setdefault(kind, delta)
+        if moe is not None:
+            assert len(set(moe.rows)) == 1, f"a step of streams {set(moe.rows)}"
+            step_log.append((kind, moe.rows[0], len(moe.rows), dt, delta))
         for out in outs:
             if out.finished:
                 finished += 1
@@ -897,7 +1132,7 @@ def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"]):
     assert finished == len(want_tokens), \
         f"{finished} of {len(want_tokens)} requests finished"
     return dict(ms=ms, per_kind=per_kind, finished=finished,
-                tokens_out=tokens_out, run_s=run_s)
+                tokens_out=tokens_out, run_s=run_s, log=step_log)
 
 
 def _report(tag, r, launches):
@@ -973,7 +1208,7 @@ def _path_a(engine):
     _require("path a", launches_a,
              ran=("elementwise", "w4a8_gemm_per_chn", "flash_prefill_attention",
                   "paged_decode_attention", "kv_append"),
-             idle=("w4a8_gemm_per_group", "w8a8_gemm"))
+             idle=("w4a8_gemm_per_group", "w8a8_gemm") + ROUTED_GEMMS)
     assert set(ra["ms"]) == {"prefill", "decode"}, set(ra["ms"])
     return launches_a, summary_a
 
@@ -1032,20 +1267,20 @@ def _path_b(engine):
     rb = _drive(engine, want, [(8, add_long), (10**9, add_alone)])
     launches_b = dict(_build.LAUNCHES)
     summary_b = _report("path b", rb, launches_b)
-    _require("path b", launches_b,
-             ran=[k for k in ROUTES if k not in ("w4a8_gemm_per_group", "w8a8_gemm")],
-             idle=("w4a8_gemm_per_group", "w8a8_gemm"))
+    idle = ("w4a8_gemm_per_group", "w8a8_gemm") + ROUTED_GEMMS
+    _require("path b", launches_b, ran=[k for k in ROUTES if k not in idle], idle=idle)
     assert len(rb["ms"].get("mixed", [])) >= 4, "the long prompt did not admit in mixed steps"
     assert rb["ms"].get("chunk"), "no chunk step ran alone"
     return launches_b, summary_b
 
 
-def _path_mixed(engine, tag, vocab, seed, ran, idle):
-    """Paths c-f: 6 requests decode; after 4 steps a 3000-token prompt
+def _path_mixed(engine, tag, vocab, seed, ran, idle, moe=None):
+    """Paths c-i: 6 requests decode; after 4 steps a 3000-token prompt
     admits beside them in two mixed steps; when all is done a 2500-token
     prompt runs alone (its first chunk a prefill step, its second a chunk
     step over the cached first). One request samples at temperature 0.8
-    with top-k/top-p."""
+    with top-k/top-p. moe: (recorder, dense GEMM, routed GEMM) of a Mixtral
+    path, whose launches are checked step by step."""
     from qserve_tpu_torch.kernels import _build
     from qserve_tpu_torch.sampling_params import SamplingParams
 
@@ -1076,17 +1311,49 @@ def _path_mixed(engine, tag, vocab, seed, ran, idle):
     log(f"  path {tag}: 6 requests, prompt lengths {lens.tolist()}, 24 output tokens; "
         f"after 4 steps a 3000-token prompt; last a 2500-token prompt alone")
     _build.reset_launch_counts()
-    r = _drive(engine, want, [(4, add_long), (10**9, add_alone)], vocab=vocab)
+    r = _drive(engine, want, [(4, add_long), (10**9, add_alone)], vocab=vocab,
+               moe=moe and moe[0])
     launches = dict(_build.LAUNCHES)
     summary = _report(f"path {tag}", r, launches)
     _require(f"path {tag}", launches, ran, idle)
     assert {"prefill", "mixed", "chunk", "decode"} <= set(r["ms"]), set(r["ms"])
     assert len(r["ms"]["mixed"]) >= 2, "the long prompt did not admit in mixed steps"
+    if moe:
+        summary["moe_steps"] = _check_moe_steps(tag, r["log"], *moe[1:])
     return launches, summary
 
 
+def _check_moe_steps(tag, step_log, dense, routed, min_rows=1024, n_exp=8):
+    """A Mixtral step of min_rows or more runs the routed GEMMs (gate_up and
+    down, 2 a layer) and the dense kernel for qkv and o only; a shorter one
+    runs no routed GEMM and the dense kernel 2 + 2 * n_exp times a layer
+    (qkv, o, each expert's gate_up and down). Returns [(kind, rows, ms)]."""
+    kinds = set()
+    for kind, rows, L, dt, delta in step_log:
+        got = (delta.get(dense, 0), delta.get(routed, 0))
+        want = (2 * L, 2 * L) if rows >= min_rows else ((2 + 2 * n_exp) * L, 0)
+        assert got == want, (f"path {tag}: a {kind} step of {rows} rows launched "
+                             f"{dense} {got[0]}, {routed} {got[1]} times; want {want}")
+        kinds.add((kind, rows >= min_rows))
+    log(f"    MoE dispatch by step: " + ", ".join(
+        f"{kind} {rows} rows {'routed' if rows >= min_rows else 'masked'} {dt:.1f} ms"
+        for kind, rows, _, dt, _ in step_log if kind != "decode")
+        + f"; {sum(k == 'decode' for k, *_ in step_log)} decode steps masked")
+    assert any(r for _, r in kinds) and any(not r for _, r in kinds), kinds
+    return [(kind, rows, round(dt, 2)) for kind, rows, _, dt, _ in step_log]
+
+
+def _param_gib(params):
+    """GiB of a (nested) NamedTuple of tensors."""
+    import torch
+
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size() / 2**30
+    return sum(_param_gib(p) for p in params)
+
+
 def phase_engine(dev):
-    """Paths a-f. Returns ({path: launches}, {path: summary})."""
+    """Paths a-i. Returns ({path: launches}, {path: summary})."""
     import torch
 
     launches, summary = {}, {}
@@ -1107,7 +1374,8 @@ def phase_engine(dev):
                            num_device_pages=160)
     launches["c"], summary["path_c"] = _path_mixed(
         engine, "c", LLAMA3_8B["vocab_size"], 2,
-        ran=common + ("w4a8_gemm_per_group", "w8a8_gemm"), idle=("w4a8_gemm_per_chn",))
+        ran=common + ("w4a8_gemm_per_group", "w8a8_gemm"),
+        idle=("w4a8_gemm_per_chn",) + ROUTED_GEMMS)
     del engine
     _release()
 
@@ -1118,7 +1386,8 @@ def phase_engine(dev):
     assert cache.data.shape[-1] == 32 * 128, "KV8 rows of 32 kv heads"
     launches["d"], summary["path_d"] = _path_mixed(
         engine, "d", LLAMA2_7B["vocab_size"], 3,
-        ran=common + ("w4a8_gemm_per_group",), idle=("w4a8_gemm_per_chn", "w8a8_gemm"))
+        ran=common + ("w4a8_gemm_per_group",),
+        idle=("w4a8_gemm_per_chn", "w8a8_gemm") + ROUTED_GEMMS)
     del cache
     del engine
     _release()
@@ -1130,7 +1399,8 @@ def phase_engine(dev):
     assert cache.data.shape[-1] == 8 * 128, "KV8 rows of 8 kv heads"
     launches["e"], summary["path_e"] = _path_mixed(
         engine, "e", LLAMA3_8B["vocab_size"], 4,
-        ran=common + ("w8a8_gemm",), idle=("w4a8_gemm_per_chn", "w4a8_gemm_per_group"))
+        ran=common + ("w8a8_gemm",),
+        idle=("w4a8_gemm_per_chn", "w4a8_gemm_per_group") + ROUTED_GEMMS)
     del cache
     del engine
     _release()
@@ -1143,9 +1413,34 @@ def phase_engine(dev):
     assert engine.worker.model_runner.params.layers.qkv.weight.dtype == torch.bfloat16
     launches["f"], summary["path_f"] = _path_mixed(
         engine, "f", LLAMA3_8B["vocab_size"], 5, ran=common[1:],
-        idle=("elementwise", "w4a8_gemm_per_chn", "w4a8_gemm_per_group", "w8a8_gemm"))
+        idle=("elementwise",) + DENSE_GEMMS + ROUTED_GEMMS)
     del engine
     _release()
+
+    # Mixtral-8x7B: the MoE layers at three precisions, W8A8 last (~47 GB of
+    # weights); each path's routed GEMM launches on its steps of 1024 rows
+    # or more, the other precisions' GEMMs never
+    for tag, precision, group_size, dense, routed in (
+            ("g", "w4a8kv4", -1, "w4a8_gemm_per_chn", "w4a8_gemm_per_chn_routed"),
+            ("h", "w4a8kv4", 128, "w4a8_gemm_per_group", "w4a8_gemm_per_group_routed"),
+            ("i", "w8a8kv8", -1, "w8a8_gemm", "w8a8_gemm_routed")):
+        engine = _build_engine(dev, f"path {tag} (Mixtral-8x7B {precision} group {group_size})",
+                               MIXTRAL_8X7B, precision=precision, group_size=group_size,
+                               max_model_len=8192, num_device_pages=160)
+        params = engine.worker.model_runner.params
+        gu = params.layers.gate_up
+        assert gu.qweight.shape[:2] == (32, 8), "[L, NE] expert weights"
+        log(f"    weights {_param_gib(params):.3f} GiB, of which experts "
+            f"{_param_gib((gu, params.layers.down)):.3f} GiB")
+        del params, gu
+        with MoERecorder() as rec:
+            launches[tag], summary[f"path_{tag}"] = _path_mixed(
+                engine, tag, MIXTRAL_8X7B["vocab_size"], 6,
+                ran=common + (dense, routed),
+                idle=tuple(k for k in DENSE_GEMMS + ROUTED_GEMMS if k not in (dense, routed)),
+                moe=(rec, dense, routed))
+        del engine
+        _release()
     return launches, summary
 
 
@@ -1195,12 +1490,14 @@ def main() -> int:
     for stem, so in targets.items():  # ptxas: registers, shared memory, spills
         with open(so[:-3] + ".log") as f:
             for line in f:
-                if "Used" in line or ("spill" in line and "0 bytes spill stores, 0" not in line):
+                if ("Used" in line or "entry function" in line
+                        or ("spill" in line and "0 bytes spill stores, 0" not in line)):
                     log(f"  {stem}: {line.strip()}")
 
     res = Results()
     kernel_phases = dict(
-        elementwise=phase_elementwise, gemm=phase_gemm, flash=phase_flash,
+        elementwise=phase_elementwise, gemm=phase_gemm, gemm_routed=phase_gemm_routed,
+        flash=phase_flash,
         paged=phase_paged, kv_append=phase_kv_append, prefix=phase_prefix,
         sampler=phase_sampler)
     for name, fn in kernel_phases.items():
@@ -1214,6 +1511,8 @@ def main() -> int:
     for spec in (("w4a8kv4", -1, 16), ("w4a8kv4", 128, 16), ("w4a8kv8", 128, 8),
                  ("w8a8kv8", -1, 8), ("w16a16kv8", -1, 16)):
         phase_reference(dev, *spec)
+    for spec in (("w4a8kv4", -1), ("w4a8kv4", 128), ("w8a8kv8", -1), ("w16a16kv8", -1)):
+        phase_reference(dev, *spec, moe=True)
     log("phase engine")
     t = time.perf_counter()
     launches, summary = phase_engine(dev)

@@ -29,7 +29,8 @@ def params_from_numpy(tree, device="cuda") -> llama.LlamaParams:
     """JAX LlamaParams with numpy leaves and stacked [L, ...] layers (the
     JAX package's scan_layers=True form) -> the port's LlamaParams. Each
     linear keeps its flavor (per-channel or per-group W4, W8, W16) and the
-    lm_head its form (bf16 or W8)."""
+    lm_head its form (bf16 or W8); layers with a `router` are MoE layers,
+    their experts' linears stacked [L, NE, ...]."""
     device = resolve_device(device)
 
     def t(x):
@@ -50,16 +51,21 @@ def params_from_numpy(tree, device="cuda") -> llama.LlamaParams:
     layers = tree.layers
     if not hasattr(layers, "input_ln"):  # a tuple of per-layer params
         raise ValueError("stacked layers expected (scan_layers=True)")
+    fields = dict(
+        input_ln=t(layers.input_ln),
+        qkv=linear(layers.qkv),
+        o=linear(layers.o),
+        post_ln=t(layers.post_ln),
+        gate_up=linear(layers.gate_up),
+        down=linear(layers.down),
+    )
+    if hasattr(layers, "router"):  # MoE: experts' linears are [L, NE, ...]
+        layers = llama.MoELayerParams(router=t(layers.router), **fields)
+    else:
+        layers = llama.LlamaLayerParams(**fields)
     return llama.LlamaParams(
         embed=t(tree.embed),
-        layers=llama.LlamaLayerParams(
-            input_ln=t(layers.input_ln),
-            qkv=linear(layers.qkv),
-            o=linear(layers.o),
-            post_ln=t(layers.post_ln),
-            gate_up=linear(layers.gate_up),
-            down=linear(layers.down),
-        ),
+        layers=layers,
         final_ln=t(tree.final_ln),
         lm_head=(linear(tree.lm_head) if hasattr(tree.lm_head, "qweight")
                  else t(tree.lm_head)),

@@ -1,8 +1,9 @@
 """EngineArgs: the CLI flag surface -> config objects -> engine
 (qserve_tpu/engine/arg_utils.py).
 
-The port builds a dense Llama with random weights (`random_weights=True`,
-the geometry from a config dict or a model dir's config.json) on one device,
+The port builds a dense Llama, or a Mixtral sparse-MoE model when the config
+has `num_local_experts`, with random weights (`random_weights=True`, the
+geometry from a config dict or a model dir's config.json) on one device,
 at any precision of config._PRECISIONS (W4A8, W8A8 or W16A16 over a KV4 or
 KV8 cache), per-channel or per-group W4 (`group_size`), with a bf16 or a W8
 lm_head (`quant_lm_head`), and with the scheduler's defaults (chunked
@@ -128,18 +129,24 @@ class EngineArgs:
     def build_engine(self):
         """Construct the engine (random init included)."""
         from qserve_tpu_torch.engine.llm_engine import LLMEngine
-        from qserve_tpu_torch.models import llama
+        from qserve_tpu_torch.models import llama, mixtral
         from qserve_tpu_torch.worker.worker import Worker
 
         self._refuse_unported()
         cache_config, scheduler_config = self.create_engine_configs()
-        args = llama.LlamaArgs.from_config_dict(
-            self.model_config_dict(), self.quant_spec()
-        )
+        cfg = self.model_config_dict()
+        # an MoE config builds MoE layers (the JAX package's single-device
+        # random-weight path read it as a dense model of the same widths)
+        if cfg.get("num_local_experts"):
+            args = mixtral.args_from_config_dict(cfg, self.quant_spec())
+            build = mixtral.random_quantized_params
+        else:
+            args = llama.LlamaArgs.from_config_dict(cfg, self.quant_spec())
+            build = llama.random_quantized_params
         if args.sliding_window is not None:
             cache_config.sliding_window = args.sliding_window
         # params before the cache: auto-sizing reads what the weights left free
-        params = llama.random_quantized_params(self.seed, args, self.device)
+        params = build(self.seed, args, self.device)
         if cache_config.num_device_pages is None:
             cache_config.num_device_pages = auto_num_pages(
                 args, cache_config, self.gpu_memory_utilization, self.device

@@ -134,6 +134,19 @@ def check(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
 
 
+def check_operands(operands) -> None:
+    """Each (tensor, dtype, shape, name): on the card, typed, shaped, dense.
+    Every wrapper checks its operands with it before a launch."""
+    for t, dt, shape, what in operands:
+        if not t.is_cuda or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{what}: want CUDA {dt} {shape}, got {t.device} {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+
+
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float

@@ -2,7 +2,9 @@
 //
 // Replaces: qserve_tpu/kernels/pallas_gemm.py w4a8_gemm_per_chn_pallas
 // (and its large-M variant w4a8_gemm_per_chn_bigm_pallas: one kernel here
-// serves every M from a decode batch to a packed prefill stream).
+// serves every M from a decode batch to a packed prefill stream), and, as a
+// second entry point, w4a8_gemm_per_chn_routed_pallas (the MoE routed
+// dispatch: see the routed kernel below).
 //
 // Computes out[m, n] = bf16((psum * s1[n]) * a_scale[m] - sz[n] * a_sum[m])
 // with psum = sum_k A[m, k] * Wq[k, n] in int32, where A is int8 [M, K] and
@@ -86,6 +88,34 @@ w4a8_gemm_per_chn_kernel(const int8_t* __restrict__ A,
   gemm_s8_block(A, M, K, K / 64, 32, K / 2, As, Bs, stage, epilogue);
 }
 
+// The routed (grouped) form for the MoE prefill dispatch. A is a stream of
+// tokens sorted by expert and padded so that each route_rows-row block
+// belongs to one expert; W, s1 and sz hold every expert ([NE, K/2, N],
+// [NE, N]). A 64-row block reads its expert from block_expert (the TPU
+// kernel had it by scalar prefetch), offsets the weight and scale pointers
+// by that expert's stride, in size_t as every offset of the main loop, and
+// runs the dense loop unchanged. Pad rows carry q = 0, scale 0 and sum 0 and
+// come out exactly 0; the all-pad tail blocks name the last expert and
+// compute zeros too.
+__global__ void __launch_bounds__(THREADS)
+w4a8_gemm_per_chn_routed_kernel(const int8_t* __restrict__ A,
+                                const int8_t* __restrict__ W,
+                                const float* __restrict__ s1,
+                                const float* __restrict__ sz,
+                                const float* __restrict__ a_scale,
+                                const float* __restrict__ a_sum,
+                                const int* __restrict__ block_expert,
+                                __nv_bfloat16* __restrict__ out, int M, int N,
+                                int K, int route_rows) {
+  __shared__ __align__(16) int8_t As[BM * LDS];
+  __shared__ __align__(16) int8_t Bs[BN * LDS];
+  const size_t e = (size_t)block_expert[(blockIdx.y * BM) / route_rows];
+  StageW4 stage{W + e * (size_t)(K / 2) * N, N};
+  const PerChnEpilogue epilogue{s1 + e * N, sz + e * N, a_scale, a_sum, out,
+                                N};
+  gemm_s8_block(A, M, K, K / 64, 32, K / 2, As, Bs, stage, epilogue);
+}
+
 }  // namespace
 
 // A [M, K] int8, W [K/2, N] int8, s1/sz [N] f32, a_scale/a_sum [M] f32,
@@ -99,5 +129,23 @@ extern "C" int qs_w4a8_gemm_per_chn(const void* A, const void* W,
   w4a8_gemm_per_chn_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const int8_t*)A, (const int8_t*)W, (const float*)s1, (const float*)sz,
       (const float*)a_scale, (const float*)a_sum, (__nv_bfloat16*)out, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// The routed form: W [NE, K/2, N] int8, s1/sz [NE, N] f32, block_expert
+// [M / route_rows] int32 in [0, NE); route_rows % 64 == 0 and
+// M % route_rows == 0 (checked by the wrapper), the rest as above.
+extern "C" int qs_w4a8_gemm_per_chn_routed(const void* A, const void* W,
+                                           const void* s1, const void* sz,
+                                           const void* a_scale,
+                                           const void* a_sum,
+                                           const void* block_expert, void* out,
+                                           int M, int N, int K, int route_rows,
+                                           void* stream) {
+  const dim3 grid(N / BN, M / BM);
+  w4a8_gemm_per_chn_routed_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)A, (const int8_t*)W, (const float*)s1, (const float*)sz,
+      (const float*)a_scale, (const float*)a_sum, (const int*)block_expert,
+      (__nv_bfloat16*)out, M, N, K, route_rows);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,10 @@
 // Replaces: qserve_tpu/kernels/pallas_gemm.py w4a8_gemm_per_group_pallas and
 // w4a8_gemm_per_group_whole_pallas. The TPU needed a second kernel for group
 // counts that do not tile its sublanes (K = 11008: 43 groups a nibble
-// plane); here one kernel serves every K with (K/2) % G == 0.
+// plane); here one kernel serves every K with (K/2) % G == 0. A second entry
+// point replaces the routed MoE forms of both,
+// w4a8_gemm_per_group_routed_pallas and
+// w4a8_gemm_per_group_whole_routed_pallas (see the routed kernel below).
 //
 // Computes out[m, n] = (psum * s1[n]) * a_scale[m] in bf16 or f32, with
 // psum = sum_k A[m, k] * W8[k, n] in int32 and
@@ -90,6 +93,33 @@ w4a8_gemm_per_group_kernel(const int8_t* __restrict__ A,
   gemm_s8_block(A, M, K, K / 64, 32, K / 2, As, Bs, stage, epilogue);
 }
 
+// The routed (grouped) form for the MoE prefill dispatch, as in
+// w4a8_gemm.cu: a 64-row block reads its expert from block_expert, offsets
+// W ([NE, K/2, N]), s2 and z2 ([NE, K/G, N]) and s1 ([NE, N]) by that
+// expert's stride in size_t, and runs the dense loop unchanged. Pad rows
+// (q = 0, scale 0) come out exactly 0.
+__global__ void __launch_bounds__(THREADS)
+w4a8_gemm_per_group_routed_kernel(const int8_t* __restrict__ A,
+                                  const int8_t* __restrict__ W,
+                                  const int8_t* __restrict__ s2,
+                                  const int8_t* __restrict__ z2,
+                                  const float* __restrict__ s1,
+                                  const float* __restrict__ a_scale,
+                                  const int* __restrict__ block_expert,
+                                  __nv_bfloat16* __restrict__ out, int M,
+                                  int N, int K, int G, int route_rows) {
+  __shared__ __align__(16) int8_t As[BM * LDS];
+  __shared__ __align__(16) int8_t Bs[BN * LDS];
+  const size_t e = (size_t)block_expert[(blockIdx.y * BM) / route_rows];
+  const size_t group_stride = (size_t)(K / G) * N;
+  const int4 zero = make_int4(0, 0, 0, 0);
+  StageW4Group stage{W + e * (size_t)(K / 2) * N, s2 + e * group_stride,
+                     z2 + e * group_stride, N, G, K / 2 / G,
+                     zero, zero, zero, zero};
+  const ScaleEpilogue<__nv_bfloat16> epilogue{s1 + e * N, a_scale, out, N};
+  gemm_s8_block(A, M, K, K / 64, 32, K / 2, As, Bs, stage, epilogue);
+}
+
 }  // namespace
 
 // A [M, K] int8, W [K/2, N] int8, s2/z2 [K/G, N] int8, s1 [N] f32,
@@ -112,5 +142,26 @@ extern "C" int qs_w4a8_gemm_per_group(const void* A, const void* W,
         (const int8_t*)A, (const int8_t*)W, (const int8_t*)s2,
         (const int8_t*)z2, (const float*)s1, (const float*)a_scale,
         (__nv_bfloat16*)out, M, N, K, G);
+  return (int)cudaGetLastError();
+}
+
+// The routed form: W [NE, K/2, N] int8, s2/z2 [NE, K/G, N] int8, s1 [NE, N]
+// f32, block_expert [M / route_rows] int32 in [0, NE), out [M, N] bf16;
+// route_rows % 64 == 0 and M % route_rows == 0, the rest as above (checked
+// by the wrapper).
+extern "C" int qs_w4a8_gemm_per_group_routed(const void* A, const void* W,
+                                             const void* s2, const void* z2,
+                                             const void* s1,
+                                             const void* a_scale,
+                                             const void* block_expert,
+                                             void* out, int M, int N, int K,
+                                             int G, int route_rows,
+                                             void* stream) {
+  const dim3 grid(N / BN, M / BM);
+  w4a8_gemm_per_group_routed_kernel<<<grid, THREADS, 0,
+                                      (cudaStream_t)stream>>>(
+      (const int8_t*)A, (const int8_t*)W, (const int8_t*)s2,
+      (const int8_t*)z2, (const float*)s1, (const float*)a_scale,
+      (const int*)block_expert, (__nv_bfloat16*)out, M, N, K, G, route_rows);
   return (int)cudaGetLastError();
 }

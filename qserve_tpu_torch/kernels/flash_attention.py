@@ -26,19 +26,12 @@ def flash_prefill_attention(
 ) -> torch.Tensor:
     T, Hq, D = q.shape
     Hkv = k.shape[1]
-    for t, dt, shape, what in (
+    _build.check_operands((
         (q, torch.bfloat16, (T, Hq, D), "q"),
         (k, torch.bfloat16, (T, Hkv, D), "k"),
         (v, torch.bfloat16, (T, Hkv, D), "v"),
         (segment_ids, torch.int32, (T,), "segment_ids"),
-    ):
-        if not t.is_cuda or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{what}: want CUDA {dt} {shape}, got {t.device} {t.dtype} "
-                f"{tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{what} must be contiguous")
+    ))
     if D not in (64, 128) or Hq % Hkv or Hq // Hkv > 8:
         raise ValueError(f"flash prefill needs D in (64, 128), Hq/Hkv <= 8 "
                          f"(D={D}, Hq={Hq}, Hkv={Hkv})")

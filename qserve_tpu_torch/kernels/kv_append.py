@@ -26,21 +26,14 @@ def kv_append(
     L, P, _, ps, hdc = data.shape
     H2 = scales.shape[3]
     T = rows.shape[1]
-    for t, dt, shape, what in (
+    _build.check_operands((
         (data, torch.int8, (L, P, 2, ps, hdc), "data"),
         (scales, scales.dtype, (L, P, 2, H2, ps), "scales"),
         (rows, torch.int8, (L, T, 2, hdc), "rows"),
         (sc, scales.dtype, (L, T, 2, H2), "sc"),
         (page_ids, torch.int32, (T,), "page_ids"),
         (slots, torch.int32, (T,), "slots"),
-    ):
-        if not t.is_cuda or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{what}: want CUDA {dt} {shape}, got {t.device} {t.dtype} "
-                f"{tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{what} must be contiguous")
+    ))
     if scales.element_size() not in (2, 4):
         raise ValueError(f"scales must be 2- or 4-byte floats, got {scales.dtype}")
     if T == 0:

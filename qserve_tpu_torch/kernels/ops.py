@@ -6,9 +6,16 @@ defined next to it. There is no switch and no fallback: a kernel that cannot
 take its input raises. The plain versions are the oracles the kernels are
 held against on the card.
 
-rmsnorm (the final norm and the W16A16 layers), silu_mul and matmul (the
-bf16 lm_head and the W16A16 linears) were XLA in the JAX package, not
-Pallas; they are plain PyTorch on every device.
+rmsnorm (the final norm, the W16A16 layers and the MoE block's norm),
+silu_mul and matmul (the bf16 lm_head, the W16A16 linears and the MoE
+router) and matmul_routed (the W16A16 experts) were XLA in the JAX package,
+not Pallas; they are plain PyTorch on every device.
+
+The routed GEMMs serve the MoE dispatch of long token streams: tokens come
+sorted by expert and padded so that each of the nb blocks of M / nb rows
+belongs to one expert, `block_expert` int32 [nb] names it, and the weights
+are one layer's [NE, ...] experts (the JAX package took a [nb, d] index
+into the whole stacked model instead).
 """
 
 from __future__ import annotations
@@ -205,3 +212,125 @@ def matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
     if x.is_cuda:
         return torch.mm(x, w, out_dtype=torch.float32).to(out_dtype)
     return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(out_dtype)
+
+
+# --- routed (grouped) MoE GEMMs -------------------------------------------
+
+
+def _expert_runs(block_expert: torch.Tensor, M: int):
+    """(expert, first row, end row) of each run of consecutive blocks with
+    one expert (the plain versions read block_expert on the host)."""
+    nb = block_expert.shape[0]
+    bm = M // nb
+    runs = []
+    for b, e in enumerate(block_expert.tolist()):
+        if runs and runs[-1][0] == e:
+            runs[-1][2] += bm
+        else:
+            runs.append([e, b * bm, (b + 1) * bm])
+    return runs
+
+
+def _routed_plain(M: int, block_expert, gemm_of_expert) -> torch.Tensor:
+    """Each run of blocks through the dense plain GEMM of its expert: the
+    same integer sums (exact) and the same f32 epilogue, row by row."""
+    return torch.cat([gemm_of_expert(e, slice(r0, r1))
+                      for e, r0, r1 in _expert_runs(block_expert, M)])
+
+
+def w4a8_gemm_per_chn_routed_plain(
+    a_i8: torch.Tensor, a_scale: torch.Tensor, a_sum: torch.Tensor,
+    qweight_packed: torch.Tensor, s1_scale: torch.Tensor, s1_szero: torch.Tensor,
+    block_expert: torch.Tensor,
+) -> torch.Tensor:
+    return _routed_plain(
+        a_i8.shape[0], block_expert,
+        lambda e, r: w4a8_gemm_per_chn_plain(
+            a_i8[r], a_scale[r], a_sum[r], qweight_packed[e], s1_scale[e],
+            s1_szero[e]),
+    )
+
+
+def w4a8_gemm_per_chn_routed(
+    a_i8: torch.Tensor, a_scale: torch.Tensor, a_sum: torch.Tensor,
+    qweight_packed: torch.Tensor, s1_scale: torch.Tensor, s1_szero: torch.Tensor,
+    block_expert: torch.Tensor,
+) -> torch.Tensor:
+    """int8 [M, K] x packed UINT4 [NE, K/2, N] -> bf16 [M, N], each M block
+    by its own expert's weights."""
+    if a_i8.is_cuda:
+        from qserve_tpu_torch.kernels.gemm import w4a8_gemm_per_chn_routed as kernel
+
+        return kernel(a_i8, a_scale, a_sum, qweight_packed, s1_scale, s1_szero,
+                      block_expert)
+    return w4a8_gemm_per_chn_routed_plain(
+        a_i8, a_scale, a_sum, qweight_packed, s1_scale, s1_szero, block_expert
+    )
+
+
+def w4a8_gemm_per_group_routed_plain(
+    a_i8: torch.Tensor, a_scale: torch.Tensor, qweight_packed: torch.Tensor,
+    s2_scale: torch.Tensor, s2_zero: torch.Tensor, s1_scale: torch.Tensor,
+    block_expert: torch.Tensor, group_size: int = 128,
+) -> torch.Tensor:
+    return _routed_plain(
+        a_i8.shape[0], block_expert,
+        lambda e, r: w4a8_gemm_per_group_plain(
+            a_i8[r], a_scale[r], qweight_packed[e], s2_scale[e], s2_zero[e],
+            s1_scale[e], group_size),
+    )
+
+
+def w4a8_gemm_per_group_routed(
+    a_i8: torch.Tensor, a_scale: torch.Tensor, qweight_packed: torch.Tensor,
+    s2_scale: torch.Tensor, s2_zero: torch.Tensor, s1_scale: torch.Tensor,
+    block_expert: torch.Tensor, group_size: int = 128,
+) -> torch.Tensor:
+    """int8 [M, K] x per-group W4 [NE, ...] -> bf16 [M, N], each M block by
+    its own expert's weights; any group count, tiled or ragged."""
+    if a_i8.is_cuda:
+        from qserve_tpu_torch.kernels.gemm import w4a8_gemm_per_group_routed as kernel
+
+        return kernel(a_i8, a_scale, qweight_packed, s2_scale, s2_zero, s1_scale,
+                      block_expert, group_size)
+    return w4a8_gemm_per_group_routed_plain(
+        a_i8, a_scale, qweight_packed, s2_scale, s2_zero, s1_scale,
+        block_expert, group_size,
+    )
+
+
+def w8a8_gemm_routed_plain(
+    a_i8: torch.Tensor, a_scale: torch.Tensor, qweight: torch.Tensor,
+    w_scale: torch.Tensor, block_expert: torch.Tensor,
+) -> torch.Tensor:
+    return _routed_plain(
+        a_i8.shape[0], block_expert,
+        lambda e, r: w8a8_gemm_plain(a_i8[r], a_scale[r], qweight[e], w_scale[e]),
+    )
+
+
+def w8a8_gemm_routed(
+    a_i8: torch.Tensor, a_scale: torch.Tensor, qweight: torch.Tensor,
+    w_scale: torch.Tensor, block_expert: torch.Tensor,
+) -> torch.Tensor:
+    """int8 [M, K] x int8 [NE, K, N] -> bf16 [M, N], each M block by its own
+    expert's weights."""
+    if a_i8.is_cuda:
+        from qserve_tpu_torch.kernels.gemm import w8a8_gemm_routed as kernel
+
+        return kernel(a_i8, a_scale, qweight, w_scale, block_expert)
+    return w8a8_gemm_routed_plain(a_i8, a_scale, qweight, w_scale, block_expert)
+
+
+def matmul_routed(
+    x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """bf16 [M, K] x bf16 [NE, K, N] -> out_dtype [M, N], each M block by its
+    own expert's weights: a per-block weight gather and a batched product
+    in f32 (the W16A16 experts; XLA in the JAX package)."""
+    nb = block_expert.shape[0]
+    M, K = x.shape
+    wb = w[block_expert.long()].to(torch.float32)  # [nb, K, N]
+    out = torch.bmm(x.reshape(nb, M // nb, K).to(torch.float32), wb)
+    return out.reshape(M, -1).to(out_dtype)

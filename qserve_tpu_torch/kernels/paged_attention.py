@@ -36,7 +36,7 @@ def paged_decode_attention(
     P, _, ps, hdc = data.shape
     H = scales.shape[2] // 2
     maxP = block_tables.shape[1]
-    for t, dt, shape, what in (
+    _build.check_operands((
         (q, torch.bfloat16, (B, Hq, D), "q"),
         (data, torch.int8, (P, 2, ps, hdc), "data"),
         (scales, scales.dtype, (P, 2, 2 * H, ps), "scales"),
@@ -44,14 +44,7 @@ def paged_decode_attention(
         (context_lens, torch.int32, (B,), "context_lens"),
         (k_cur, torch.bfloat16, (B, H, D), "k_cur"),
         (v_cur, torch.bfloat16, (B, H, D), "v_cur"),
-    ):
-        if not t.is_cuda or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{what}: want CUDA {dt} {shape}, got {t.device} {t.dtype} "
-                f"{tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{what} must be contiguous")
+    ))
     if scales.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"scales must be bf16 or f32, got {scales.dtype}")
     kv_bits = {H * D // 2: 4, H * D: 8}.get(hdc)

@@ -39,7 +39,7 @@ def prefix_prefill_attention(
     P, _, ps, hdc = data.shape
     H = scales.shape[2] // 2
     maxP = block_table.shape[0]
-    for t, dt, shape, what in (
+    _build.check_operands((
         (q, torch.bfloat16, (T, Hq, D), "q"),
         (k, torch.bfloat16, (T, H, D), "k"),
         (v, torch.bfloat16, (T, H, D), "v"),
@@ -48,14 +48,7 @@ def prefix_prefill_attention(
         (data, torch.int8, (P, 2, ps, hdc), "data"),
         (scales, scales.dtype, (P, 2, 2 * H, ps), "scales"),
         (block_table, torch.int32, (maxP,), "block_table"),
-    ):
-        if not t.is_cuda or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{what}: want CUDA {dt} {shape}, got {t.device} {t.dtype} "
-                f"{tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{what} must be contiguous")
+    ))
     if scales.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"scales must be bf16 or f32, got {scales.dtype}")
     kv_bits = {H * D // 2: 4, H * D: 8}.get(hdc)

@@ -42,14 +42,7 @@ def sample_filtered(
     ]
     if noise is not None:
         checks.append((noise, torch.float32, (B, V), "noise"))
-    for t, dt, shape, what in checks:
-        if not t.is_cuda or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{what}: want CUDA {dt} {shape}, got {t.device} {t.dtype} "
-                f"{tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{what} must be contiguous")
+    _build.check_operands(checks)
     out = torch.empty((B,), dtype=torch.int32, device=scaled.device)
     if B == 0:
         return out

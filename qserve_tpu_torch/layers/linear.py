@@ -5,6 +5,8 @@ Parameters are plain tensors in [K, N] layout, W4 packed with the JAX
 package's global half-split (quant/packing.py). Four flavors: per-channel
 W4, per-group W4, W8 and W16 (bf16). Model weights are stacked on a leading
 [L] layer axis; `.layer(li)` takes one layer's views, which copy nothing.
+It indexes whatever axis leads, so on a layer's MoE experts [NE, ...]
+`.layer(e)` takes one expert's views.
 """
 
 from __future__ import annotations
@@ -97,6 +99,42 @@ def apply_linear(
     if isinstance(p, W8Linear):
         return ops.w8a8_gemm(x.q, x.scale, p.qweight, p.scale, out_dtype)
     raise TypeError(f"unknown linear params {type(p)}")
+
+
+def supports_routed(p: LinearParams) -> bool:
+    """Can apply_linear_routed run this flavor? (All current flavors.)"""
+    return isinstance(p, (W4ChnLinear, W4GrpLinear, W8Linear, W16Linear))
+
+
+def apply_linear_routed(
+    p: LinearParams,
+    x: Union[QuantAct, torch.Tensor],
+    block_expert: torch.Tensor,  # int32 [nb]: the expert of each M block
+    group_size: int = 128,
+) -> torch.Tensor:
+    """Grouped MoE expert product over a token stream [M, K] sorted by
+    expert and padded: each M / nb-row block multiplies ONE expert's weights
+    of the layer's [NE, K, N] experts -> bf16 [M, N]."""
+    if isinstance(p, W16Linear):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError("the W16 path takes float activations")
+        return ops.matmul_routed(x, p.weight, block_expert)
+    if not isinstance(x, QuantAct):
+        raise TypeError("the quantized path takes a QuantAct")
+    if isinstance(p, W4ChnLinear):
+        if x.asum is None:
+            raise ValueError("per-channel W4 needs the act-sum")
+        return ops.w4a8_gemm_per_chn_routed(
+            x.q, x.scale, x.asum, p.qweight, p.s1_scale, p.s1_szero, block_expert
+        )
+    if isinstance(p, W4GrpLinear):
+        return ops.w4a8_gemm_per_group_routed(
+            x.q, x.scale, p.qweight, p.s2_scale, p.s2_zero, p.s1_scale,
+            block_expert, group_size,
+        )
+    if isinstance(p, W8Linear):
+        return ops.w8a8_gemm_routed(x.q, x.scale, p.qweight, p.scale, block_expert)
+    raise TypeError(f"no routed path for {type(p)}")
 
 
 def quantize_linear_from_float(

@@ -1,6 +1,7 @@
-"""Dense Llama-family model over quantized linear layers (W4A8 per-channel
-or per-group, W8A8, or W16A16) and a paged KV4/KV8 cache
-(qserve_tpu/models/llama.py, dense path).
+"""Llama-family model over quantized linear layers (W4A8 per-channel or
+per-group, W8A8, or W16A16) and a paged KV4/KV8 cache, dense or with a
+Mixtral-style sparse-MoE MLP (qserve_tpu/models/llama.py; the MoE weights
+are built in models/mixtral.py).
 
   * packed varlen prefill (segment-id masked causal attention) writes the
     quantized KV pages and computes logits on each prompt's last token only;
@@ -14,7 +15,11 @@ or per-group, W8A8, or W16A16) and a paged KV4/KV8 cache
   * with INT8 activations the RMSNorm->INT8, SwiGLU->INT8 and
     attention-out->INT8 handoffs keep the int8 activation contract, and each
     layer's residual add rides inside the next norm (`add_rmsnorm_quant`);
-    W16A16 adds eagerly and runs plain norms and bf16 products.
+    W16A16 adds eagerly and runs plain norms and bf16 products;
+  * an MoE layer (MoELayerParams) adds its attention output eagerly, routes
+    each token to its top-k experts and runs them either as a masked loop
+    over every expert (short streams: decode) or as grouped GEMMs over a
+    token stream sorted by expert (streams of moe_route_min_tokens or more).
 
 bf16 rounding happens where the JAX package does it: the residual h, the
 qkv/o/down GEMM outputs and the K/V handed to the cache are bf16; logits are
@@ -52,7 +57,15 @@ class LlamaArgs:
     sliding_window: Optional[int] = None
     quant: QuantSpec = QuantSpec(4, 8, 4, True, -1)
     logit_dtype: Any = torch.float32
+    # sparse MoE (Mixtral): 0 = dense MLP
     num_experts: int = 0
+    moe_top_k: int = 2
+    # streams at least this long take the routed (grouped-GEMM) dispatch,
+    # whose work scales with top_k; shorter ones (decode) the masked loop
+    # over every expert, whose cost is the experts' weight bytes either way
+    moe_route_min_tokens: int = 1024
+    # rows of one block of the routed stream (each block runs one expert)
+    moe_route_block: int = 256
 
     @property
     def q_size(self) -> int:
@@ -68,8 +81,14 @@ class LlamaArgs:
 
     @staticmethod
     def from_config_dict(cfg: dict, quant: QuantSpec) -> "LlamaArgs":
-        """From a Hugging Face config.json dict (models/loader.py's
-        args_from_config_dict)."""
+        """From a dense model's Hugging Face config.json dict
+        (models/loader.py's args_from_config_dict). An MoE config goes
+        through models/mixtral.py's args_from_config_dict instead."""
+        if cfg.get("num_local_experts"):
+            raise ValueError(
+                "an MoE config (num_local_experts): use "
+                "mixtral.args_from_config_dict"
+            )
         head_dim = cfg.get("head_dim") or cfg["hidden_size"] // cfg["num_attention_heads"]
         return LlamaArgs(
             vocab_size=cfg["vocab_size"],
@@ -83,7 +102,6 @@ class LlamaArgs:
             rms_eps=cfg.get("rms_norm_eps", 1e-6),
             sliding_window=cfg.get("sliding_window"),
             quant=quant,
-            num_experts=cfg.get("num_local_experts", 0),
         )
 
 
@@ -98,9 +116,22 @@ class LlamaLayerParams(NamedTuple):
     down: lin.LinearParams  # [L, I, E]
 
 
+class MoELayerParams(NamedTuple):
+    """Mixtral-style sparse-MoE layers, stacked over layers; the experts'
+    linears carry a second leading [NE] dim."""
+
+    input_ln: torch.Tensor  # f32 [L, E]
+    qkv: lin.LinearParams  # [L, E, (Hq+2Hkv)*D]
+    o: lin.LinearParams  # [L, Hq*D, E]
+    post_ln: torch.Tensor  # f32 [L, E]
+    router: torch.Tensor  # f32 [L, E, NE]
+    gate_up: lin.LinearParams  # [L, NE, E, 2*I]
+    down: lin.LinearParams  # [L, NE, I, E]
+
+
 class LlamaParams(NamedTuple):
     embed: torch.Tensor  # bf16 [V, E]
-    layers: LlamaLayerParams
+    layers: Any  # LlamaLayerParams, or MoELayerParams (num_experts > 0)
     final_ln: torch.Tensor  # f32 [E]
     lm_head: Any  # bf16 [E, V], or lin.W8Linear (quant.lm_head_bits == 8)
 
@@ -132,11 +163,12 @@ def _check_dense(args: LlamaArgs) -> None:
     )
 
 
-def _empty_linear(L, K, N, device, quant: QuantSpec) -> lin.LinearParams:
-    """Uninitialised stacked [L, ...] weights of quant's flavor."""
+def empty_linear(lead: tuple, K, N, device, quant: QuantSpec) -> lin.LinearParams:
+    """Uninitialised stacked [*lead, ...] weights of quant's flavor ([L] for
+    a dense layer's linears, [L, NE] for MoE experts)."""
 
     def empty(shape, dtype):
-        return torch.empty((L, *shape), dtype=dtype, device=device)
+        return torch.empty((*lead, *shape), dtype=dtype, device=device)
 
     wb, gs = quant.weight_bits, quant.group_size
     if wb == 16:
@@ -163,20 +195,23 @@ def _stacked_layers(args: LlamaArgs, device, weight_of) -> LlamaLayerParams:
     shapes = dict(
         qkv=(E, args.qkv_out), o=(args.q_size, E), gate_up=(E, 2 * I), down=(I, E)
     )
-    lins = {n: _empty_linear(L, *s, device, args.quant) for n, s in shapes.items()}
+    lins = {n: empty_linear((L,), *s, device, args.quant) for n, s in shapes.items()}
     for li in range(L):
         for name, shape in shapes.items():
-            p = lin.quantize_linear_from_float(
-                weight_of(li, name, shape), args.quant.weight_bits,
-                args.quant.group_size,
-            )
-            for dst, src in zip(lins[name], p):
-                dst[li].copy_(src)
+            quantize_into(lins[name], li, weight_of(li, name, shape), args.quant)
     return LlamaLayerParams(
         input_ln=torch.ones((L, E), dtype=torch.float32, device=device),
         post_ln=torch.ones((L, E), dtype=torch.float32, device=device),
         **lins,
     )
+
+
+def quantize_into(dst: lin.LinearParams, index, w: torch.Tensor,
+                  quant: QuantSpec) -> None:
+    """Quantize the float weight w [K, N] into dst[index] of stacked weights."""
+    p = lin.quantize_linear_from_float(w, quant.weight_bits, quant.group_size)
+    for d, src in zip(dst, p):
+        d[index].copy_(src)
 
 
 def random_quantized_params(
@@ -239,7 +274,7 @@ def quantize_params(float_params: dict, args: LlamaArgs, device="cuda") -> Llama
 
 
 def _layer_forward(
-    layers: LlamaLayerParams,
+    layers,  # LlamaLayerParams or MoELayerParams, stacked over layers
     li: int,
     h: torch.Tensor,  # [T, E] bf16 residual stream EXCLUDING delta
     delta: torch.Tensor,  # [T, E] previous sub-block's un-added output
@@ -249,7 +284,8 @@ def _layer_forward(
     attend,  # fn(q [T,Hq,D], k, v, li) -> [T,Hq,D]
 ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decoder layer. Returns (h, delta_out, (k, v)); the KV-cache
-    append is the caller's, batched across layers."""
+    append is the caller's, batched across layers. The MLP is the layers'
+    type's: dense SwiGLU, or the sparse MoE block (_moe_mlp)."""
     T = h.shape[0]
     eps = args.rms_eps
     int8_act = args.quant.act_bits == 8
@@ -276,6 +312,14 @@ def _layer_forward(
             o_p, lin.QuantAct(*ops.quant_per_token(attn, lin.needs_act_sum(o_p))),
             gs,
         )
+    else:
+        o = lin.apply_linear(o_p, attn, gs)
+    if isinstance(layers, MoELayerParams):
+        # a plain add and a plain RMSNorm, as the JAX package's MoE branch
+        h = h + o.to(h.dtype)
+        x = ops.rmsnorm(h, layers.post_ln[li], eps)
+        d = _moe_mlp(layers.router[li], gu_p, down_p, x, args, int8_act, gs)
+    elif int8_act:
         h, g8, gsc, gsum = ops.add_rmsnorm_quant(
             h, o, layers.post_ln[li], eps, lin.needs_act_sum(gu_p)
         )
@@ -283,11 +327,139 @@ def _layer_forward(
         y8, ysc, ysum = ops.silu_mul_quant(gu, lin.needs_act_sum(down_p))
         d = lin.apply_linear(down_p, lin.QuantAct(y8, ysc, ysum), gs)
     else:
-        o = lin.apply_linear(o_p, attn, gs)
         h = h + o.to(h.dtype)
         gu = lin.apply_linear(gu_p, ops.rmsnorm(h, layers.post_ln[li], eps), gs)
         d = lin.apply_linear(down_p, ops.silu_mul(gu), gs)
     return h, d.to(h.dtype), (k.to(torch.bfloat16), v.to(torch.bfloat16))
+
+
+def _moe_mlp(
+    router: torch.Tensor,  # f32 [E, NE], one layer's
+    gu_p: lin.LinearParams,  # one layer's experts [NE, E, 2I]
+    down_p: lin.LinearParams,  # [NE, I, E]
+    x: torch.Tensor,  # [T, E] bf16, the post-attention RMSNorm's output
+    args: LlamaArgs,
+    int8_act: bool,
+    gs: int,
+) -> torch.Tensor:
+    """Sparse-MoE MLP -> f32 [T, E]: softmax router, top-k with renormalized
+    weights, SwiGLU experts. Streams of moe_route_min_tokens or more take
+    the routed grouped GEMMs (_moe_routed_ffn); shorter ones run every
+    expert over every token in expert order, a zero routing weight masking
+    the tokens an expert does not serve (decode reads every expert's
+    weights either way)."""
+    T = x.shape[0]
+    n_exp = args.num_experts
+    router_logits = ops.matmul(x, router.to(torch.bfloat16), torch.float32)
+    probs = torch.softmax(router_logits, dim=-1)  # [T, NE]
+    # torch.topk's order among equal values is unspecified; random f32
+    # probabilities do not tie
+    topv, topi = torch.topk(probs, args.moe_top_k, dim=-1)
+    topv = topv / topv.sum(dim=-1, keepdim=True)  # [T, k]
+
+    if (T >= args.moe_route_min_tokens and lin.supports_routed(gu_p)
+            and lin.supports_routed(down_p)):
+        return _moe_routed_ffn(gu_p, down_p, x, topv, topi, args, int8_act, gs)
+
+    combine = torch.zeros((T, n_exp), dtype=torch.float32, device=x.device)
+    combine.scatter_(1, topi, topv)  # each token's k weights, 0 elsewhere
+    if int8_act:
+        qx = lin.QuantAct(*ops.quant_per_token(x, lin.needs_act_sum(gu_p)))
+    acc = torch.zeros((T, args.hidden_size), dtype=torch.float32, device=x.device)
+    for e in range(n_exp):
+        ge, de = gu_p.layer(e), down_p.layer(e)  # views of expert e
+        if int8_act:
+            gu = lin.apply_linear(ge, qx, gs)
+            y8, ysc, ysum = ops.silu_mul_quant(gu, lin.needs_act_sum(de))
+            d = lin.apply_linear(de, lin.QuantAct(y8, ysc, ysum), gs)
+        else:
+            gu = lin.apply_linear(ge, x, gs)
+            d = lin.apply_linear(de, ops.silu_mul(gu), gs)
+        acc = acc + combine[:, e : e + 1] * d.to(torch.float32)
+    return acc
+
+
+def _moe_routed_ffn(
+    gu_p: lin.LinearParams,
+    down_p: lin.LinearParams,
+    x: torch.Tensor,  # [T, E] bf16
+    topv: torch.Tensor,  # f32 [T, k] renormalized routing weights
+    topi: torch.Tensor,  # int64 [T, k] experts
+    args: LlamaArgs,
+    int8_act: bool,
+    gs: int,
+) -> torch.Tensor:
+    """Routed (grouped-GEMM) expert dispatch -> f32 [T, E]. The T*k (token,
+    expert) rows sort by expert into a padded stream of P rows in which
+    every moe_route_block-row block belongs to one expert; the routed GEMMs
+    multiply each block by its expert's weights, so the work scales with k
+    rather than with the number of experts. Exact: nothing is dropped, pad
+    rows are zero and come out zero. Everything stays on the device; P is
+    the JAX package's static bound, so nothing reads the device."""
+    T, E = x.shape
+    dev = x.device
+    st, dest, rows, block_expert, P = route_layout(
+        topi, args.num_experts, args.moe_route_block
+    )
+
+    if int8_act:
+        # quantize the T rows once, scatter the int8 rows and scales into the
+        # stream (pad rows: q = 0, scale 0, sum 0 -> an exact 0 output)
+        q, qs, qsum = ops.quant_per_token(x, lin.needs_act_sum(gu_p))
+        qp = torch.zeros((P, E), dtype=torch.int8, device=dev)
+        qp[dest] = q[st]
+        qsp = torch.zeros((P, 1), dtype=torch.float32, device=dev)
+        qsp[dest] = qs[st]
+        qsump = None
+        if qsum is not None:
+            qsump = torch.zeros((P, 1), dtype=torch.float32, device=dev)
+            qsump[dest] = qsum[st]
+        gu = lin.apply_linear_routed(gu_p, lin.QuantAct(qp, qsp, qsump), block_expert, gs)
+        y8, ysc, ysum = ops.silu_mul_quant(gu, lin.needs_act_sum(down_p))
+        d = lin.apply_linear_routed(down_p, lin.QuantAct(y8, ysc, ysum), block_expert, gs)
+    else:
+        xp = torch.zeros((P, E), dtype=x.dtype, device=dev)
+        xp[dest] = x[st]
+        gu = lin.apply_linear_routed(gu_p, xp, block_expert, gs)
+        d = lin.apply_linear_routed(down_p, ops.silu_mul(gu), block_expert, gs)
+
+    # combine: each token's k rows in j order, summed in f32 from 0. The
+    # JAX package scatter-adds them instead; for k = 2 both give a + b
+    # exactly, and a gather needs no atomics at any k.
+    acc = torch.zeros((T, E), dtype=torch.float32, device=dev)
+    for j in range(rows.shape[1]):
+        acc = acc + topv[:, j : j + 1] * d[rows[:, j]].to(torch.float32)
+    return acc
+
+
+def route_layout(topi: torch.Tensor, n_exp: int, bblk: int):
+    """Layout of the routed stream of the tokens' experts topi [T, k]:
+    the T*k (token, expert) rows sorted by expert (stably), each expert's
+    rows padded to whole bblk-row blocks. Returns (st, dest, rows,
+    block_expert, P): the token and the stream row of each sorted row, the
+    stream row of each (token, j) [T, k], the expert of each block (int32
+    [P / bblk]; all-pad tail blocks name the last expert) and the stream's
+    length P, the JAX package's static bound. Nothing reads the device."""
+    T, kk = topi.shape
+    dev = topi.device
+    flat_e = topi.reshape(-1)  # row t*kk + j = token t's j-th expert
+    order = torch.argsort(flat_e, stable=True)  # jnp.argsort is stable
+    se, st = flat_e[order], order // kk
+    # experts' row counts without bincount, which reads the device on CUDA
+    counts = (se[:, None] == torch.arange(n_exp, device=dev)).sum(0)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(T * kk, device=dev) - starts[se]
+    padded = (counts + bblk - 1) // bblk * bblk
+    ends = torch.cumsum(padded, 0)
+    dest = (ends - padded)[se] + rank
+    rows = torch.empty_like(dest)
+    rows[order] = dest
+
+    P = (-(-T * kk // bblk) + n_exp) * bblk  # every expert wastes < bblk rows
+    block_expert = torch.searchsorted(
+        ends, torch.arange(P // bblk, device=dev) * bblk, right=True
+    ).clamp(max=n_exp - 1).to(torch.int32)
+    return st, dest, rows.view(T, kk), block_expert, P
 
 
 def _run_layers(params: LlamaParams, h, cos, sin, args: LlamaArgs, attend):

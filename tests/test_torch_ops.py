@@ -175,6 +175,122 @@ def test_lm_head_matmul_f32_logits():
     np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
+# --- routed (grouped) MoE GEMMs ---------------------------------------------
+
+# 6 blocks of 16 rows over 4 experts: uneven runs, an expert with no block
+# (2), and an all-pad tail block that names the last expert, as the MoE
+# dispatch's clamp does. The port takes block_expert [nb]; the JAX package
+# the [nb, 1] block_idx of the same experts.
+_BLOCK_EXPERT = np.array([0, 0, 1, 3, 3, 3], np.int32)
+_ROUTED = {
+    "per_chn": (256, 4, -1),
+    "per_group_tiled": (2048, 4, 128),
+    "per_group_ragged": (768, 4, 128),
+    "w8": (320, 8, -1),
+}
+
+
+def _routed_case(flavor, seed):
+    """(JAX stacked experts, q, scale, act-sum) of one routed stream whose
+    last 20 rows are padding (q = 0, scale 0, sum 0)."""
+    import jax
+
+    K, wbits, G = _ROUTED[flavor]
+    NE, N, M = 4, 192, 16 * len(_BLOCK_EXPERT)
+    r = np.random.default_rng(seed)
+    experts = [
+        jlin.quantize_linear_from_float(
+            jnp.asarray((r.standard_normal((K, N)) * 0.05).astype(np.float32)), wbits, G)
+        for _ in range(NE)
+    ]
+    stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *experts)
+    _, xj = _bf16_pair((M, K), seed + 1)
+    qj, sj, aj = jops.quant_per_token(xj, True)
+    live = (np.arange(M) < M - 20)[:, None]
+    return (stacked, jnp.where(live, qj, 0).astype(jnp.int8),
+            jnp.where(live, sj, 0.0), jnp.where(live, aj, 0.0))
+
+
+@pytest.mark.parametrize("flavor", sorted(_ROUTED))
+def test_routed_gemm_plain_bitexact(flavor):
+    """Each block through its own expert: the plain versions equal the JAX
+    package's routed XLA fallbacks bit for bit, pad rows exactly 0."""
+    stacked, qj, sj, aj = _routed_case(flavor, 20)
+    G = _ROUTED[flavor][2]
+    be_j = jnp.asarray(_BLOCK_EXPERT)[:, None]
+    be_t = torch.from_numpy(_BLOCK_EXPERT)
+    if flavor == "per_chn":
+        want = jops.w4a8_gemm_per_chn_routed(qj, sj, aj, *stacked, be_j)
+        got = tops.w4a8_gemm_per_chn_routed(*map(to_torch, (qj, sj, aj, *stacked)), be_t)
+    elif flavor == "w8":
+        want = jops.w8a8_gemm_routed(qj, sj, *stacked, be_j)
+        got = tops.w8a8_gemm_routed(*map(to_torch, (qj, sj, *stacked)), be_t)
+    else:
+        want = jops.w4a8_gemm_per_group_routed(qj, sj, *stacked, be_j, G)
+        got = tops.w4a8_gemm_per_group_routed(*map(to_torch, (qj, sj, *stacked)), be_t, G)
+    assert got.dtype == torch.bfloat16 and got.shape == (96, 192)
+    np.testing.assert_array_equal(to_np(got), np.asarray(want, np.float32))
+    assert not got[-20:].any()
+
+
+@pytest.mark.parametrize("flavor", ["per_chn", "per_group_ragged", "w8"])
+def test_routed_gemm_plain_is_the_dense_plain_per_block(flavor):
+    """A routed block is the dense plain GEMM of its expert on its rows."""
+    stacked, qj, sj, aj = _routed_case(flavor, 21)
+    G = _ROUTED[flavor][2]
+    w = tuple(map(to_torch, stacked))
+    q, sc, asum = map(to_torch, (qj, sj, aj))
+    be = torch.from_numpy(_BLOCK_EXPERT)
+    if flavor == "per_chn":
+        got = tops.w4a8_gemm_per_chn_routed(q, sc, asum, *w, be)
+        dense = lambda r, e: tops.w4a8_gemm_per_chn(q[r], sc[r], asum[r], *(x[e] for x in w))
+    elif flavor == "w8":
+        got = tops.w8a8_gemm_routed(q, sc, *w, be)
+        dense = lambda r, e: tops.w8a8_gemm(q[r], sc[r], *(x[e] for x in w))
+    else:
+        got = tops.w4a8_gemm_per_group_routed(q, sc, *w, be, G)
+        dense = lambda r, e: tops.w4a8_gemm_per_group(q[r], sc[r], *(x[e] for x in w), G)
+    for b, e in enumerate(_BLOCK_EXPERT.tolist()):
+        r = slice(16 * b, 16 * b + 16)
+        assert torch.equal(got[r], dense(r, e)), f"block {b}"
+
+
+def test_matmul_routed():
+    """The W16A16 experts: f32 sums in another order than XLA's, rtol 1e-5."""
+    r = np.random.default_rng(22)
+    w = (r.standard_normal((4, 128, 96)) * 0.05).astype(np.float32)
+    wt = torch.from_numpy(w).to(torch.bfloat16)
+    wj = jnp.asarray(to_np(wt)).astype(jnp.bfloat16)
+    xt, xj = _bf16_pair((96, 128), 23)
+    want = jops.matmul_routed(xj, wj, jnp.asarray(_BLOCK_EXPERT)[:, None], jnp.float32)
+    got = tops.matmul_routed(xt, wt, torch.from_numpy(_BLOCK_EXPERT), torch.float32)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-5, atol=1e-6)
+    got = tops.matmul_routed(xt, wt, torch.from_numpy(_BLOCK_EXPERT))
+    assert got.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("flavor", ["per_chn", "per_group_tiled"])
+def test_routed_gemm_against_pallas_interpret(flavor):
+    """The TPU routed kernels in interpret mode on the same stream. Their
+    epilogues round in other places (the per-group one adds its zero-point
+    term as an f32 dot; the per-channel one's two products may fuse), so an
+    output may land one bf16 step away, or 1e-5 where the two terms of the
+    per-channel epilogue cancel to ~0."""
+    from qserve_tpu.kernels import pallas_gemm as jpg
+
+    stacked, qj, sj, aj = _routed_case(flavor, 24)
+    be_j = jnp.asarray(_BLOCK_EXPERT)[:, None]
+    be_t = torch.from_numpy(_BLOCK_EXPERT)
+    if flavor == "per_chn":
+        want = jpg.w4a8_gemm_per_chn_routed_pallas(qj, sj, aj, *stacked, be_j)
+        got = tops.w4a8_gemm_per_chn_routed(*map(to_torch, (qj, sj, aj, *stacked)), be_t)
+    else:
+        want = jpg.w4a8_gemm_per_group_routed_pallas(qj, sj, *stacked, be_j, 128)
+        got = tops.w4a8_gemm_per_group_routed(*map(to_torch, (qj, sj, *stacked)), be_t, 128)
+    np.testing.assert_allclose(to_np(got), np.asarray(want, np.float32),
+                               rtol=2.0**-8, atol=1e-5)
+
+
 def _wrapper_calls():
     """Each kernel wrapper called with CPU tensors of otherwise valid
     shapes: a wrapper launches or raises, it never computes on the CPU."""
@@ -210,6 +326,19 @@ def _wrapper_calls():
             torch.zeros(3, 2, 4, 16, dtype=f32), torch.zeros(2, 3, dtype=i32),
             torch.ones(2, dtype=i32), torch.zeros(2, 2, 64, **bf),
             torch.zeros(2, 2, 64, **bf), 0.125),
+        "w4a8_gemm_per_chn_routed": lambda: gemm.w4a8_gemm_per_chn_routed(
+            torch.zeros(128, 128, dtype=i8), torch.ones(128, 1), torch.zeros(128, 1),
+            torch.zeros(4, 64, 64, dtype=i8), torch.ones(4, 64), torch.zeros(4, 64),
+            torch.zeros(2, dtype=i32)),
+        "w4a8_gemm_per_group_routed": lambda: gemm.w4a8_gemm_per_group_routed(
+            torch.zeros(128, 256, dtype=i8), torch.ones(128, 1),
+            torch.zeros(4, 128, 64, dtype=i8), torch.ones(4, 2, 64, dtype=i8),
+            torch.zeros(4, 2, 64, dtype=i8), torch.ones(4, 64),
+            torch.zeros(2, dtype=i32)),
+        "w8a8_gemm_routed": lambda: gemm.w8a8_gemm_routed(
+            torch.zeros(128, 128, dtype=i8), torch.ones(128, 1),
+            torch.zeros(4, 128, 64, dtype=i8), torch.ones(4, 64),
+            torch.zeros(2, dtype=i32)),
         "kv_append": lambda: kv_append.kv_append(
             torch.zeros(1, 3, 2, 16, 64, dtype=i8),
             torch.zeros(1, 3, 2, 4, 16, dtype=f32),
@@ -241,3 +370,17 @@ def test_per_group_wrapper_refuses_groups_it_cannot_tile():
                 torch.zeros(K // 2, 64, dtype=i8),
                 torch.ones(max(K // G, 1), 64, dtype=i8),
                 torch.zeros(max(K // G, 1), 64, dtype=i8), torch.ones(64), G)
+
+
+@pytest.mark.parametrize("M,nb", [(96, 6), (128, 3), (128, 0)])
+def test_routed_wrappers_refuse_blocks_they_cannot_tile(M, nb):
+    """A routed block must be a whole number of the kernels' 64-row tiles
+    (the CPU tests' 16-row blocks run only the plain versions)."""
+    from qserve_tpu_torch.kernels import gemm
+
+    i8, i32 = torch.int8, torch.int32
+    with pytest.raises(ValueError, match="nb"):
+        gemm.w8a8_gemm_routed(
+            torch.zeros(M, 128, dtype=i8), torch.ones(M, 1),
+            torch.zeros(4, 128, 64, dtype=i8), torch.ones(4, 64),
+            torch.zeros(nb, dtype=i32))
