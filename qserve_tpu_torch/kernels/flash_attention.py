@@ -4,6 +4,10 @@
 Replaces qserve_tpu/kernels/pallas_flash_attention.py
 flash_prefill_attention_pallas. Unlike that kernel's dispatch, which
 declined T % 128 != 0, this one takes any T: the port has no fallback.
+
+Each sequence of `segment_ids` must be one contiguous run of the stream, as
+the engine packs it (the TPU kernel's window assumes the same): the kernel
+starts a query tile's key loop at the start of its first sequence's run.
 """
 
 from __future__ import annotations
