@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 1. Builds every CUDA kernel from qserve_tpu_torch/kernels/csrc (one nvcc
-   per source, all at once) and prints what ptxas reported for each; the
-   Triton kernel compiles at its first launch.
+   per source, all at once) and prints what ptxas reported for each (paged
+   decode must not spill at any instance); the Triton kernel compiles at
+   its first launch.
 2. Kernel phases: each of the twelve kernels at the main paths' shapes
    (Llama-3-8B: decode B = 64, prefill and chunk T = 2048, context ~1024 and
    a 4096-token prefix over 256-token pages, sampling at [64, 128256];
@@ -17,25 +18,30 @@
    over a stream of M = 6144 rows in 24 blocks of 256, laid out by a real
    top-2 routing of 2048 tokens over 8 experts, and the per-group one at
    the ragged K = 11008; the prefill attention kernels also at a rep of 3
-   and, K6, a 512-row last chunk over a 4096 prefix) against its plain
+   and, K6, a 512-row last chunk over a 4096 prefix; paged decode also at
+   B = 1 and 8 over 4096-8192 keys; the three attention kernels at head
+   dims 96 and 256; the W4A8 GEMMs at Qwen2-0.5B's widths, whose hidden 896
+   puts a g128 group across the nibble planes, and K2 at a ragged N) against
+   its plain
    PyTorch version on the same inputs, with the tolerance stated in the
    phase (the attention kernels per element, shown to fail without one
    64-key tile); times the kernel, the plain version and, where one exists,
    one PyTorch library call computing the same function (CUDA events,
    median of 20). The build report counts the tensor-core instructions in
-   the SASS of K3 and K6 and fails on none.
+   the SASS of K3, K6 and K2 and fails on none (K2: none of wgmma's).
 3. Reference phase: a small model served by the kernels on the card and by
    the plain versions on the CPU (prefill, decode, one chunk step, one mixed
    chunk+decode step) at W4A8KV4 per-channel, W4A8KV4 g128, W4A8KV8 g128
    with the W8 lm_head, W8A8KV8 with the W8 lm_head and W16A16KV8, and a
-   small Mixtral (4 experts, top-2, routed in 64-row blocks from 16 rows
+   small Mixtral (4 experts, top-2, routed in 128-row blocks from 16 rows
    up) at W4A8KV4 per-channel, W4A8KV4 g128, W8A8KV8 and W16A16KV8; logits
    must agree at every step, and so must the Mixtral's router probabilities
    (within 5e-3), the CPU giving a token whose experts differ the card's.
 4. Engine phase: EngineArgs -> LLMEngine at full width and depth (32
    layers, random weights from a seed, default scheduler: chunked prefill
    and mixed steps on), each engine built and freed in turn, the launch
-   counts set to 0 before each path and read after it:
+   counts set to 0 before each path and read after it, each step timed on
+   the host clock and by CUDA events around its launches:
    a. Llama-3-8B W4A8KV4 per-channel, whole-prompt prefill + paged decode:
       8 requests of 128-1024 prompt tokens and 32 output tokens (6 greedy, 2
       at temperature 0.8);
@@ -90,6 +96,11 @@ LLAMA2_7B = dict(
     vocab_size=32000, hidden_size=4096, intermediate_size=11008,
     num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
     rope_theta=10000.0, rms_norm_eps=1e-5,
+)
+# Qwen2-0.5B (Qwen/Qwen2-0.5B config.json): its widths for the GEMMs
+QWEN2_05B = dict(
+    vocab_size=151936, hidden_size=896, intermediate_size=4864,
+    num_hidden_layers=24, num_attention_heads=14, num_key_value_heads=2,
 )
 # Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1 config.json)
 MIXTRAL_8X7B = dict(
@@ -322,8 +333,12 @@ def phase_gemm(res, dev):
             f"{name} {tag}: max err {err}"
         return err
 
+    # K2 at Llama-3-8B's four linears, Qwen2-0.5B's (hidden 896: K/2 = 448
+    # is no multiple of 128) and a ragged N (N % 128 != 0)
+    k2_shapes = dict(shapes, **{f"qwen2_0.5b_{n}": s for n, s in linears(QWEN2_05B).items()},
+                     ragged_n=(4096, 1088))
     for M in (64, 2048):
-        for name, (K, N) in shapes.items():
+        for name, (K, N) in k2_shapes.items():
             qw = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev,
                                dtype=torch.int8)
             s1 = torch.rand(N, generator=g, device=dev) * 1e-3
@@ -347,9 +362,12 @@ def phase_gemm(res, dev):
     # reference (wraps to int8) part; the port wraps like the reference.
     # Llama-2-7B's o is the 8B's; its down is the ragged one: 43 groups a
     # nibble plane.
+    # Qwen2-0.5B at g128: K = 896 puts group 3 across the nibble planes
+    # (K/2 = 448 = 3.5 groups)
     G = 128
     group_shapes = dict(shapes, **{f"llama2_7b_{n}": s
-                                   for n, s in linears(LLAMA2_7B).items() if n != "o"})
+                                   for n, s in linears(LLAMA2_7B).items() if n != "o"},
+                        **{f"qwen2_0.5b_{n}": s for n, s in linears(QWEN2_05B).items()})
     for name, (K, N) in group_shapes.items():
         p = lin.quantize_linear_from_float(weight(K, N), 4, G)
         w8 = qoq.pergroup_level2_int8(
@@ -542,7 +560,10 @@ def phase_flash(res, dev):
     cases = [(2048, 32, 8, 128, [700, 512, 436, 300], None),
              (2048, 32, LLAMA2_7B["num_key_value_heads"], 128, [700, 512, 436, 300], None),
              (2048, 6, 2, 128, [700, 512, 436, 300], None),
-             (300, 8, 2, 64, [150, 100], 37)]
+             (300, 8, 2, 64, [150, 100], 37),
+             # head dims 96 and 256 (off the main paths)
+             (1024, 8, 2, 96, [600, 400], None),
+             (1024, 8, 4, 256, [600, 400], None)]
     for T, Hq, Hkv, D, lens, window in cases:
         seg = torch.from_numpy(_segments(T, lens)).to(dev)
         q = torch.randn(T, Hq, D, generator=g, device=dev).to(torch.bfloat16)
@@ -581,9 +602,12 @@ def phase_flash(res, dev):
                     qs, ks, vs, attn_mask=mask, enable_gqa=True)))
 
 
-def _paged_case(dev, g, B, H, rep, D, ps, ctx, kv_bits=4):
+def _paged_case(dev, g, B, H, rep, D, ps, ctx, kv_bits=4, centred=False):
     """One layer of a filled KV4 or KV8 cache (every byte is a valid code in
-    both modes) plus the decode inputs."""
+    both modes) plus the decode inputs. centred: zeros put each head's
+    values around 0 (the default's around -0.8: over thousands of keys the
+    output is then that offset, and one missing 64-key tile moves it by
+    less than one bf16 step)."""
     import torch
 
     from qserve_tpu_torch.kernels import kv_cache as kvc
@@ -597,6 +621,9 @@ def _paged_case(dev, g, B, H, rep, D, ps, ctx, kv_bits=4):
     sc = torch.rand(cache.scales.shape, generator=g, device=dev) * (
         0.2 if kv_bits == 4 else 0.0125)
     sc[:, :, :, H:, :] -= 1.5
+    if centred:  # zero = -(middle code) x scale, plus a little noise
+        mid = 7.5 if kv_bits == 4 else 127.5
+        sc[:, :, :, H:, :] = sc[:, :, :, H:, :] * 0.01 - mid * sc[:, :, :, :H, :]
     cache.scales.copy_(sc)
     perm = torch.randperm(P, generator=g, device=dev).to(torch.int32)
     maxP = max(pages_per)
@@ -629,10 +656,23 @@ def phase_paged(res, dev):
         ("8B KV8", 64, 8, 4, 128, 256, ctx_8b, None, 8),
         ("Llama-2-7B KV8, rep 1", 64, 32, 1, 128, 256, ctx_8b, None, 8),
         ("KV8 f32 scales, window 50", 8, 2, 2, 64, 16, small_ctx, 50, 8),
+        # small batches over long histories: the kernel splits each history
+        # (values centred on 0: see _paged_case)
+        ("B=1 ctx 8192", 1, 8, 4, 128, 256, np.array([8192]), None, 4),
+        ("B=8 ctx 4096-8192", 8, 8, 4, 128, 256, rng.integers(4096, 8193, 8), None, 4),
+        ("B=1 ctx 8192 KV8", 1, 8, 4, 128, 256, np.array([8192]), None, 8),
+        ("B=8 ctx 4096-8192 KV8", 8, 8, 4, 128, 256, rng.integers(4096, 8193, 8), None, 8),
+        # head dims 96 and 256; page size 48 copies the scales key by key
+        ("D=96", 16, 4, 2, 96, 256, rng.integers(100, 2049, 16), None, 4),
+        ("D=96 KV8, ps 48", 16, 4, 2, 96, 48, rng.integers(100, 2049, 16), None, 8),
+        ("D=256", 16, 4, 4, 256, 256, rng.integers(100, 2049, 16), None, 4),
+        ("D=256 KV8, ps 48, window 300", 16, 4, 4, 256, 48,
+         rng.integers(100, 2049, 16), 300, 8),
     ]
     for tag, B, H, rep, D, ps, ctx, window, kv_bits in cases:
         ctx = ctx.tolist()
-        cache, bt, cl, q, kc, vc = _paged_case(dev, g, B, H, rep, D, ps, ctx, kv_bits)
+        cache, bt, cl, q, kc, vc = _paged_case(dev, g, B, H, rep, D, ps, ctx, kv_bits,
+                                               centred=tag.startswith("B="))
         assert cache.data.shape[-1] == H * D * kv_bits // 8
         args = (q, cache, bt, cl, 0, kc, vc, kv_bits)
         got = attention.paged_decode_attention(*args, sliding_window=window)
@@ -640,6 +680,12 @@ def phase_paged(res, dev):
         # q, P and the dequantized values in f32 on both sides: one bf16 step
         # plus 1e-3 of the largest output
         err = hold(f"paged decode {tag}", got, want, 1e-3)
+        # the plain output without the last 64 history keys of each row
+        # that has more than 64
+        cl_cut = torch.where(cl > 65, cl - 64, cl)
+        cut = attention.paged_decode_attention_plain(
+            q, cache, bt, cl_cut, 0, kc, vc, kv_bits, sliding_window=window)
+        has_teeth(f"paged decode {tag}", cut, want, 1e-3)
         # history keys read: positions < ctx-1 within the last window-1
         hist = sum(min(max(c - 1, 0), window - 1 if window else c) for c in ctx)
         sb = cache.scales.element_size()
@@ -771,6 +817,11 @@ def phase_prefix(res, dev):
         ("8B KV8", 8, 4, 128, 256, 4096, 2048, 1900, 32, None, 8),
         ("Llama-2-7B KV8, rep 1", 32, 1, 128, 256, 2048, 2048, 1900, 16, None, 8),
         ("KV8 f32 scales, window 50", 2, 2, 64, 16, 97, 80, 70, 12, 50, 8),
+        # head dims 96 and 256 (off the main paths)
+        ("D=96", 2, 4, 96, 256, 1024, 512, 480, 8, None, 4),
+        ("D=96 KV8", 2, 4, 96, 256, 1024, 512, 480, 8, None, 8),
+        ("D=256", 4, 2, 256, 256, 1024, 512, 480, 8, None, 4),
+        ("D=256 KV8", 4, 2, 256, 256, 1024, 512, 480, 8, None, 8),
     ]
     for tag, H, rep, D, ps, S, T, live, maxP, window, kv_bits in cases:
         cache, bt, q, k, v, seg, pos = _prefix_case(dev, g, H, rep, D, ps, S, T,
@@ -1004,7 +1055,7 @@ def _reference(dev, precision, group_size, lm_head_bits, moe, rec):
     and one mixed chunk+decode step. hidden 256 / intermediate 512 keep K/2
     a multiple of the 128-wide group at every linear. moe: a small Mixtral
     (4 experts, top-2) whose streams of 16 rows or more take the routed
-    GEMMs in 64-row blocks (prefill, chunk, mixed) and shorter ones the
+    GEMMs in 128-row blocks (prefill, chunk, mixed) and shorter ones the
     masked loop (decode). Each step runs on the card first; the CPU's MoE
     blocks then give a token whose top-2 experts differ from the card's the
     card's experts (MoERecorder), so a near-tie flipped by rounding leaves
@@ -1028,7 +1079,7 @@ def _reference(dev, precision, group_size, lm_head_bits, moe, rec):
     geo = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
                num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64)
     if moe:
-        geo.update(num_experts=4, moe_top_k=2, moe_route_block=64,
+        geo.update(num_experts=4, moe_top_k=2, moe_route_block=128,
                    moe_route_min_tokens=16)
     args = llama.LlamaArgs(quant=quant, **geo)
     tag = f"{'Mixtral ' if moe else ''}{precision} group {group_size} lm_head W{lm_head_bits}"
@@ -1177,6 +1228,7 @@ def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"], moe=
 
     arrivals = sorted(arrivals, key=lambda a: a[0])
     ms, per_kind, finished, tokens_out, steps, step_log = {}, {}, 0, 0, 0, []
+    dev_ms = {}  # CUDA events on the stream around each step's launches
     t_run = time.perf_counter()
     while engine.has_unfinished_requests() or arrivals:
         while arrivals and (arrivals[0][0] <= steps
@@ -1185,13 +1237,18 @@ def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"], moe=
         before = dict(_build.LAUNCHES)
         if moe is not None:
             moe.rows.clear()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
         t = time.perf_counter()
+        ev0.record()
         outs = engine.step()
+        ev1.record()
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t) * 1e3
         steps += 1
         kind = engine.last_step_kind
         ms.setdefault(kind, []).append(dt)
+        dev_ms.setdefault(kind, []).append(ev0.elapsed_time(ev1))
         delta = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
                  if v - before.get(k, 0)}
         per_kind.setdefault(kind, delta)
@@ -1209,7 +1266,7 @@ def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"], moe=
     run_s = time.perf_counter() - t_run
     assert finished == len(want_tokens), \
         f"{finished} of {len(want_tokens)} requests finished"
-    return dict(ms=ms, per_kind=per_kind, finished=finished,
+    return dict(ms=ms, dev_ms=dev_ms, per_kind=per_kind, finished=finished,
                 tokens_out=tokens_out, run_s=run_s, log=step_log)
 
 
@@ -1217,15 +1274,18 @@ def _report(tag, r, launches):
     log(f"  {tag}: {r['finished']} requests finished, {r['tokens_out']} tokens out, "
         f"run {r['run_s']:.2f} s, output {r['tokens_out'] / r['run_s']:.1f} tok/s")
     for kind, ts in r["ms"].items():
+        dv = r["dev_ms"][kind]
         log(f"    {len(ts)} {kind} steps: median {statistics.median(ts):.2f} ms, "
-            f"min {min(ts):.2f}, max {max(ts):.2f}; launches in the first: "
-            f"{r['per_kind'][kind]}")
+            f"min {min(ts):.2f}, max {max(ts):.2f} (host clock); device "
+            f"{statistics.median(dv):.2f} ms median (CUDA events); launches in the "
+            f"first: {r['per_kind'][kind]}")
     log(f"    launches in the run: {launches}")
     return dict(
         finished=r["finished"], tokens_out=r["tokens_out"], run_s=r["run_s"],
         output_tok_s=r["tokens_out"] / r["run_s"],
         steps={k: len(v) for k, v in r["ms"].items()},
         step_ms_median={k: statistics.median(v) for k, v in r["ms"].items()},
+        step_device_ms_median={k: statistics.median(v) for k, v in r["dev_ms"].items()},
         step_ms={k: [round(x, 2) for x in v] for k, v in r["ms"].items()
                  if k != "decode"},
         launches_per_step={k: v for k, v in r["per_kind"].items()},
@@ -1551,18 +1611,27 @@ def build_report():
     for stem, so in targets.items():  # ptxas: registers, shared memory, spills
         with open(so[:-3] + ".log") as f:
             for line in f:
-                if ("Used" in line or "entry function" in line
-                        or ("spill" in line and "0 bytes spill stores, 0" not in line)):
+                spill = "spill" in line and "0 bytes spill stores, 0" not in line
+                if "Used" in line or "entry function" in line or spill:
                     log(f"  {stem}: {line.strip()}")
+                # K4 is held to no spill at any (D, bits, rep) instance
+                assert not (spill and stem == "paged_attention"), \
+                    f"paged_attention spills: {line.strip()}"
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    for stem in ("flash_attention", "prefix_attention"):
+    for stem in ("flash_attention", "prefix_attention", "w4a8_gemm"):
         sass = subprocess.run([cuobjdump, "-sass", targets[stem]], capture_output=True,
                               text=True, timeout=300, check=True).stdout
         n = {op: sum(f" {op}." in line or f" {op} " in line for line in sass.splitlines())
-             for op in ("HMMA", "HGMMA")}
-        log(f"  {stem} SASS: {n['HMMA']} HMMA, {n['HGMMA']} HGMMA instructions")
-        assert n["HMMA"] + n["HGMMA"] > 0, f"{stem}: no tensor-core instruction in its SASS"
+             for op in ("HMMA", "HGMMA", "IMMA", "IGMMA")}
+        log(f"  {stem} SASS: " + ", ".join(f"{v} {k}" for k, v in n.items())
+            + " instructions")
+        assert n["HMMA"] + n["HGMMA"] > 0 or stem == "w4a8_gemm", \
+            f"{stem}: no tensor-core instruction in its SASS"
+        # K2's large-M loop is wgmma: its s8 products are warpgroup MMAs
+        # (HGMMA, or IGMMA as the integer form may be named)
+        assert n["HGMMA"] + n["IGMMA"] > 0 or stem != "w4a8_gemm", \
+            "w4a8_gemm: no wgmma instruction in its SASS"
 
 
 def main() -> int:

@@ -9,6 +9,14 @@ KV8 cache), per-channel or per-group W4 (`group_size`), with a bf16 or a W8
 lm_head (`quant_lm_head`), and with the scheduler's defaults (chunked
 prefill and mixed chunk+decode steps on). Real checkpoints, VLM and TP/DP
 raise NotImplementedError naming their ROADMAP items.
+
+The CLI takes every flag of qserve_tpu's, so its command lines parse here.
+Flags with no meaning in the port (--no-ifb-mode, --no-scan-layers, the
+profiling lengths, -pp, --trust-remote-code) are accepted and ignored; the
+flags of unported items (--benchmarking, --quant-path, --tokenizer,
+--tokenizer-mode, --img-per-seq) parse and then raise in build_engine. The
+NUM_GPU_PAGE_BLOCKS environment variable sets the page count when
+--num-device-pages is not given, as in qserve_tpu.
 """
 
 from __future__ import annotations
@@ -28,6 +36,9 @@ logger = init_logger(__name__)
 @dataclasses.dataclass
 class EngineArgs:
     model: str = ""
+    tokenizer: Optional[str] = None
+    tokenizer_mode: str = "auto"
+    trust_remote_code: bool = True  # accepted, ignored: no remote code runs
     # Hugging Face config.json contents; with random_weights it replaces
     # reading `model`/config.json
     hf_config: Optional[dict] = None
@@ -38,6 +49,7 @@ class EngineArgs:
     group_size: int = -1
     kv_zero_point: bool = True
     quant_lm_head: bool = False
+    quant_path: Optional[str] = None
     # kv cache
     block_size: int = 256
     num_device_pages: Optional[int] = None
@@ -50,23 +62,40 @@ class EngineArgs:
     # parallel
     tensor_parallel_size: int = 1
     data_parallel_size: int = 1
+    pipeline_parallel_size: int = 1  # accepted, ignored (as in qserve_tpu)
     # engine
+    ifb_mode: bool = True  # accepted, ignored: the scheduler always batches in flight
+    benchmarking: bool = False
+    profiling_prompt_len: Optional[int] = None  # accepted, ignored
+    profiling_generation_len: Optional[int] = None  # accepted, ignored
     random_weights: bool = False
+    scan_layers: bool = True  # accepted, ignored: layers run in a Python loop
     disable_log_stats: bool = True
+    # VLM
     run_vlm: bool = False
+    img_per_seq: int = 1
 
     @staticmethod
     def add_cli_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         g = parser.add_argument
         g("--model", type=str, default="", help="local HF model dir (config.json)")
+        g("--tokenizer", type=str, default=None)
+        g("--tokenizer-mode", type=str, default="auto", choices=["auto", "slow"])
+        g("--trust-remote-code", action="store_true", default=True)
         g("--seed", type=int, default=0)
         g("--device", type=str, default="cuda")
-        g("--precision", type=str, default="w4a8kv4")
-        g("--group-size", type=int, default=-1)
+        g("--precision", type=str, default="w4a8kv4",
+          help="w4a8kv4|w4a8kv8|w8a8kv4|w8a8kv8|w16a16kv4|w16a16kv8")
+        g("--group-size", type=int, default=-1,
+          help="-1 per-channel, or e.g. 128 for per-group W4")
         g("--no-kv-zero-point", dest="kv_zero_point", action="store_false")
         g("--quant-lm-head", action="store_true")
+        g("--quant-path", type=str, default=None,
+          help="packed QoQ checkpoint (not ported yet)")
         g("--block-size", type=int, default=256)
-        g("--num-device-pages", type=int, default=None)
+        g("--num-device-pages", type=int, default=None,
+          help="KV pages on the card (auto-sized if omitted; the "
+               "NUM_GPU_PAGE_BLOCKS env is honoured)")
         g("--num-cpu-pages", type=int, default=0)
         g("--gpu-memory-utilization", type=float, default=0.5)
         g("--max-num-batched-tokens", type=int, default=2048)
@@ -74,8 +103,16 @@ class EngineArgs:
         g("--max-model-len", type=int, default=2048)
         g("--tensor-parallel-size", "-tp", type=int, default=1)
         g("--data-parallel-size", "-dp", type=int, default=1)
+        g("--pipeline-parallel-size", "-pp", type=int, default=1)
+        g("--no-ifb-mode", dest="ifb_mode", action="store_false")
+        g("--benchmarking", action="store_true",
+          help="device-feed decode (not ported yet)")
+        g("--profiling-prompt-len", type=int, default=None)
+        g("--profiling-generation-len", type=int, default=None)
         g("--random-weights", action="store_true")
+        g("--no-scan-layers", dest="scan_layers", action="store_false")
         g("--run-vlm", action="store_true")
+        g("--img-per-seq", type=int, default=1)
         return parser
 
     @classmethod
@@ -92,10 +129,15 @@ class EngineArgs:
 
     def create_engine_configs(self):
         quant = self.quant_spec()
+        env_pages = os.environ.get("NUM_GPU_PAGE_BLOCKS")
         cache_config = CacheConfig(
             block_size=self.block_size,
             gpu_memory_utilization=self.gpu_memory_utilization,
-            num_device_pages=self.num_device_pages,
+            num_device_pages=(
+                self.num_device_pages
+                if self.num_device_pages is not None
+                else (int(env_pages) if env_pages else None)
+            ),
             num_cpu_pages=self.num_cpu_pages,
             quant=quant,
         )
@@ -107,8 +149,18 @@ class EngineArgs:
         return cache_config, scheduler_config
 
     def _refuse_unported(self) -> None:
-        if self.run_vlm:
+        if self.run_vlm or self.img_per_seq != 1:
             raise NotImplementedError("VLM is not ported yet (ROADMAP queue 1, VLM)")
+        if self.benchmarking:
+            raise NotImplementedError(
+                "the benchmarking device-feed mode is not ported yet (ROADMAP "
+                "queue 1, the runner's benchmarking device-feed mode)"
+            )
+        if self.quant_path or self.tokenizer or self.tokenizer_mode != "auto":
+            raise NotImplementedError(
+                "checkpoints and tokenizers are not ported yet (ROADMAP queue "
+                "1, the checkpoint loader, with the tokenizer)"
+            )
         if self.tensor_parallel_size > 1 or self.data_parallel_size > 1:
             raise NotImplementedError(
                 "tensor/data parallelism is not ported yet (ROADMAP queue 1, TP)"

@@ -1,10 +1,11 @@
 // What the attention kernels share (flash_attention.cu, paged_attention.cu,
-// prefix_attention.cu): the dequantization of a cached KV code, in both
-// cache modes, and the tensor-core tile step of the two prefill kernels.
+// prefix_attention.cu): scale loads and cp.async copies of the cached KV
+// pages, in both cache modes, and the tensor-core tile step of the two
+// prefill kernels (the cp.async instructions are cp_async.cuh's).
 //
 // A cached value is code * scale + zero with the per-slot, per-head scale
-// and zero, computed as the plain version computes it: the product rounded
-// to nearest, then the sum (no FMA contraction).
+// and zero; the kernels compute in the code domain (scale and zero applied
+// to sums of codes).
 //   KV4: a head's row is D/2 bytes, two UINT4 codes per byte, dims [0, D/2)
 //        in the low nibbles and [D/2, D) in the high nibbles.
 //   KV8: a head's row is D bytes, one UINT8 code u per value, stored as the
@@ -16,7 +17,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace qs_attn {
+
+using namespace qs_async;
 
 constexpr float NEG_INF = -1e30f;
 
@@ -25,14 +30,6 @@ __device__ __forceinline__ float load_scale(const void* scales, int scale_bf16,
                                             size_t idx) {
   return scale_bf16 ? __bfloat162float(((const __nv_bfloat16*)scales)[idx])
                     : ((const float*)scales)[idx];
-}
-
-__device__ __forceinline__ float dequant(uint32_t code, float sc, float zp) {
-  return __fadd_rn(__fmul_rn((float)code, sc), zp);
-}
-
-__device__ __forceinline__ uint32_t kv8_code(uint32_t byte) {
-  return byte ^ 0x80u;
 }
 
 // ---------------------------------------------------------------------------
@@ -48,38 +45,6 @@ __device__ __forceinline__ uint32_t kv8_code(uint32_t byte) {
 
 constexpr int BK = 64;    // keys per shared-memory tile
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, asynchronous; zero-filled when !pred. No
-// memory clobber, so loads around it still schedule freely: the commit and
-// wait below carry the clobber, and a barrier separates a buffer's last
-// reads from its next copy.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-// 4 bytes global -> shared, asynchronous; zero-filled when !pred
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Copy keys [k0, k0 + BK) of kv head h of k and v ([T, H, D] bf16) into the
 // tiles Ks and Vs ([BK][D + 8]) by cp.async, NTHREADS threads taking 16-byte

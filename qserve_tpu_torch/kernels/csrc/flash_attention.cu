@@ -178,7 +178,8 @@ int launch(const void* q, const void* k, const void* v, const void* seg,
 
 }  // namespace
 
-// 128 threads per block; the wrapper keeps Hq / Hkv <= 8 and D in {64, 128}.
+// 128 threads per block; the wrapper keeps Hq / Hkv <= 8 and D in
+// {64, 96, 128, 256}.
 extern "C" int qs_flash_prefill_attention(const void* q, const void* k,
                                           const void* v, const void* seg,
                                           void* out, int T, int Hq, int Hkv,
@@ -187,5 +188,7 @@ extern "C" int qs_flash_prefill_attention(const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   if (D == 128) return launch<128>(q, k, v, seg, out, T, Hq, Hkv, sm_scale, window, st);
   if (D == 64) return launch<64>(q, k, v, seg, out, T, Hq, Hkv, sm_scale, window, st);
+  if (D == 96) return launch<96>(q, k, v, seg, out, T, Hq, Hkv, sm_scale, window, st);
+  if (D == 256) return launch<256>(q, k, v, seg, out, T, Hq, Hkv, sm_scale, window, st);
   return (int)cudaErrorInvalidValue;
 }

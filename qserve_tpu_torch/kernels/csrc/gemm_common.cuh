@@ -1,5 +1,6 @@
-// The int8 tensor-core main loop shared by the quantized GEMM kernels
-// (w4a8_gemm.cu, w4a8_gemm_per_group.cu, w8a8_gemm.cu).
+// The int8 tensor-core main loops of the quantized GEMM kernels
+// (w4a8_gemm.cu, w4a8_gemm_per_group.cu, w8a8_gemm.cu): gemm_s8_block
+// (mma.sync: K8 and K9) and, below it, the wgmma pieces of K2's loop.
 //
 // A block of 128 threads owns a 64x64 output tile and walks K in steps of 64
 // logical k. Per step it stages a [64 m][64 k] int8 tile of A and a
@@ -21,7 +22,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace qs_gemm {
+
+using namespace qs_async;
 
 constexpr int BM = 64;       // output rows per block
 constexpr int BN = 64;       // output columns per block
@@ -140,6 +145,70 @@ __device__ __forceinline__ void gemm_s8_block(const int8_t* __restrict__ A,
                  acc[mi][ni][half * 2 + 1]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Hopper pieces of the wgmma main loop (w4a8_gemm.cu's K2; K8 and K9 still
+// run gemm_s8_block above). A warpgroup (4 warps) issues
+// wgmma.mma_async m64n128k32 (s8 x s8 -> s32) with both operands in shared
+// memory, K-major, in the canonical no-swizzle layout: 8 rows x 16 bytes
+// form one 128-byte core matrix; the two core matrices of a 32-byte k slice
+// lie LBO = 128 bytes apart and successive 8-row groups SBO bytes apart.
+// ---------------------------------------------------------------------------
+
+// a wgmma shared-memory matrix descriptor: no swizzle, base offset 0
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, int lbo,
+                                               int sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+// this thread's shared-memory writes (st.shared, and cp.async data it has
+// waited for) made visible to the tensor cores' async proxy
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads across a wgmma wait
+__device__ __forceinline__ void fence_reg(int& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// d[64] += A[64 x 32] . B[32 x 128]^T, s8 x s8 -> s32; thread (warp w of the
+// warpgroup, lane 4g + q) holds d[4j + e] of row 16w + g + 8 (e >> 1),
+// column 8j + 2q + (e & 1)
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 }  // namespace qs_gemm

@@ -114,6 +114,9 @@ prefix_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int LD = D + 8;
   constexpr int DC = D * BITS / 8;  // bytes of one head's cached row
   constexpr int CPR = DC / 16;      // 16-byte chunks per cached row
+  // 16-byte chunks of a K and V tile, and per thread (D = 96 at KV4: 1.5,
+  // the last round masked)
+  constexpr int NCOPY = 2 * BK * CPR, NU = (NCOPY + NT - 1) / NT;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][K,V][BK][LD]
   int8_t* packed = reinterpret_cast<int8_t*>(tiles + STAGES * 2 * BK * LD);  // [STAGES][K,V][BK][DC]
@@ -197,7 +200,6 @@ prefix_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     const int b = it % STAGES;
     if (it < n1) {
       const int c0 = lo + it * BK;
-      constexpr int NU = 2 * BK * CPR / NT;  // 16-byte copies a thread
       // every page lookup first, then every copy: the lookups overlap
       const int8_t* src[NU];
 #pragma unroll
@@ -205,13 +207,15 @@ prefix_prefill_kernel(const __nv_bfloat16* __restrict__ q,
         const int i = tid + u * NT;
         const int kv = i / (BK * CPR), j = (i / CPR) % BK, ch = i % CPR;
         const int s = c0 + j;
-        src[u] = s < hi ? data + (((size_t)table[page_of(s)] * 2 + kv) * ps + slot_of(s)) *
-                                     HDc + h * DC + ch * 16
-                        : nullptr;
+        src[u] = s < hi && i < NCOPY
+                     ? data + (((size_t)table[page_of(s)] * 2 + kv) * ps + slot_of(s)) *
+                                  HDc + h * DC + ch * 16
+                     : nullptr;
       }
 #pragma unroll
       for (int u = 0; u < NU; ++u) {
         const int i = tid + u * NT;
+        if (NCOPY % NT && i >= NCOPY) break;
         const int kv = i / (BK * CPR), j = (i / CPR) % BK, ch = i % CPR;
         cp_async16(packed + ((b * 2 + kv) * BK + j) * DC + ch * 16, src[u] ? src[u] : data,
                    src[u] != nullptr);
@@ -291,8 +295,9 @@ prefix_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     if (it < n1) {
       // packed codes -> bf16 codes, each byte once per block
 #pragma unroll
-      for (int u = 0; u < 2 * BK * CPR / NT; ++u) {
+      for (int u = 0; u < NU; ++u) {
         const int i = tid + u * NT;
+        if (NCOPY % NT && i >= NCOPY) break;
         const int kv = i / (BK * CPR), j = (i / CPR) % BK, ch = i % CPR;
         const uint4 w = *reinterpret_cast<const uint4*>(
             packed + ((b * 2 + kv) * BK + j) * DC + ch * 16);
@@ -391,7 +396,9 @@ int launch(const void* q, const void* k, const void* v, const void* seg,
 }  // namespace
 
 // data/scales are ONE layer of the cache ([P, 2, ps, H*Dc], [P, 2, 2H, ps]).
-// 256 threads (8 warps) per block; the wrapper keeps Hq / H <= 8, D in {64, 128},
+// 256 threads (8 warps) per block; the wrapper keeps Hq / H <= 8, D in
+// {64, 96, 128, 256} (D = 256 holds 2x the registers of D = 128: ptxas
+// reports its spill),
 // kv_bits in {4, 8} and prefix_len <= maxP * ps.
 extern "C" int qs_prefix_prefill_attention(
     const void* q, const void* k, const void* v, const void* seg,
@@ -407,6 +414,10 @@ extern "C" int qs_prefix_prefill_attention(
   if (D == 128 && kv_bits == 8) QS_LAUNCH(128, 8);
   if (D == 64 && kv_bits == 4) QS_LAUNCH(64, 4);
   if (D == 64 && kv_bits == 8) QS_LAUNCH(64, 8);
+  if (D == 96 && kv_bits == 4) QS_LAUNCH(96, 4);
+  if (D == 96 && kv_bits == 8) QS_LAUNCH(96, 8);
+  if (D == 256 && kv_bits == 4) QS_LAUNCH(256, 4);
+  if (D == 256 && kv_bits == 8) QS_LAUNCH(256, 8);
 #undef QS_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -4,7 +4,9 @@
 // Replaces: qserve_tpu/kernels/pallas_gemm.py w4a8_gemm_per_group_pallas and
 // w4a8_gemm_per_group_whole_pallas. The TPU needed a second kernel for group
 // counts that do not tile its sublanes (K = 11008: 43 groups a nibble
-// plane); here one kernel serves every K with (K/2) % G == 0. A second entry
+// plane); here one kernel serves every K with K % G == 0, groups that
+// straddle the two nibble planes included (K/2 % G != 0: hidden 896 at
+// g128). A second entry
 // point replaces the routed MoE forms of both,
 // w4a8_gemm_per_group_routed_pallas and
 // w4a8_gemm_per_group_whole_routed_pallas (see the routed kernel below).
@@ -28,9 +30,9 @@
 //
 // Design: the main loop of gemm_common.cuh. The two nibbles of a packed byte
 // belong to different groups (rows r and r + K/2), so a thread keeps two
-// 16-column rows of s2 and of z2 in registers, reloads them when its 32
-// packed rows enter a new group (G % 32 == 0, so a step never straddles
-// one), and forms W8 = q * s2 + z2 as an int8 while it stages the tile:
+// 16-column rows of s2 and of z2 in registers, reloads each plane's when
+// its 32 rows of k enter a new group (G % 32 == 0 and K % 64 == 0, so a
+// step straddles none), and forms W8 = q * s2 + z2 as an int8 while it stages the tile:
 // the tensor cores see plain int8 x int8, as QServe's own CUDA kernel does,
 // and no float z-term is needed.
 
@@ -44,20 +46,31 @@ struct StageW4Group {
   const int8_t* __restrict__ W;   // [K/2, N] packed nibbles
   const int8_t* __restrict__ s2;  // [K/G, N] uint8 values
   const int8_t* __restrict__ z2;  // [K/G, N]
-  int N, G, plane_groups;         // plane_groups = (K/2) / G
+  int N, G, K2;                   // K2 = K/2, the high plane's first k
+  // each plane's current group and the packed row r0 at which its next
+  // group starts: the low plane's rows r0.. are k = r0.., the high
+  // plane's k = K2 + r0.., so a group may straddle the planes (K2 % G != 0,
+  // e.g. hidden 896 at g128); counters, not divisions, on the step path
+  int lo_g, hi_g, lo_next, hi_next;
   int4 s2lo, s2hi, z2lo, z2hi;    // this thread's 16 columns, current groups
 
   __device__ __forceinline__ void operator()(int step, int8_t* Bs) {
     const int r = threadIdx.x >> 2, nq = (threadIdx.x & 3) * 16;
     const int r0 = step * 32;
     const size_t col = (size_t)blockIdx.x * BN + nq;
-    if (r0 % G == 0) {
-      const size_t lo = (size_t)(r0 / G) * N + col;
-      const size_t hi = lo + (size_t)plane_groups * N;
+    if (r0 == lo_next) {
+      const size_t lo = (size_t)lo_g * N + col;
       s2lo = ld16(s2 + lo);
-      s2hi = ld16(s2 + hi);
       z2lo = ld16(z2 + lo);
+      ++lo_g;
+      lo_next += G;
+    }
+    if (r0 == hi_next) {
+      const size_t hi = (size_t)hi_g * N + col;
+      s2hi = ld16(s2 + hi);
       z2hi = ld16(z2 + hi);
+      ++hi_g;
+      hi_next = hi_g * G - K2;
     }
     const int4 v = ld16(W + (size_t)(r0 + r) * N + col);
     const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
@@ -88,7 +101,8 @@ w4a8_gemm_per_group_kernel(const int8_t* __restrict__ A,
   __shared__ __align__(16) int8_t As[BM * LDS];
   __shared__ __align__(16) int8_t Bs[BN * LDS];
   const int4 zero = make_int4(0, 0, 0, 0);
-  StageW4Group stage{W, s2, z2, N, G, K / 2 / G, zero, zero, zero, zero};
+  StageW4Group stage{W, s2, z2, N, G, K / 2, 0, K / 2 / G, 0, 0,
+                     zero, zero, zero, zero};
   const ScaleEpilogue<OutT> epilogue{s1, a_scale, out, N};
   gemm_s8_block(A, M, K, K / 64, 32, K / 2, As, Bs, stage, epilogue);
 }
@@ -114,7 +128,7 @@ w4a8_gemm_per_group_routed_kernel(const int8_t* __restrict__ A,
   const size_t group_stride = (size_t)(K / G) * N;
   const int4 zero = make_int4(0, 0, 0, 0);
   StageW4Group stage{W + e * (size_t)(K / 2) * N, s2 + e * group_stride,
-                     z2 + e * group_stride, N, G, K / 2 / G,
+                     z2 + e * group_stride, N, G, K / 2, 0, K / 2 / G, 0, 0,
                      zero, zero, zero, zero};
   const ScaleEpilogue<__nv_bfloat16> epilogue{s1 + e * N, a_scale, out, N};
   gemm_s8_block(A, M, K, K / 64, 32, K / 2, As, Bs, stage, epilogue);
@@ -124,7 +138,7 @@ w4a8_gemm_per_group_routed_kernel(const int8_t* __restrict__ A,
 
 // A [M, K] int8, W [K/2, N] int8, s2/z2 [K/G, N] int8, s1 [N] f32,
 // a_scale [M] f32, out [M, N] bf16 (out_f32 == 0) or f32; K % 64 == 0,
-// N % 64 == 0, G % 32 == 0 and (K/2) % G == 0 (checked by the wrapper).
+// N % 64 == 0, G % 32 == 0 and K % G == 0 (checked by the wrapper).
 extern "C" int qs_w4a8_gemm_per_group(const void* A, const void* W,
                                       const void* s2, const void* z2,
                                       const void* s1, const void* a_scale,

@@ -16,6 +16,7 @@ import torch
 
 from qserve_tpu_torch.kernels import _build
 
+HEAD_DIMS = (64, 96, 128, 256)
 NAME = "flash_prefill_attention"
 _ARGS = [_build.P] * 5 + [_build.I] * 4 + [_build.F, _build.I, _build.P]
 
@@ -36,8 +37,8 @@ def flash_prefill_attention(
         (v, torch.bfloat16, (T, Hkv, D), "v"),
         (segment_ids, torch.int32, (T,), "segment_ids"),
     ))
-    if D not in (64, 128) or Hq % Hkv or Hq // Hkv > 8:
-        raise ValueError(f"flash prefill needs D in (64, 128), Hq/Hkv <= 8 "
+    if D not in HEAD_DIMS or Hq % Hkv or Hq // Hkv > 8:
+        raise ValueError(f"flash prefill needs D in {HEAD_DIMS}, Hq/Hkv <= 8 "
                          f"(D={D}, Hq={Hq}, Hkv={Hkv})")
     out = torch.empty_like(q)
     if T == 0:

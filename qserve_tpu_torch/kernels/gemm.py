@@ -90,11 +90,11 @@ def w4a8_gemm_per_group(
     K2, N = qweight.shape
     G = int(group_size)
     # 32 packed rows a step: a step must not straddle a group of either
-    # nibble plane, and the planes must split on a group boundary
-    if G <= 0 or G % 32 or K % 64 or N % 64 or K2 * 2 != K or K2 % G:
+    # nibble plane (a group may straddle the planes)
+    if G <= 0 or G % 32 or K % 64 or N % 64 or K2 * 2 != K or K % G:
         raise ValueError(
             f"w4a8_gemm_per_group needs K, N % 64 == 0, group_size % 32 == 0 "
-            f"and (K/2) % group_size == 0 (K={K}, N={N}, group_size={G})"
+            f"and K % group_size == 0 (K={K}, N={N}, group_size={G})"
         )
     _build.check_operands((
         (a_i8, torch.int8, (M, K), "a_i8"),
@@ -153,14 +153,14 @@ def w8a8_gemm(
     return out
 
 
-def _route_rows(name: str, M: int, block_expert: torch.Tensor) -> int:
-    """Rows of one routed block: M / nb, a multiple of the kernels' 64-row
-    tile so that no tile straddles two experts."""
+def _route_rows(name: str, M: int, block_expert: torch.Tensor, tile: int = 64) -> int:
+    """Rows of one routed block: M / nb, a multiple of the kernel's row tile
+    (64 for K8 and K9, 128 for K2) so that no tile straddles two experts."""
     nb = block_expert.shape[0] if block_expert.dim() == 1 else 0
-    if nb == 0 or M % nb or (M // nb) % 64:
+    if nb == 0 or M % nb or (M // nb) % tile:
         raise ValueError(
             f"{name} needs block_expert [nb] with M % nb == 0 and "
-            f"(M / nb) % 64 == 0 (M={M}, block_expert {tuple(block_expert.shape)})"
+            f"(M / nb) % {tile} == 0 (M={M}, block_expert {tuple(block_expert.shape)})"
         )
     return M // nb
 
@@ -177,7 +177,7 @@ def w4a8_gemm_per_chn_routed(
     """bf16 [M, N]; rows of block b use expert block_expert[b]."""
     M, K = a_i8.shape
     NE, K2, N = qweight.shape
-    rows = _route_rows(NAME_ROUTED, M, block_expert)
+    rows = _route_rows(NAME_ROUTED, M, block_expert, tile=128)
     _build.check_operands((
         (a_i8, torch.int8, (M, K), "a_i8"),
         (a_scale, torch.float32, (M, 1), "a_scale"),
@@ -216,10 +216,10 @@ def w4a8_gemm_per_group_routed(
     M, K = a_i8.shape
     NE, K2, N = qweight.shape
     G = int(group_size)
-    if G <= 0 or G % 32 or K % 64 or N % 64 or K2 * 2 != K or K2 % G:
+    if G <= 0 or G % 32 or K % 64 or N % 64 or K2 * 2 != K or K % G:
         raise ValueError(
             f"{NAME_GROUP_ROUTED} needs K, N % 64 == 0, group_size % 32 == 0 "
-            f"and (K/2) % group_size == 0 (K={K}, N={N}, group_size={G})"
+            f"and K % group_size == 0 (K={K}, N={N}, group_size={G})"
         )
     rows = _route_rows(NAME_GROUP_ROUTED, M, block_expert)
     _build.check_operands((

@@ -15,6 +15,7 @@ import torch
 
 from qserve_tpu_torch.kernels import _build
 
+HEAD_DIMS = (64, 96, 128, 256)
 NAME = "prefix_prefill_attention"
 _ARGS = (
     [_build.P] * 7 + [_build.I] + [_build.P] * 2 + [_build.I] * 7
@@ -52,8 +53,8 @@ def prefix_prefill_attention(
     if scales.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"scales must be bf16 or f32, got {scales.dtype}")
     kv_bits = {H * D // 2: 4, H * D: 8}.get(hdc)
-    if kv_bits is None or D not in (64, 128) or Hq % H or Hq // H > 8:
-        raise ValueError(f"prefix prefill needs KV4 or KV8 rows, D in (64, 128), "
+    if kv_bits is None or D not in HEAD_DIMS or Hq % H or Hq // H > 8:
+        raise ValueError(f"prefix prefill needs KV4 or KV8 rows, D in {HEAD_DIMS}, "
                          f"Hq/H <= 8 (D={D}, Hq={Hq}, H={H}, row bytes={hdc})")
     prefix_len = int(prefix_len)
     if not 0 <= prefix_len <= maxP * ps:

@@ -250,9 +250,10 @@ class ModelRunner:
                 tables.append(md.block_tables[seq_id])
                 sp_list.append(md.sampling_params)
         B = bucket(len(seq_order), 1, self.max_num_seqs)
-        tok, cl, bt = native.pack_decode(
-            tokens, ctx, tables, B, self.max_pages_per_seq
-        )
+        # the table only as wide as the batch's longest history: K4 sizes its
+        # split of each history by that width
+        width = min(-(-max(ctx, default=1) // self.block_size), self.max_pages_per_seq)
+        tok, cl, bt = native.pack_decode(tokens, ctx, tables, B, max(width, 1))
         return seq_order, sp_list, tuple(map(self._dev, (tok, bt, cl))), B
 
     # ------------------------------------------------------------------

@@ -1,0 +1,397 @@
+#!/usr/bin/env python3
+"""Times K4 (qserve_tpu_torch/kernels/csrc/paged_attention.cu) and K2
+(csrc/w4a8_gemm.cu) as committed beside another checkout's, on one NVIDIA
+GPU, or the engine steps they carry. From the repo root:
+
+    python3 scripts/ab_decode_gemm.py [--parent DIR] [--rounds N]
+    python3 scripts/ab_decode_gemm.py --steps [--tree DIR]
+
+Kernel mode: every library is built with the committed nvcc flags, all nvcc
+processes at once, and so are the VARIANTS below (tunings of the change,
+each checked like it); then one process times each (kernel, shape, tree)
+with CUDA events around 20 back-to-back calls (device time: the host
+enqueues ahead of the card), over rounds in alternating order, so the trees
+compare within one run. Each of the change's calls is first held against
+the parent's output (K2 bit for bit; K4 within its chip limit). K4 at
+chip_smoke.py's decode shapes (Llama-3-8B B = 64, KV4 and KV8; Llama-2-7B
+KV8; B = 1 and B = 8 over 4096-8192 keys; B = 1 and B = 8 over ~500
+keys, also under the block table that max_model_len 8K or 32K would give,
+as wide as the model runner no longer passes) with the wrapper's split
+count and with 2x and 4x that, beside SDPA over the dequantized history
+(chip_smoke.py's yardstick); K2 at Llama-3-8B's four linears at M = 64 and
+2048, its gate_up and down at M = 8, and routed at Mixtral-8x7B's gate_up
+and down over a 6144-row stream; K8 (csrc/w4a8_gemm_per_group.cu) at
+Llama-3-8B's gate_up and qkv, g128, bit for bit. DIR is another checkout, e.g. a `git
+archive` of the parent commit (its K4 entry point takes no split scratch:
+it is called with that signature, PR 5's).
+
+Steps mode: the engine of the tree at DIR (default: this one) at full
+width and depth, random weights: Llama-3-8B W4A8KV4 per-channel serving
+chip_smoke.py's path a (8 prompts of 128-1024 tokens, 32 tokens out), then
+Mixtral-8x7B W4A8KV4 per-channel prefilling two 2000-token prompts, one
+step each (the first step of an engine carries its first-use costs: read
+the second); each step's host clock and its device time (CUDA events
+around the step's launches). Run it once per tree in one call to compare
+them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import statistics
+import sys
+import tempfile
+import time
+
+from ab_common import CSRC, build, device_ms, smi
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# source variants of the change, timed beside it (their outputs are checked
+# too: each is a tuning of the same arithmetic)
+VARIANTS = {
+    "K4 4 stages": ("paged_attention", [("constexpr int STAGES = 3;",
+                                         "constexpr int STAGES = 4;")]),
+    "K2 3 stages": ("w4a8_gemm", [("constexpr int WG_STAGES = 4;",
+                                   "constexpr int WG_STAGES = 3;")]),
+    "K2 N tiles fastest": ("w4a8_gemm", [
+        ("const int m0 = blockIdx.x * WG_BM, n0 = blockIdx.y * WG_BN;",
+         "const int m0 = blockIdx.y * WG_BM, n0 = blockIdx.x * WG_BN;"),
+        ("block_expert[(blockIdx.x * WG_BM) / route_rows]",
+         "block_expert[(blockIdx.y * WG_BM) / route_rows]"),
+        ("const dim3 grid((M + WG_BM - 1) / WG_BM, (N + WG_BN - 1) / WG_BN);",
+         "const dim3 grid((N + WG_BN - 1) / WG_BN, (M + WG_BM - 1) / WG_BM);")]),
+}
+
+
+def k4_cases(dev):
+    """(tag, keep-alive, {label: change args}, parent args, out tensors): the
+    change with the wrapper's split count, at 2x and 4x that, and, for the
+    short histories, under a block table as wide as max_model_len 8K or 32K
+    would make it (the split count the wrapper would take from that width)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from qserve_tpu_torch.kernels import _build, kv_cache as kvc, paged_attention
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    rng = np.random.default_rng(4)
+    ctx_8b = rng.integers(512, 1537, 64)
+    cases = []
+    for tag, B, H, rep, ctx, bits, wide in (
+            ("8B KV4 B=64 ctx~1024", 64, 8, 4, ctx_8b, 4, ()),
+            ("8B KV8 B=64", 64, 8, 4, ctx_8b, 8, ()),
+            ("Llama-2-7B KV8 rep 1 B=64", 64, 32, 1, ctx_8b, 8, ()),
+            ("B=1 ctx 8192 KV4", 1, 8, 4, np.array([8192]), 4, ()),
+            ("B=8 ctx 4096-8192 KV4", 8, 8, 4, rng.integers(4096, 8193, 8), 4, ()),
+            ("B=1 ctx 8192 KV8", 1, 8, 4, np.array([8192]), 8, ()),
+            ("B=8 ctx 4096-8192 KV8", 8, 8, 4, rng.integers(4096, 8193, 8), 8, ()),
+            ("B=1 ctx 500 KV4", 1, 8, 4, np.array([500]), 4, (8192, 32768)),
+            ("B=8 ctx 400-600 KV4", 8, 8, 4, rng.integers(400, 601, 8), 4, (8192, 32768))):
+        D, ps = 128, 256
+        cache, bt, cl, q, kc, vc = chip_smoke._paged_case(
+            dev, g, B, H, rep, D, ps, ctx.tolist(), bits, centred=tag.startswith("B="))
+        tables = {"change": bt}
+        for keys in wide:  # the trimmed table's pages, then zeros
+            w = torch.zeros(B, keys // ps, dtype=torch.int32, device=dev)
+            w[:, :bt.shape[1]] = bt
+            tables[f"table of {keys} keys"] = w
+        ns = paged_attention.num_splits(B, H, bt.shape[1] * ps)
+        splits = {"change": ns, "change 2x splits": 2 * ns, "change 4x splits": 4 * ns}
+        splits.update({k: paged_attention.num_splits(B, H, t.shape[1] * ps)
+                       for k, t in tables.items() if k != "change"})
+        most = max(splits.values())
+        pm = torch.empty(B, H * rep, most, device=dev)
+        pl = torch.empty_like(pm)
+        po = torch.empty(B, H * rep, most, D, device=dev)
+        outs = (torch.empty_like(q), torch.empty_like(q))
+
+        def head(t):
+            return (q.data_ptr(), cache.data[0].data_ptr(), cache.scales[0].data_ptr(),
+                    int(cache.scales.dtype == torch.bfloat16), t.data_ptr(), cl.data_ptr(),
+                    kc.data_ptr(), vc.data_ptr())
+        change = {}
+        for label, n in splits.items():
+            t = tables.get(label, bt)
+            change[f"{label} ns={n}"] = (
+                *head(t), outs[0].data_ptr(), pm.data_ptr(), pl.data_ptr(), po.data_ptr(),
+                B, H * rep, H, D, bits, ps, t.shape[1], n, D**-0.5, 0, _build.stream())
+        parent = (*head(bt), outs[1].data_ptr(), B, H * rep, H, D, bits, ps, bt.shape[1],
+                  D**-0.5, 0, _build.stream())
+        # yardstick: SDPA over the already dequantized history (chip_smoke.py's)
+        k, v = kvc.gather_dequant_layer(cache.layer(0), bt, bits)
+        k = torch.cat([k, kc.float()[:, None]], 1).to(torch.bfloat16).transpose(1, 2)
+        v = torch.cat([v, vc.float()[:, None]], 1).to(torch.bfloat16).transpose(1, 2)
+        pos = torch.arange(k.shape[2], device=dev)[None]
+        h_len = (cl.long() - 1).clamp(min=0)[:, None]
+        mask = ((pos < h_len) | (pos == k.shape[2] - 1))[:, None, None, :]
+        qs = q[:, :, None, :]
+        sdpa = (qs, k, v, mask)
+        cases.append((tag, (cache, tables, cl, q, kc, vc, pm, pl, po, sdpa),
+                      change, parent, outs))
+    return cases
+
+
+def k2_cases(dev):
+    """(tag, keep-alive, (entry, args, out) of the change, the same of the
+    parent)."""
+    import torch
+
+    import chip_smoke
+    from qserve_tpu_torch.kernels import _build
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    cfg = chip_smoke.LLAMA3_8B
+    E, I = cfg["hidden_size"], cfg["intermediate_size"]
+    kv = E // cfg["num_attention_heads"] * cfg["num_key_value_heads"]
+    linears = dict(gate_up=(E, 2 * I), qkv=(E, E + 2 * kv), o=(E, E), down=(I, E))
+    cases = []
+    for M, names in ((64, linears), (2048, linears), (8, ["gate_up", "down"])):
+        for name in names:
+            K, N = linears[name]
+            a = torch.randint(-128, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+            qw = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev,
+                               dtype=torch.int8)
+            asc = torch.rand(M, 1, generator=g, device=dev) * 0.05
+            asum = torch.randn(M, 1, generator=g, device=dev)
+            s1 = torch.rand(N, generator=g, device=dev) * 1e-3
+            sz = torch.rand(N, generator=g, device=dev) * 8e-3
+            outs = [torch.empty(M, N, dtype=torch.bfloat16, device=dev) for _ in range(2)]
+            p = [t.data_ptr() for t in (a, qw, s1, sz, asc, asum)]
+            args = [(*p, o.data_ptr(), M, N, K, _build.stream()) for o in outs]
+            cases.append((f"{name} M={M} K={K} N={N}", (a, qw, asc, asum, s1, sz),
+                          ("qs_w4a8_gemm_per_chn", args[0], outs[0]),
+                          ("qs_w4a8_gemm_per_chn", args[1], outs[1])))
+    st, dest, be, M, R, used = chip_smoke._routed_stream(dev, g)
+    mix = chip_smoke.MIXTRAL_8X7B
+    for name, K, N in (("routed gate_up", mix["hidden_size"], 2 * mix["intermediate_size"]),
+                       ("routed down", mix["intermediate_size"], mix["hidden_size"])):
+        a = torch.zeros(M, K, dtype=torch.int8, device=dev)
+        a[dest] = torch.randint(-128, 128, (R, K), generator=g, device=dev,
+                                dtype=torch.int8)
+        live = torch.zeros(M, 1, device=dev)
+        live[dest] = 1
+        asc = torch.rand(M, 1, generator=g, device=dev) * 0.05 * live
+        asum = torch.randn(M, 1, generator=g, device=dev) * live
+        qw = torch.randint(-128, 128, (8, K // 2, N), generator=g, device=dev,
+                           dtype=torch.int8)
+        s1 = torch.rand(8, N, generator=g, device=dev) * 1e-3
+        sz = torch.rand(8, N, generator=g, device=dev) * 8e-3
+        outs = [torch.empty(M, N, dtype=torch.bfloat16, device=dev) for _ in range(2)]
+        p = [t.data_ptr() for t in (a, qw, s1, sz, asc, asum, be)]
+        args = [(*p, o.data_ptr(), M, N, K, 256, _build.stream()) for o in outs]
+        cases.append((f"{name} M={M} ({R} live) K={K} N={N}",
+                      (a, qw, asc, asum, s1, sz, be),
+                      ("qs_w4a8_gemm_per_chn_routed", args[0], outs[0]),
+                      ("qs_w4a8_gemm_per_chn_routed", args[1], outs[1])))
+    return cases
+
+
+def k8_cases(dev):
+    """K8 (csrc/w4a8_gemm_per_group.cu, still on the mma.sync loop) at
+    Llama-3-8B's gate_up and qkv, g128, random bytes (both trees wrap the
+    same way): its straddle repair must cost it nothing."""
+    import torch
+
+    import chip_smoke
+    from qserve_tpu_torch.kernels import _build
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    cfg = chip_smoke.LLAMA3_8B
+    E, I = cfg["hidden_size"], cfg["intermediate_size"]
+    kv = E // cfg["num_attention_heads"] * cfg["num_key_value_heads"]
+    cases, G = [], 128
+    for M, name, (K, N) in ((64, "gate_up", (E, 2 * I)), (2048, "gate_up", (E, 2 * I)),
+                            (2048, "qkv", (E, E + 2 * kv))):
+        def i8(*shape):
+            return torch.randint(-128, 128, shape, generator=g, device=dev,
+                                 dtype=torch.int8)
+        a, qw, s2, z2 = i8(M, K), i8(K // 2, N), i8(K // G, N), i8(K // G, N)
+        s1 = torch.rand(N, generator=g, device=dev) * 1e-3
+        asc = torch.rand(M, 1, generator=g, device=dev) * 0.05
+        outs = [torch.empty(M, N, dtype=torch.bfloat16, device=dev) for _ in range(2)]
+        p = [t.data_ptr() for t in (a, qw, s2, z2, s1, asc)]
+        args = [(*p, o.data_ptr(), 0, M, N, K, G, _build.stream()) for o in outs]
+        cases.append((f"{name} M={M} K={K} N={N} G={G}", (a, qw, s2, z2, s1, asc),
+                      ("qs_w4a8_gemm_per_group", args[0], outs[0]),
+                      ("qs_w4a8_gemm_per_group", args[1], outs[1])))
+    return cases
+
+
+def kernels(opts):
+    import torch
+
+    import chip_smoke
+    from qserve_tpu_torch.kernels import _build, gemm, paged_attention
+
+    P, I, F = _build.P, _build.I, _build.F
+    k4_parent_args = [P] * 3 + [I] + [P] * 5 + [I] * 7 + [F, I, P]
+    dev = "cuda"
+    here = os.path.join(ROOT, CSRC)
+    trees = [("change", here)] + ([("parent", os.path.join(opts.parent, CSRC))]
+                                  if opts.parent else [])
+    libs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        started = [(tree, stem, build(tmp, f"{tree}-{stem}", csrc, stem))
+                   for tree, csrc in trees
+                   for stem in ("paged_attention", "w4a8_gemm", "w4a8_gemm_per_group")]
+        started += [(name, stem, build(tmp, f"v{i}-{stem}", here, stem, edits))
+                     for i, (name, (stem, edits)) in enumerate(VARIANTS.items())]
+        for tree, stem, (so, proc) in started:  # all nvcc at once
+            out = proc.communicate()[0]
+            assert proc.returncode == 0, f"{tree} {stem}: nvcc failed\n{out}"
+            libs[(tree, stem)] = ctypes.CDLL(so)
+
+        def fn(tree, stem, name, argtypes):
+            f = getattr(libs[(tree, stem)], name)
+            f.argtypes, f.restype = argtypes, ctypes.c_int
+            return f
+
+        calls = {}  # (kernel, tag, variant) -> call
+        wrote = {}  # (kernel, tag, variant) -> the output tensor it writes
+        ref = {}  # (kernel, tag) -> the parent's output
+        k4_variants = [v for v, (stem, _) in VARIANTS.items() if stem == "paged_attention"]
+        k2_variants = [v for v, (stem, _) in VARIANTS.items() if stem == "w4a8_gemm"]
+        # the cases hold the tensors behind every pointer: keep them alive
+        k4, k2, k8 = k4_cases(dev), k2_cases(dev), k8_cases(dev)
+        for tag, keep, change, parent, outs in k4:
+            qs, k, v, mask = keep[-1]
+            calls[("K4", tag, "SDPA (library)")] = (
+                lambda qs=qs, k=k, v=v, mask=mask: torch.nn.functional
+                .scaled_dot_product_attention(qs, k, v, attn_mask=mask, enable_gqa=True)
+                is None)
+            labels = list(change)  # the first is the change as the wrapper runs it
+            for tree in ["change"] + k4_variants:
+                f = fn(tree, "paged_attention", "qs_paged_decode_attention",
+                       paged_attention._ARGS)
+                for label in (labels if tree == "change" else labels[:1]):
+                    key = ("K4", tag, label if tree == "change" else f"{tree} {label}")
+                    calls[key] = lambda f=f, a=change[label]: f(*a)
+                    wrote[key] = outs[0]
+            if opts.parent:
+                fp = fn("parent", "paged_attention", "qs_paged_decode_attention",
+                        k4_parent_args)
+                calls[("K4", tag, "parent")] = lambda f=fp, a=parent: f(*a)
+                ref[("K4", tag)] = outs[1]
+        argtypes = {"qs_w4a8_gemm_per_chn": gemm._ARGS,
+                    "qs_w4a8_gemm_per_chn_routed": gemm._ARGS_ROUTED}
+        for tag, _, (name, args, out), (pname, pargs, pout) in k2:
+            for tree in ["change"] + k2_variants:
+                f = fn(tree, "w4a8_gemm", name, argtypes[name])
+                calls[("K2", tag, tree)] = lambda f=f, a=args: f(*a)
+                wrote[("K2", tag, tree)] = out
+            if opts.parent:
+                f = fn("parent", "w4a8_gemm", pname, argtypes[pname])
+                calls[("K2", tag, "parent")] = lambda f=f, a=pargs: f(*a)
+                ref[("K2", tag)] = pout
+        for tag, _, (name, args, out), (_, pargs, pout) in k8:
+            f = fn("change", "w4a8_gemm_per_group", name, gemm._ARGS_GROUP)
+            calls[("K8", tag, "change")] = lambda f=f, a=args: f(*a)
+            wrote[("K8", tag, "change")] = out
+            if opts.parent:
+                f = fn("parent", "w4a8_gemm_per_group", name, gemm._ARGS_GROUP)
+                calls[("K8", tag, "parent")] = lambda f=f, a=pargs: f(*a)
+                ref[("K8", tag)] = pout
+        # the parent's outputs first, then each of the change's against them;
+        # a call that fails its check is reported and not timed
+        failed = []
+        for key in sorted(calls, key=lambda k: k[2] != "parent"):
+            assert calls[key]() == 0, key
+            torch.cuda.synchronize()
+            want = ref.get(key[:2])
+            if key[2] == "parent" or want is None or key not in wrote:
+                continue
+            try:
+                if key[0] in ("K2", "K8"):
+                    assert torch.equal(wrote[key], want), "differs from the parent"
+                else:
+                    chip_smoke.hold(f"{key}: vs the parent", wrote[key], want, 1e-3)
+            except AssertionError as e:
+                print(f"FAILED {key}: {e}", flush=True)
+                failed.append(key)
+                del calls[key]
+        times = {key: [] for key in calls}
+        keys = list(calls)
+        for r in range(opts.rounds):  # parent, change, change, parent, ...
+            for key in (keys if r % 2 else keys[::-1]):
+                times[key].append(device_ms(calls[key]))
+    print(smi())
+    if failed:
+        print(f"{len(failed)} calls failed their check: {failed}")
+    for (kernel, tag, variant), t in times.items():
+        print(f"{kernel} {tag:30s} {variant:34s} {statistics.median(t):.4g} ms "
+              f"(median of {len(t)} rounds; min {min(t):.4g}, max {max(t):.4g})",
+              flush=True)
+    return 1 if failed else 0
+
+
+def steps(opts):
+    tree = os.path.abspath(opts.tree or ROOT)
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    import chip_smoke  # this script's tree: only its model configs are read
+    from qserve_tpu_torch.engine.arg_utils import EngineArgs
+    from qserve_tpu_torch.sampling_params import SamplingParams
+
+    print(f"steps of {tree} on {smi()}", flush=True)
+
+    def run(tag, cfg, prompts, max_tokens):
+        t0 = time.perf_counter()
+        engine = EngineArgs(hf_config=cfg, random_weights=True, seed=0, device="cuda",
+                            block_size=256, max_num_batched_tokens=2048,
+                            max_num_seqs=64).build_engine()
+        print(f"  {tag}: engine built in {time.perf_counter() - t0:.1f} s", flush=True)
+        rng = np.random.default_rng(0)
+        for i, n in enumerate(prompts):
+            engine.add_request(
+                f"{tag}{i}", prompt_token_ids=rng.integers(0, cfg["vocab_size"], int(n)).tolist(),
+                sampling_params=SamplingParams(max_tokens=max_tokens, ignore_eos=True))
+        host, dev = {}, {}
+        while engine.has_unfinished_requests():
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            e0.record()
+            engine.step()
+            e1.record()
+            torch.cuda.synchronize()
+            kind = engine.last_step_kind
+            host.setdefault(kind, []).append((time.perf_counter() - t) * 1e3)
+            dev.setdefault(kind, []).append(e0.elapsed_time(e1))
+        for kind in host:
+            print(f"  {tag} {kind}: {len(host[kind])} steps, host ms "
+                  f"{[round(x, 2) for x in host[kind][:4]]} (median "
+                  f"{statistics.median(host[kind]):.4g}), device ms median "
+                  f"{statistics.median(dev[kind]):.4g}", flush=True)
+        del engine
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    lens = np.random.default_rng(0).integers(128, 1025, 8)  # chip_smoke path a
+    run("llama3-8b w4a8kv4", chip_smoke.LLAMA3_8B, lens, 32)
+    run("mixtral-8x7b w4a8kv4", chip_smoke.MIXTRAL_8X7B, [2000, 2000], 4)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="another checkout whose K4 and K2 to time beside these")
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--steps", action="store_true", help="time engine steps instead")
+    ap.add_argument("--tree", help="steps mode: the checkout whose engine to run")
+    opts = ap.parse_args()
+    if opts.steps:
+        steps(opts)
+        return 0
+    sys.path.insert(0, ROOT)
+    return kernels(opts)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

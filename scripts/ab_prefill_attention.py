@@ -29,9 +29,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 
@@ -39,8 +37,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
-
-CSRC = os.path.join("qserve_tpu_torch", "kernels", "csrc")
+from ab_common import CSRC, build, smi  # noqa: E402
 
 CUTS = {
     "no_convert": [("if (it < n1) {\n      // packed codes -> bf16 codes",
@@ -55,30 +52,6 @@ CUTS = {
     "four_warps": [("constexpr int WARPS = 8;", "constexpr int WARPS = 4;")],
     "three_stages": [("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")],
 }
-
-
-def build(out_dir, name, csrc, stem, cuts=()):
-    """Writes the variant (its source with the cuts, and csrc's headers)
-    under out_dir/name and starts its nvcc. Returns (.so path, process)."""
-    from qserve_tpu_torch.kernels import _build
-
-    d = os.path.join(out_dir, name)
-    os.makedirs(d)
-    for f in os.listdir(csrc):
-        if f.endswith(".cuh"):
-            shutil.copy(os.path.join(csrc, f), d)
-    with open(os.path.join(csrc, stem + ".cu")) as f:
-        src = f.read()
-    for a, b in cuts:
-        assert src.count(a) == 1, (name, a)
-        src = src.replace(a, b)
-    cu = os.path.join(d, stem + ".cu")
-    with open(cu, "w") as f:
-        f.write(src)
-    so = os.path.join(d, stem + ".so")
-    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return so, proc
 
 
 def k3_cases(dev):
@@ -159,9 +132,7 @@ def main():
         for _ in range(opts.rounds):
             for key, call in calls.items():
                 times[key].append(chip_smoke.cuda_ms(call, warmup=2))
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    print(smi())
     for (name, tag), t in times.items():
         print(f"{name:17s} {tag:27s} {statistics.median(t):.4g} ms (median of {len(t)} "
               f"rounds; min {min(t):.4g}, max {max(t):.4g})", flush=True)

@@ -236,7 +236,7 @@ def test_router_shift_from_bf16_p(precision, group_size, monkeypatch):
     args = llama.LlamaArgs(quant=quant, vocab_size=512, hidden_size=256,
                            intermediate_size=512, num_layers=2, num_heads=4,
                            num_kv_heads=2, head_dim=64, num_experts=4, moe_top_k=2,
-                           moe_route_block=64, moe_route_min_tokens=16)
+                           moe_route_block=128, moe_route_min_tokens=16)
     params = mixtral.random_quantized_params(0, args, device="cpu")
     T, ps, lens = 64, 16, [37, 20]
     rng = np.random.default_rng(7)
@@ -274,3 +274,109 @@ def test_router_shift_from_bf16_p(precision, group_size, monkeypatch):
           f"of their range")
     assert 0 < moved < ROUTER_ATOL
     assert rel <= 0.05
+
+
+# ---------------------------------------------------------------------------
+# K4 (csrc/paged_attention.cu): flash-decoding. Each (sequence, kv head)'s
+# history, from the 64-key chunk holding its first visible key, is cut into
+# ns runs of whole chunks; each run keeps its own online softmax in the code
+# domain (q.k = sc (q.c) + zp sum(q) with raw codes: KV4 n, KV8 u; PV as
+# (p * v_scale) . c plus sum(p * v_zero), all f32); the runs and the current
+# token then merge as finish_rows does. K4 is held to one bf16 step plus
+# 1e-3 of the largest output on the card.
+# ---------------------------------------------------------------------------
+
+K4_FLOOR = 1e-3
+
+
+def paged_arith(q, cache, bt, ctx, li, k_cur, v_cur, kv_bits, sm, window, ns):
+    B, Hq, D = q.shape
+    H = k_cur.shape[1]
+    rep = Hq // H
+    layer = cache.layer(li)
+    ps = layer.page_size
+    out = torch.zeros(B, Hq, D)
+    for b in range(B):
+        hist = max(int(ctx[b]) - 1, 0)
+        kbeg = max(0, hist - window + 1) if window else 0
+        a0 = kbeg // BK * BK
+        nch = -(-(hist - a0) // BK)
+        per = -(-nch // ns)
+        for h in range(H):
+            qf = q[b, h * rep:(h + 1) * rep].float()  # [rep, D]
+            qsum = qf.sum(-1)
+            states = []
+            for split in range(ns):
+                cs = a0 + split * per * BK
+                ce = min(hist, cs + per * BK)
+                m = torch.full((rep,), NEG_INF)
+                l, z, acc = torch.zeros(rep), torch.zeros(rep), torch.zeros(rep, D)
+                for c0 in range(cs, ce, BK):
+                    s_ = torch.arange(c0, min(c0 + BK, ce))
+                    s_ = s_[s_ >= kbeg]
+                    if len(s_) == 0:
+                        continue
+                    pages = bt[b, s_ // ps].long()
+                    d = layer.data[pages, :, s_ % ps].int()[:, :, h * D * kv_bits // 8:
+                                                            (h + 1) * D * kv_bits // 8]
+                    if kv_bits == 4:
+                        d = d & 0xFF
+                        codes = torch.cat([d & 0xF, d >> 4], -1).float()
+                    else:
+                        codes = (d + 128).float()
+                    sc = layer.scales[pages, :, :, s_ % ps].float()  # [n, 2, 2H]
+                    ksc, kzp, vsc, vzp = sc[:, 0, h], sc[:, 0, H + h], sc[:, 1, h], sc[:, 1, H + h]
+                    s = sm * (ksc * (qf @ codes[:, 0].T) + kzp * qsum[:, None])  # [rep, n]
+                    mn = torch.maximum(m, s.amax(-1))
+                    alpha = torch.exp(m - mn)
+                    p = torch.exp(s - mn[:, None])
+                    l = l * alpha + p.sum(-1)
+                    z = z * alpha + (p * vzp).sum(-1)
+                    acc = acc * alpha[:, None] + (p * vsc) @ codes[:, 1]
+                    m = mn
+                states.append((m, l, acc + z[:, None]))
+            sc_cur = sm * (qf @ k_cur[b, h].float())  # [rep]
+            mx = torch.stack([sc_cur] + [st[0] for st in states]).amax(0)
+            pc = torch.exp(sc_cur - mx)
+            num = pc[:, None] * v_cur[b, h].float()[None]
+            den = pc.clone()
+            for m, l, o in states:
+                w = torch.exp(m - mx)
+                num = num + w[:, None] * o
+                den = den + w * l
+            out[b, h * rep:(h + 1) * rep] = num / den[:, None]
+    return out.to(torch.bfloat16)
+
+
+def _k4_within(got, want):
+    got, want = got.float(), want.float()
+    limit = 2.0**-7 * want.abs() + K4_FLOOR * want.abs().max()
+    return bool(((got - want).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("kv_bits,H,rep", [(4, 8, 2), (4, 2, 4), (8, 8, 2), (8, 4, 1)])
+@pytest.mark.parametrize("window", [None, 70])
+@pytest.mark.parametrize("ns", [1, 3])
+def test_paged_arith(ns, window, kv_bits, H, rep):
+    """K4's split-and-merge order against the plain version (its chip limit)
+    and the JAX fallback (ATOL), one and three splits, KV4 and KV8, bf16 and
+    f32 scales (H 2, 4), a window across chunk edges."""
+    L, P, ps, D = 2, 12, 16, 32
+    B, Hq = 5, H * rep
+    cache, jcache = _filled_cache(L, P, H, ps, D, seed=H + ns, kv_bits=kv_bits)
+    bt = np.array([[3, 1, 7, 10, 4, 6, 2, 8, 0, 5], [0, 2, 0, 0, 0, 0, 0, 0, 0, 0],
+                   [5, 0, 0, 0, 0, 0, 0, 0, 0, 0], [9, 8, 6, 11, 1, 0, 0, 0, 0, 0],
+                   [0] * 10], np.int32)
+    ctx = np.array([158, 17, 1, 70, 0], np.int32)  # 157 and 69 history keys
+    (qt, qj), (kt, kj), (vt, vj) = (_bf16((B, h, D), s) for s, h in
+                                    ((3, Hq), (4, H), (5, H)))
+    sm = 1.0 / D**0.5
+    got = paged_arith(qt, cache, torch.from_numpy(bt), ctx, 1, kt, vt, kv_bits, sm,
+                      window, ns)
+    plain = tattn.paged_decode_attention_plain(
+        qt, cache, torch.from_numpy(bt), torch.from_numpy(ctx), 1, kt, vt, kv_bits,
+        sm, window)
+    assert _k4_within(got, plain)
+    want = jattn.paged_decode_attention(qj, jcache, jnp.asarray(bt), jnp.asarray(ctx),
+                                        1, kj, vj, kv_bits, sliding_window=window)
+    np.testing.assert_allclose(to_np(got), np.asarray(want, np.float32), atol=ATOL)

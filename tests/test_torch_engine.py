@@ -227,6 +227,36 @@ def test_decodes_ride_along_with_chunk_steps(pair):
     assert engine.scheduler.block_manager.get_num_free_device_pages() == 64
 
 
+def test_decode_table_is_as_wide_as_the_longest_history(pair, monkeypatch):
+    """The decode and mixed steps hand K4 a block table as wide as the
+    batch's longest history, not max_model_len's (K4 sizes its split of
+    each history by that width), and still serve the same tokens."""
+    from qserve_tpu_torch.models import llama as tllama
+
+    _, _, targs, tparams = pair
+    seen = []
+
+    def spy(fn, table_at, ctx_at):
+        def wrapped(*a, **kw):
+            seen.append((a[table_at].shape[1], int(a[ctx_at].max())))
+            return fn(*a, **kw)
+        return wrapped
+
+    prompts = _prompts(3, seed=4) + [list(range(1, 70))]
+    kw = dict(temperature=0.0, max_tokens=6, ignore_eos=True)
+    sched = dict(max_num_batched_tokens=32, enable_chunked_prefill=True)
+    want = _run(_port_engine(targs, tparams, **sched), prompts, SamplingParams, **kw)
+    monkeypatch.setattr(tllama, "decode", spy(tllama.decode, 3, 4))
+    monkeypatch.setattr(tllama, "prefill_chunk_with_decode",
+                        spy(tllama.prefill_chunk_with_decode, 11, 12))
+    engine = _port_engine(targs, tparams, max_model_len=1024, **sched)
+    assert engine.worker.model_runner.max_pages_per_seq == 1024 // BS
+    assert _run(engine, prompts, SamplingParams, **kw) == want
+    assert len(seen) > 6
+    for width, longest in seen:
+        assert width == -(-longest // BS), (width, longest)
+
+
 def test_prefix_pos_compute_skip(pair):
     """A second request sharing a computed prefix is served by a chunk step
     that starts at the prefix's end: the prefix is marked computed, fewer
@@ -331,6 +361,11 @@ def test_benchmark_labels_steps_by_what_the_scheduler_emitted(pair, tmp_path):
     dict(tensor_parallel_size=2),
     dict(data_parallel_size=2),
     dict(random_weights=False),
+    dict(benchmarking=True),
+    dict(quant_path="packed.safetensors"),
+    dict(tokenizer="tok"),
+    dict(tokenizer_mode="slow"),
+    dict(img_per_seq=2),
 ])
 def test_engine_args_refuse_unported(kw):
     args = dict(hf_config=_hf_config(), random_weights=True, device="cpu",
@@ -407,3 +442,48 @@ def test_engine_args_default_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             EngineArgs(hf_config=_hf_config(), random_weights=True,
                        num_device_pages=16).build_engine()
+
+
+def test_cli_takes_the_jax_packages_flags():
+    """The JAX benchmark's documented command line (and every flag of
+    qserve_tpu's EngineArgs) parses on the port's benchmark parser; the
+    flags without meaning here are accepted and left at their values."""
+    import argparse
+
+    from qserve_tpu.engine.arg_utils import EngineArgs as JEngineArgs
+    from qserve_tpu_torch.entrypoints import benchmark
+
+    argv = ["--model", "cfgdir", "--random-weights", "--precision", "w4a8kv4",
+            "--benchmarking"]
+    a = benchmark.add_args(argparse.ArgumentParser()).parse_args(argv)
+    ea = EngineArgs.from_cli_args(a)
+    assert ea.model == "cfgdir" and ea.random_weights and ea.benchmarking
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, the runner's "
+                                                  "benchmarking device-feed mode"):
+        ea._refuse_unported()
+    # every option string of the JAX parser is one of the port's
+    jp, tp = argparse.ArgumentParser(), argparse.ArgumentParser()
+    JEngineArgs.add_cli_args(jp)
+    EngineArgs.add_cli_args(tp)
+    jopts = {o for act in jp._actions for o in act.option_strings}
+    topts = {o for act in tp._actions for o in act.option_strings}
+    assert jopts <= topts, sorted(jopts - topts)
+    ignored = ["--model", "m", "--no-ifb-mode", "--no-scan-layers",
+               "--profiling-prompt-len", "8", "--profiling-generation-len", "4",
+               "-pp", "2", "--trust-remote-code"]
+    ea = EngineArgs.from_cli_args(tp.parse_args(ignored))
+    ea.random_weights = True  # the ignored flags alone refuse nothing
+    ea._refuse_unported()
+    assert not ea.ifb_mode and not ea.scan_layers and ea.pipeline_parallel_size == 2
+
+
+def test_num_gpu_page_blocks_env(monkeypatch):
+    """NUM_GPU_PAGE_BLOCKS sets the page count unless --num-device-pages is
+    given, as in qserve_tpu."""
+    monkeypatch.setenv("NUM_GPU_PAGE_BLOCKS", "37")
+    cache_config, _ = EngineArgs().create_engine_configs()
+    assert cache_config.num_device_pages == 37
+    cache_config, _ = EngineArgs(num_device_pages=12).create_engine_configs()
+    assert cache_config.num_device_pages == 12
+    monkeypatch.delenv("NUM_GPU_PAGE_BLOCKS")
+    assert EngineArgs().create_engine_configs()[0].num_device_pages is None

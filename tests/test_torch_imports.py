@@ -61,6 +61,29 @@ def test_no_jax_import_in_source(path):
     assert not hits, hits
 
 
+def test_package_root_exports():
+    """`from qserve_tpu_torch import EngineArgs, LLMEngine, SamplingParams,
+    __version__` works, as from qserve_tpu, and leaves JAX, the JAX package
+    and triton out (subprocess: tests/conftest.py has imported JAX here)."""
+    code = (
+        "import sys\n"
+        "from qserve_tpu_torch import EngineArgs, LLMEngine, SamplingParams, __version__\n"
+        "import qserve_tpu_torch\n"
+        "assert qserve_tpu_torch.__all__ == ['EngineArgs', 'LLMEngine', "
+        "'SamplingParams', '__version__']\n"
+        "assert EngineArgs().precision == 'w4a8kv4' and SamplingParams().n == 1\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'qserve_tpu', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print('ok', __version__)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok 0.1.0")
+
+
 def test_scan_pattern():
     assert FORBIDDEN.search("from qserve_tpu.kernels import ops")
     assert FORBIDDEN.search("    import jax.numpy as jnp")

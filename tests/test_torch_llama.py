@@ -493,3 +493,27 @@ def test_precision_random_quantized_params_shapes(name):
     inputs, _, _ = _prefill_inputs()
     logits, _ = tllama.prefill(p, tkv, *map(torch.from_numpy, inputs), args)
     assert logits.shape == (2, args.vocab_size) and torch.isfinite(logits).all()
+
+
+def test_head_dim_96_logits():
+    """A 2-layer model with head_dim 96 (KV4 rows of 48 bytes: three 16-byte
+    granules, the D = 96 instances of K3, K4 and K6 on the card): prefill and
+    two decode steps match the JAX package's logits within ATOL."""
+    jargs, jparams, targs, tparams = tiny_pair(head_dim=96)
+    args = (targs.num_layers, 8, targs.num_kv_heads, PS, targs.head_dim)
+    tkv = tkvc.create_kv_cache(*args, device="cpu")
+    jkv = jkvc.create_kv_cache(*args)
+    assert tkv.data.shape[-1] == targs.num_kv_heads * 48
+    inputs, tables, lens = _prefill_inputs()
+    tl, tkv = tllama.prefill(tparams, tkv, *map(torch.from_numpy, inputs), targs)
+    jl, jkv = jllama.prefill(jparams, jkv, *map(jnp.asarray, inputs), jargs)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    bt = np.array([tables[0], [tables[1][0], 0]], np.int32)
+    tok = np.asarray(jl).argmax(-1).astype(np.int32)
+    for step in range(2):
+        ctx = np.array([lens[0] + 1 + step, lens[1] + 1 + step], np.int32)
+        tl, tkv = tllama.decode(tparams, tkv, *map(torch.from_numpy, (tok, bt, ctx)),
+                                targs)
+        jl, jkv = jllama.decode(jparams, jkv, *map(jnp.asarray, (tok, bt, ctx)), jargs)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+        tok = np.asarray(jl).argmax(-1).astype(np.int32)

@@ -327,7 +327,7 @@ def _wrapper_calls():
             torch.ones(2, dtype=i32), torch.zeros(2, 2, 64, **bf),
             torch.zeros(2, 2, 64, **bf), 0.125),
         "w4a8_gemm_per_chn_routed": lambda: gemm.w4a8_gemm_per_chn_routed(
-            torch.zeros(128, 128, dtype=i8), torch.ones(128, 1), torch.zeros(128, 1),
+            torch.zeros(256, 128, dtype=i8), torch.ones(256, 1), torch.zeros(256, 1),
             torch.zeros(4, 64, 64, dtype=i8), torch.ones(4, 64), torch.zeros(4, 64),
             torch.zeros(2, dtype=i32)),
         "w4a8_gemm_per_group_routed": lambda: gemm.w4a8_gemm_per_group_routed(
@@ -359,11 +359,12 @@ def test_kernel_wrapper_refuses_cpu_tensors(name):
 
 def test_per_group_wrapper_refuses_groups_it_cannot_tile():
     """A k step of the kernel is 32 packed rows of each nibble plane: the
-    group size must be a multiple of 32 and divide K/2."""
+    group size must be a multiple of 32 and divide K (a group may straddle
+    the planes)."""
     from qserve_tpu_torch.kernels import gemm
 
     i8 = torch.int8
-    for K, G in ((256, 48), (384, 128)):  # G % 32 != 0; (K/2) % G != 0
+    for K, G in ((256, 48), (320, 128)):  # G % 32 != 0; K % G != 0
         with pytest.raises(ValueError, match="group_size"):
             gemm.w4a8_gemm_per_group(
                 torch.zeros(4, K, dtype=i8), torch.ones(4, 1),
@@ -384,3 +385,108 @@ def test_routed_wrappers_refuse_blocks_they_cannot_tile(M, nb):
             torch.zeros(M, 128, dtype=i8), torch.ones(M, 1),
             torch.zeros(4, 128, 64, dtype=i8), torch.ones(4, 64),
             torch.zeros(nb, dtype=i32))
+
+
+@pytest.mark.parametrize("M,nb", [(128, 2), (192, 1), (256, 0)])
+def test_routed_k2_refuses_blocks_of_less_than_its_tile(M, nb):
+    """K2's routed form runs its 128-row wgmma tile: a 64-row block (which
+    K8 and K9 take) is refused before any tensor is looked at."""
+    from qserve_tpu_torch.kernels import gemm
+
+    i8, i32 = torch.int8, torch.int32
+    with pytest.raises(ValueError, match="% 128"):
+        gemm.w4a8_gemm_per_chn_routed(
+            torch.zeros(M, 128, dtype=i8), torch.ones(M, 1), torch.zeros(M, 1),
+            torch.zeros(4, 64, 64, dtype=i8), torch.ones(4, 64), torch.zeros(4, 64),
+            torch.zeros(nb, dtype=i32))
+
+
+@pytest.mark.parametrize("K,G", [(192, 64), (896, 128)])  # K/2 % G: 32, 64
+def test_per_group_straddling_groups(K, G):
+    """Groups that straddle the nibble planes (K/2 % G != 0; Qwen2-0.5B's
+    hidden 896 at g128): the dense and routed wrappers' shape checks take
+    them (the CPU tensors are then refused as such), and the plain version
+    equals the JAX package's reference bit for bit."""
+    from qserve_tpu_torch.kernels import gemm
+
+    N, M, i8 = 64, 5, torch.int8
+    with pytest.raises(ValueError, match="CUDA"):
+        gemm.w4a8_gemm_per_group(
+            torch.zeros(4, K, dtype=i8), torch.ones(4, 1),
+            torch.zeros(K // 2, N, dtype=i8), torch.ones(K // G, N, dtype=i8),
+            torch.zeros(K // G, N, dtype=i8), torch.ones(N), G)
+    with pytest.raises(ValueError, match="CUDA"):
+        gemm.w4a8_gemm_per_group_routed(
+            torch.zeros(128, K, dtype=i8), torch.ones(128, 1),
+            torch.zeros(2, K // 2, N, dtype=i8), torch.ones(2, K // G, N, dtype=i8),
+            torch.zeros(2, K // G, N, dtype=i8), torch.ones(2, N),
+            torch.zeros(2, dtype=torch.int32), G)
+    w = (np.random.default_rng(K).standard_normal((K, N)) * 0.05).astype(np.float32)
+    p = jlin.quantize_linear_from_float(jnp.asarray(w), 4, G)
+    qj, sj = _quant_act(M, K, 14)
+    ref = jqoq.PerGroupW4(jpack.unpack_w4(p.qweight), p.s2_scale, p.s2_zero,
+                          p.s1_scale)
+    want = jqoq.w4a8_gemm_per_group_ref(qj, sj, ref, G)
+    got = tops.w4a8_gemm_per_group(*map(to_torch, (qj, sj, *p)), G)
+    np.testing.assert_array_equal(to_np(got), np.asarray(want, np.float32))
+
+
+def _byte_perm(x, y, s):
+    """CUDA's __byte_perm on uint32 numpy arrays (s: one selector or one a
+    lane): byte i of the result is byte (s >> 4i) & 7 of y:x."""
+    xy = (x.astype(np.uint64) | (y.astype(np.uint64) << np.uint64(32)))
+    s = np.broadcast_to(np.asarray(s, np.uint64), xy.shape)
+    out = np.zeros(xy.shape, np.uint64)
+    for i in range(4):
+        sel = (s >> np.uint64(4 * i)) & np.uint64(7)
+        out |= ((xy >> (np.uint64(8) * sel)) & np.uint64(0xFF)) << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def k2_stage_unpack(wtile):
+    """csrc/w4a8_gemm.cu's unpack, all 256 threads at once: one step's packed
+    rows uint8 [32, 128] -> the K-major tile wgmma reads, as bytes in its
+    no-swizzle layout, returned as [128 n][64 k]."""
+    t = np.arange(256)
+    warp, lane = t >> 5, t & 31
+    rq = (lane >> 3) + 4 * (warp & 1)
+    cq = ((warp >> 1) * 4 + ((lane >> 1) & 3)) * 2 + (lane & 1)
+    f = (lane >> 1) & 3
+    rot = (f & 3) | (((f + 1) & 3) << 4) | (((f + 2) & 3) << 8) | (((f + 3) & 3) << 12)
+    words = wtile.reshape(32, 32, 4).copy().view(np.uint32)[..., 0]  # [row, word]
+    x = [_byte_perm(words[4 * rq + i, cq], np.zeros(256, np.uint32), rot)
+         for i in range(4)]
+    t01l, t01h = _byte_perm(x[0], x[1], 0x5140), _byte_perm(x[0], x[1], 0x7362)
+    t23l, t23h = _byte_perm(x[2], x[3], 0x5140), _byte_perm(x[2], x[3], 0x7362)
+    col = [_byte_perm(t01l, t23l, 0x5410), _byte_perm(t01l, t23l, 0x7632),
+           _byte_perm(t01h, t23h, 0x5410), _byte_perm(t01h, t23h, 0x7632)]
+
+    def kmajor(r, k):
+        return (r >> 3) * 512 + (k >> 4) * 128 + (r & 7) * 16 + (k & 15)
+
+    bs = np.zeros(128 * 64, np.uint8)
+    seen = np.zeros(128 * 64 // 4, np.int32)
+    for jj in range(4):
+        o = kmajor(4 * cq + ((jj + f) & 3), 4 * rq)
+        for off, val in ((o, col[jj] & 0x0F0F0F0F), (o + 256, (col[jj] >> 4) & 0x0F0F0F0F)):
+            # a warp's 32 stores land on 32 distinct banks
+            banks = (off // 4) % 32
+            assert all(len(set(banks[w * 32:(w + 1) * 32])) == 32 for w in range(8))
+            bs.view(np.uint32)[off // 4] = val
+            np.add.at(seen, off // 4, 1)
+    assert (seen == 1).all()  # every word of the tile written once
+    n, k = np.meshgrid(np.arange(128), np.arange(64), indexing="ij")
+    return bs[kmajor(n, k)]
+
+
+def test_k2_stage_unpack_is_the_half_split_unpack():
+    """K2's byte transpose and nibble split over random bytes: column n of
+    the tile holds Wq[s*32 + k, n] for k < 32 and Wq[K/2 + s*32 + k - 32, n]
+    above, as the JAX package's quant/packing unpack gives them."""
+    K, N = 256, 128
+    packed = np.random.default_rng(5).integers(-128, 128, (K // 2, N)).astype(np.int8)
+    wq = np.asarray(jpack.unpack_w4(jnp.asarray(packed)))  # [K, N]
+    for s in range(K // 64):
+        tile = k2_stage_unpack(packed[s * 32:(s + 1) * 32].view(np.uint8))
+        want = np.concatenate([wq[s * 32:(s + 1) * 32], wq[K // 2 + s * 32:K // 2 + (s + 1) * 32]])
+        np.testing.assert_array_equal(tile, want.T.astype(np.uint8))
