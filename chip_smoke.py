@@ -21,14 +21,16 @@
    and, K6, a 512-row last chunk over a 4096 prefix; paged decode also at
    B = 1 and 8 over 4096-8192 keys; the three attention kernels at head
    dims 96 and 256; the W4A8 GEMMs at Qwen2-0.5B's widths, whose hidden 896
-   puts a g128 group across the nibble planes, and K2 at a ragged N) against
-   its plain
+   puts a g128 group across the nibble planes; K2, K8 and K9, which share
+   one wgmma main loop on 128x128 tiles, also at a ragged N (a 64-column
+   tail tile) and M = 8) against its plain
    PyTorch version on the same inputs, with the tolerance stated in the
    phase (the attention kernels per element, shown to fail without one
    64-key tile); times the kernel, the plain version and, where one exists,
    one PyTorch library call computing the same function (CUDA events,
    median of 20). The build report counts the tensor-core instructions in
-   the SASS of K3, K6 and K2 and fails on none (K2: none of wgmma's).
+   the SASS of K3, K6 and the three GEMM libraries (K2, K8, K9) and fails
+   on none; the GEMMs must show wgmma's (IGMMA) and no mma.sync (IMMA).
 3. Reference phase: a small model served by the kernels on the card and by
    the plain versions on the CPU (prefill, decode, one chunk step, one mixed
    chunk+decode step) at W4A8KV4 per-channel, W4A8KV4 g128, W4A8KV8 g128
@@ -304,7 +306,10 @@ def phase_elementwise(res, dev):
 
 def phase_gemm(res, dev):
     """K2, K8 and K9 against their plain versions, bit for bit: integer
-    products, then the same f32 epilogue in the same order."""
+    products, then the same f32 epilogue in the same order. All three run
+    gemm_common.cuh's wgmma loop (128x128 tiles); they differ in the B stage
+    (K2 unpacks nibbles, K8 also rebuilds q * s2 + z2, K9 transposes int8)
+    and the epilogue."""
     import torch
 
     from qserve_tpu_torch.kernels import ops
@@ -363,16 +368,17 @@ def phase_gemm(res, dev):
     # Llama-2-7B's o is the 8B's; its down is the ragged one: 43 groups a
     # nibble plane.
     # Qwen2-0.5B at g128: K = 896 puts group 3 across the nibble planes
-    # (K/2 = 448 = 3.5 groups)
+    # (K/2 = 448 = 3.5 groups); a ragged N's last tile is 64 columns wide
     G = 128
     group_shapes = dict(shapes, **{f"llama2_7b_{n}": s
                                    for n, s in linears(LLAMA2_7B).items() if n != "o"},
-                        **{f"qwen2_0.5b_{n}": s for n, s in linears(QWEN2_05B).items()})
+                        **{f"qwen2_0.5b_{n}": s for n, s in linears(QWEN2_05B).items()},
+                        ragged_n=(4096, 1088))
     for name, (K, N) in group_shapes.items():
         p = lin.quantize_linear_from_float(weight(K, N), 4, G)
         w8 = qoq.pergroup_level2_int8(
             qoq.PerGroupW4(packing.unpack_w4(p.qweight), *p[1:]), G)
-        for M in (64, 2048):
+        for M in (64, 2048) + ((8,) if name in ("gate_up", "ragged_n") else ()):
             a, asc = acts(M, K)
             args = (a, asc, *p, G)
             err = check("w4a8_gemm_per_group", f"{name} M={M}",
@@ -407,9 +413,11 @@ def phase_gemm(res, dev):
     log("  w4a8_gemm_per_group [random bytes qkv M=64]: equal to the plain version")
     del p
 
-    # K9: the four linears in bf16 and the W8 lm_head in f32
+    # K9: the four linears in bf16, also at M = 8 and a ragged N, and the W8
+    # lm_head in f32
     V = LLAMA3_8B["vocab_size"]
-    w8_shapes = [(n, k, nn, torch.bfloat16, (64, 2048)) for n, (k, nn) in shapes.items()]
+    w8_shapes = [(n, k, nn, torch.bfloat16, (64, 2048, 8))
+                 for n, (k, nn) in dict(shapes, ragged_n=(4096, 1088)).items()]
     w8_shapes.append(("lm_head", E, V, torch.float32, (64,)))
     for name, K, N, out_dtype, Ms in w8_shapes:
         p = lin.quantize_linear_from_float(weight(K, N), 8)
@@ -456,9 +464,11 @@ def phase_gemm_routed(res, dev):
     """The routed K2, K8 and K9 against their plain versions, bit for bit,
     at Mixtral-8x7B's gate_up (K 4096, N 28672) and down (K 14336, N 4096)
     over a stream laid out by a real top-2 routing (uneven counts, pad rows,
-    an all-pad tail), and the per-group one at the ragged K = 11008. Beside
-    each: the dense kernel at the same M on one expert's weights (no single
-    PyTorch call computes a grouped int8 product: library null)."""
+    an all-pad tail), and the per-group one at the ragged K = 11008. All
+    three run the dense kernels' wgmma loop on 128-row tiles, each block
+    reading its expert. Beside each: the dense kernel at the same M on one
+    expert's weights (no single PyTorch call computes a grouped int8
+    product: library null)."""
     import torch
 
     from qserve_tpu_torch.kernels import ops
@@ -1598,8 +1608,10 @@ def phase_refusal(dev):
 
 def build_report():
     """Builds every CUDA source, prints what ptxas reported for each, and
-    counts the tensor-core instructions (HMMA: mma.sync, HGMMA: wgmma) in
-    the SASS of the two prefill attention libraries: each must have some."""
+    counts the tensor-core instructions (HMMA / IMMA: bf16 / int8 mma.sync,
+    HGMMA / IGMMA: wgmma) in the SASS of the two prefill attention libraries,
+    which must have some, and of the three GEMM libraries, which must have
+    int8 wgmma and no mma.sync: one wgmma loop serves K2, K8 and K9."""
     import os
     import shutil
 
@@ -1619,19 +1631,20 @@ def build_report():
                     f"paged_attention spills: {line.strip()}"
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    for stem in ("flash_attention", "prefix_attention", "w4a8_gemm"):
+    gemms = ("w4a8_gemm", "w4a8_gemm_per_group", "w8a8_gemm")
+    for stem in ("flash_attention", "prefix_attention") + gemms:
         sass = subprocess.run([cuobjdump, "-sass", targets[stem]], capture_output=True,
                               text=True, timeout=300, check=True).stdout
         n = {op: sum(f" {op}." in line or f" {op} " in line for line in sass.splitlines())
              for op in ("HMMA", "HGMMA", "IMMA", "IGMMA")}
         log(f"  {stem} SASS: " + ", ".join(f"{v} {k}" for k, v in n.items())
             + " instructions")
-        assert n["HMMA"] + n["HGMMA"] > 0 or stem == "w4a8_gemm", \
-            f"{stem}: no tensor-core instruction in its SASS"
-        # K2's large-M loop is wgmma: its s8 products are warpgroup MMAs
-        # (HGMMA, or IGMMA as the integer form may be named)
-        assert n["HGMMA"] + n["IGMMA"] > 0 or stem != "w4a8_gemm", \
-            "w4a8_gemm: no wgmma instruction in its SASS"
+        if stem in gemms:  # s8 wgmma shows as IGMMA, s8 mma.sync as IMMA
+            assert n["IGMMA"] > 0, f"{stem}: no int8 wgmma instruction in its SASS"
+            assert n["IMMA"] == 0, f"{stem}: an int8 mma.sync loop is left in its SASS"
+        else:
+            assert n["HMMA"] + n["HGMMA"] > 0, \
+                f"{stem}: no tensor-core instruction in its SASS"
 
 
 def main() -> int:

@@ -1,7 +1,7 @@
 """K2, K8, K9: wrappers of the quantized GEMM kernels (csrc/w4a8_gemm.cu,
-csrc/w4a8_gemm_per_group.cu, csrc/w8a8_gemm.cu; shared main loop in
-csrc/gemm_common.cuh), and of their routed MoE forms (a second entry point
-in each source).
+csrc/w4a8_gemm_per_group.cu, csrc/w8a8_gemm.cu; one wgmma main loop on
+128x128 tiles in csrc/gemm_common.cuh), and of their routed MoE forms (a
+second entry point in each source).
 
 Replace qserve_tpu/kernels/pallas_gemm.py w4a8_gemm_per_chn_pallas and
 w4a8_gemm_per_chn_bigm_pallas (K2), w4a8_gemm_per_group_pallas and
@@ -153,14 +153,14 @@ def w8a8_gemm(
     return out
 
 
-def _route_rows(name: str, M: int, block_expert: torch.Tensor, tile: int = 64) -> int:
-    """Rows of one routed block: M / nb, a multiple of the kernel's row tile
-    (64 for K8 and K9, 128 for K2) so that no tile straddles two experts."""
+def _route_rows(name: str, M: int, block_expert: torch.Tensor) -> int:
+    """Rows of one routed block: M / nb, a multiple of the kernels' 128-row
+    tile (the wgmma loop's) so that no tile straddles two experts."""
     nb = block_expert.shape[0] if block_expert.dim() == 1 else 0
-    if nb == 0 or M % nb or (M // nb) % tile:
+    if nb == 0 or M % nb or (M // nb) % 128:
         raise ValueError(
             f"{name} needs block_expert [nb] with M % nb == 0 and "
-            f"(M / nb) % {tile} == 0 (M={M}, block_expert {tuple(block_expert.shape)})"
+            f"(M / nb) % 128 == 0 (M={M}, block_expert {tuple(block_expert.shape)})"
         )
     return M // nb
 
@@ -177,7 +177,7 @@ def w4a8_gemm_per_chn_routed(
     """bf16 [M, N]; rows of block b use expert block_expert[b]."""
     M, K = a_i8.shape
     NE, K2, N = qweight.shape
-    rows = _route_rows(NAME_ROUTED, M, block_expert, tile=128)
+    rows = _route_rows(NAME_ROUTED, M, block_expert)
     _build.check_operands((
         (a_i8, torch.int8, (M, K), "a_i8"),
         (a_scale, torch.float32, (M, 1), "a_scale"),

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Times K4 (qserve_tpu_torch/kernels/csrc/paged_attention.cu) and K2
-(csrc/w4a8_gemm.cu) as committed beside another checkout's, on one NVIDIA
-GPU, or the engine steps they carry. From the repo root:
+"""Times K4 (qserve_tpu_torch/kernels/csrc/paged_attention.cu) and the
+three quantized GEMMs, K2, K8 and K9 (csrc/w4a8_gemm.cu,
+w4a8_gemm_per_group.cu, w8a8_gemm.cu), as committed beside another
+checkout's, on one NVIDIA GPU, or the engine steps they carry. From the
+repo root:
 
     python3 scripts/ab_decode_gemm.py [--parent DIR] [--rounds N]
     python3 scripts/ab_decode_gemm.py --steps [--tree DIR]
@@ -19,20 +21,24 @@ keys, also under the block table that max_model_len 8K or 32K would give,
 as wide as the model runner no longer passes) with the wrapper's split
 count and with 2x and 4x that, beside SDPA over the dequantized history
 (chip_smoke.py's yardstick); K2 at Llama-3-8B's four linears at M = 64 and
-2048, its gate_up and down at M = 8, and routed at Mixtral-8x7B's gate_up
-and down over a 6144-row stream; K8 (csrc/w4a8_gemm_per_group.cu) at
-Llama-3-8B's gate_up and qkv, g128, bit for bit. DIR is another checkout, e.g. a `git
-archive` of the parent commit (its K4 entry point takes no split scratch:
-it is called with that signature, PR 5's).
+2048, its gate_up and down at M = 8; K8 (g128) at Llama-3-8B's gate_up at
+M = 64 and 2048 and its qkv at 2048; K9 at the gate_up at M = 8, 64 and
+2048 and the W8 lm_head (f32 logits) at M = 64; and the routed K2, K8 and
+K9 at Mixtral-8x7B's gate_up and down over a 6144-row stream of a real
+top-2 routing. The GEMMs are held bit for bit (random bytes: both trees
+wrap the same way). DIR is another checkout, e.g. a `git archive` of the
+parent commit (its K4 entry point takes no split scratch: it is called
+with that signature, PR 5's; the GEMMs' entry points are unchanged).
 
-Steps mode: the engine of the tree at DIR (default: this one) at full
-width and depth, random weights: Llama-3-8B W4A8KV4 per-channel serving
-chip_smoke.py's path a (8 prompts of 128-1024 tokens, 32 tokens out), then
-Mixtral-8x7B W4A8KV4 per-channel prefilling two 2000-token prompts, one
-step each (the first step of an engine carries its first-use costs: read
-the second); each step's host clock and its device time (CUDA events
-around the step's launches). Run it once per tree in one call to compare
-them.
+Steps mode: the engines of the tree at DIR (default: this one) at full
+width and depth, random weights: Llama-3-8B serving chip_smoke.py's path a
+traffic (8 prompts of 128-1024 tokens, 32 tokens out) at W4A8KV4
+per-channel (path a), W4A8KV4 g128 with the W8 lm_head (path c's
+precision) and W8A8KV8 (path e's), then Mixtral-8x7B prefilling two
+2000-token prompts, one step each, at the same three precisions (paths g,
+h, i; the first step of an engine carries its first-use costs: read the
+second); each step's host clock and its device time (CUDA events around
+the step's launches). Run it once per tree in one call to compare them.
 """
 
 from __future__ import annotations
@@ -54,15 +60,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VARIANTS = {
     "K4 4 stages": ("paged_attention", [("constexpr int STAGES = 3;",
                                          "constexpr int STAGES = 4;")]),
-    "K2 3 stages": ("w4a8_gemm", [("constexpr int WG_STAGES = 4;",
-                                   "constexpr int WG_STAGES = 3;")]),
-    "K2 N tiles fastest": ("w4a8_gemm", [
-        ("const int m0 = blockIdx.x * WG_BM, n0 = blockIdx.y * WG_BN;",
-         "const int m0 = blockIdx.y * WG_BM, n0 = blockIdx.x * WG_BN;"),
-        ("block_expert[(blockIdx.x * WG_BM) / route_rows]",
-         "block_expert[(blockIdx.y * WG_BM) / route_rows]"),
-        ("const dim3 grid((M + WG_BM - 1) / WG_BM, (N + WG_BN - 1) / WG_BN);",
-         "const dim3 grid((N + WG_BN - 1) / WG_BN, (M + WG_BM - 1) / WG_BM);")]),
+    # the level-2 reconstruction as four scalar multiply-adds a word (32 a
+    # thread a step) instead of two 16-bit-lane ones
+    "K8 scalar level2": ("w4a8_gemm_per_group", [(
+        "  return __byte_perm(even * s2 + zz, odd * s2 + zz, 0x6240);",
+        "  uint32_t r = 0;\n"
+        "#pragma unroll\n"
+        "  for (int b = 0; b < 4; ++b) {\n"
+        "    const uint32_t q = ((b & 1 ? odd : even) >> (16 * (b >> 1))) & 0xFF;\n"
+        "    r |= ((q * s2 + (zz & 0xFF)) & 0xFF) << (8 * b);\n"
+        "  }\n"
+        "  return r;")]),
 }
 
 
@@ -190,35 +198,114 @@ def k2_cases(dev):
     return cases
 
 
+def _gemm_case(tag, keep, entry, head, out_shape, tail, dtype):
+    """(tag, keep-alive, (entry, args, out) of the change, the same of the
+    parent): the pointers `head`, then an output, then `tail`."""
+    import torch
+
+    from qserve_tpu_torch.kernels import _build
+
+    outs = [torch.empty(out_shape, dtype=dtype, device=keep[0].device) for _ in range(2)]
+    args = [(*(t.data_ptr() for t in head), o.data_ptr(), *tail, _build.stream())
+            for o in outs]
+    return (tag, keep, (entry, args[0], outs[0]), (entry, args[1], outs[1]))
+
+
+def _stream_acts(dev, g, st, K):
+    """The routed stream's int8 rows (pad rows 0) and per-row scales (pad
+    rows 0), as chip_smoke.phase_gemm_routed lays them out."""
+    import torch
+
+    _, dest, _, M, R, _ = st
+    a = torch.zeros(M, K, dtype=torch.int8, device=dev)
+    a[dest] = torch.randint(-128, 128, (R, K), generator=g, device=dev, dtype=torch.int8)
+    live = torch.zeros(M, 1, device=dev)
+    live[dest] = 1
+    return a, torch.rand(M, 1, generator=g, device=dev) * 0.05 * live
+
+
 def k8_cases(dev):
-    """K8 (csrc/w4a8_gemm_per_group.cu, still on the mma.sync loop) at
-    Llama-3-8B's gate_up and qkv, g128, random bytes (both trees wrap the
-    same way): its straddle repair must cost it nothing."""
+    """K8 (csrc/w4a8_gemm_per_group.cu) at Llama-3-8B's gate_up (M = 64 and
+    2048) and qkv (2048), g128, and routed at Mixtral-8x7B's gate_up and
+    down; random bytes (both trees wrap the same way)."""
     import torch
 
     import chip_smoke
-    from qserve_tpu_torch.kernels import _build
 
     g = torch.Generator(device=dev).manual_seed(7)
-    cfg = chip_smoke.LLAMA3_8B
+    cfg, mix = chip_smoke.LLAMA3_8B, chip_smoke.MIXTRAL_8X7B
     E, I = cfg["hidden_size"], cfg["intermediate_size"]
     kv = E // cfg["num_attention_heads"] * cfg["num_key_value_heads"]
     cases, G = [], 128
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
     for M, name, (K, N) in ((64, "gate_up", (E, 2 * I)), (2048, "gate_up", (E, 2 * I)),
                             (2048, "qkv", (E, E + 2 * kv))):
-        def i8(*shape):
-            return torch.randint(-128, 128, shape, generator=g, device=dev,
-                                 dtype=torch.int8)
         a, qw, s2, z2 = i8(M, K), i8(K // 2, N), i8(K // G, N), i8(K // G, N)
         s1 = torch.rand(N, generator=g, device=dev) * 1e-3
         asc = torch.rand(M, 1, generator=g, device=dev) * 0.05
-        outs = [torch.empty(M, N, dtype=torch.bfloat16, device=dev) for _ in range(2)]
-        p = [t.data_ptr() for t in (a, qw, s2, z2, s1, asc)]
-        args = [(*p, o.data_ptr(), 0, M, N, K, G, _build.stream()) for o in outs]
-        cases.append((f"{name} M={M} K={K} N={N} G={G}", (a, qw, s2, z2, s1, asc),
-                      ("qs_w4a8_gemm_per_group", args[0], outs[0]),
-                      ("qs_w4a8_gemm_per_group", args[1], outs[1])))
+        head = (a, qw, s2, z2, s1, asc)
+        cases.append(_gemm_case(f"{name} M={M} K={K} N={N} G={G}", head,
+                                "qs_w4a8_gemm_per_group", head, (M, N), (0, M, N, K, G),
+                                torch.bfloat16))
+    st = chip_smoke._routed_stream(dev, g)
+    be, M, R, ne = st[2], st[3], st[4], mix["num_local_experts"]
+    for name, K, N in (("routed gate_up", E, 2 * mix["intermediate_size"]),
+                       ("routed down", mix["intermediate_size"], E)):
+        a, asc = _stream_acts(dev, g, st, K)
+        qw, s2, z2 = i8(ne, K // 2, N), i8(ne, K // G, N), i8(ne, K // G, N)
+        s1 = torch.rand(ne, N, generator=g, device=dev) * 1e-3
+        head = (a, qw, s2, z2, s1, asc, be)
+        cases.append(_gemm_case(f"{name} M={M} ({R} live) K={K} N={N} G={G}", head,
+                                "qs_w4a8_gemm_per_group_routed", head, (M, N),
+                                (M, N, K, G, 256), torch.bfloat16))
     return cases
+
+
+def k9_cases(dev):
+    """K9 (csrc/w8a8_gemm.cu) at Llama-3-8B's gate_up (M = 8, 64 and 2048)
+    and the W8 lm_head (f32 logits, M = 64), and routed at Mixtral-8x7B's
+    gate_up and down."""
+    import torch
+
+    import chip_smoke
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    cfg, mix = chip_smoke.LLAMA3_8B, chip_smoke.MIXTRAL_8X7B
+    E, I, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    cases = []
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    for M, name, N, dtype in ((8, "gate_up", 2 * I, torch.bfloat16),
+                              (64, "gate_up", 2 * I, torch.bfloat16),
+                              (2048, "gate_up", 2 * I, torch.bfloat16),
+                              (64, "lm_head f32", V, torch.float32)):
+        a, qw = i8(M, E), i8(E, N)
+        ws = torch.rand(N, generator=g, device=dev) * 1e-3
+        asc = torch.rand(M, 1, generator=g, device=dev) * 0.05
+        head = (a, qw, ws, asc)
+        cases.append(_gemm_case(f"{name} M={M} K={E} N={N}", head, "qs_w8a8_gemm", head,
+                                (M, N), (int(dtype == torch.float32), M, N, E), dtype))
+    st = chip_smoke._routed_stream(dev, g)
+    be, M, R, ne = st[2], st[3], st[4], mix["num_local_experts"]
+    for name, K, N in (("routed gate_up", E, 2 * mix["intermediate_size"]),
+                       ("routed down", mix["intermediate_size"], E)):
+        a, asc = _stream_acts(dev, g, st, K)
+        qw, ws = i8(ne, K, N), torch.rand(ne, N, generator=g, device=dev) * 1e-3
+        head = (a, qw, ws, asc, be)
+        cases.append(_gemm_case(f"{name} M={M} ({R} live) K={K} N={N}", head,
+                                "qs_w8a8_gemm_routed", head, (M, N), (M, N, K, 256),
+                                torch.bfloat16))
+    return cases
+
+
+# the GEMMs' sources and their cases
+GEMMS = {"K2": "w4a8_gemm", "K8": "w4a8_gemm_per_group", "K9": "w8a8_gemm"}
+CASES = {"K2": k2_cases, "K8": k8_cases, "K9": k9_cases}
 
 
 def kernels(opts):
@@ -237,7 +324,7 @@ def kernels(opts):
     with tempfile.TemporaryDirectory() as tmp:
         started = [(tree, stem, build(tmp, f"{tree}-{stem}", csrc, stem))
                    for tree, csrc in trees
-                   for stem in ("paged_attention", "w4a8_gemm", "w4a8_gemm_per_group")]
+                   for stem in ("paged_attention",) + tuple(GEMMS.values())]
         started += [(name, stem, build(tmp, f"v{i}-{stem}", here, stem, edits))
                      for i, (name, (stem, edits)) in enumerate(VARIANTS.items())]
         for tree, stem, (so, proc) in started:  # all nvcc at once
@@ -254,9 +341,10 @@ def kernels(opts):
         wrote = {}  # (kernel, tag, variant) -> the output tensor it writes
         ref = {}  # (kernel, tag) -> the parent's output
         k4_variants = [v for v, (stem, _) in VARIANTS.items() if stem == "paged_attention"]
-        k2_variants = [v for v, (stem, _) in VARIANTS.items() if stem == "w4a8_gemm"]
+        want = opts.kernels.split(",")
         # the cases hold the tensors behind every pointer: keep them alive
-        k4, k2, k8 = k4_cases(dev), k2_cases(dev), k8_cases(dev)
+        k4 = k4_cases(dev) if "K4" in want else []
+        gemm_cases = {k: CASES[k](dev) for k in GEMMS if k in want}
         for tag, keep, change, parent, outs in k4:
             qs, k, v, mask = keep[-1]
             calls[("K4", tag, "SDPA (library)")] = (
@@ -276,25 +364,25 @@ def kernels(opts):
                         k4_parent_args)
                 calls[("K4", tag, "parent")] = lambda f=fp, a=parent: f(*a)
                 ref[("K4", tag)] = outs[1]
+        # the C entry points' argument lists: the same in the parent
         argtypes = {"qs_w4a8_gemm_per_chn": gemm._ARGS,
-                    "qs_w4a8_gemm_per_chn_routed": gemm._ARGS_ROUTED}
-        for tag, _, (name, args, out), (pname, pargs, pout) in k2:
-            for tree in ["change"] + k2_variants:
-                f = fn(tree, "w4a8_gemm", name, argtypes[name])
-                calls[("K2", tag, tree)] = lambda f=f, a=args: f(*a)
-                wrote[("K2", tag, tree)] = out
-            if opts.parent:
-                f = fn("parent", "w4a8_gemm", pname, argtypes[pname])
-                calls[("K2", tag, "parent")] = lambda f=f, a=pargs: f(*a)
-                ref[("K2", tag)] = pout
-        for tag, _, (name, args, out), (_, pargs, pout) in k8:
-            f = fn("change", "w4a8_gemm_per_group", name, gemm._ARGS_GROUP)
-            calls[("K8", tag, "change")] = lambda f=f, a=args: f(*a)
-            wrote[("K8", tag, "change")] = out
-            if opts.parent:
-                f = fn("parent", "w4a8_gemm_per_group", name, gemm._ARGS_GROUP)
-                calls[("K8", tag, "parent")] = lambda f=f, a=pargs: f(*a)
-                ref[("K8", tag)] = pout
+                    "qs_w4a8_gemm_per_chn_routed": gemm._ARGS_ROUTED,
+                    "qs_w4a8_gemm_per_group": gemm._ARGS_GROUP,
+                    "qs_w4a8_gemm_per_group_routed": gemm._ARGS_GROUP_ROUTED,
+                    "qs_w8a8_gemm": gemm._ARGS_W8,
+                    "qs_w8a8_gemm_routed": gemm._ARGS_W8_ROUTED}
+        for kernel, cases in gemm_cases.items():
+            stem = GEMMS[kernel]
+            variants = [v for v, (st, _) in VARIANTS.items() if st == stem]
+            for tag, _, (name, args, out), (pname, pargs, pout) in cases:
+                for tree in ["change"] + variants:
+                    f = fn(tree, stem, name, argtypes[name])
+                    calls[(kernel, tag, tree)] = lambda f=f, a=args: f(*a)
+                    wrote[(kernel, tag, tree)] = out
+                if opts.parent:
+                    f = fn("parent", stem, pname, argtypes[pname])
+                    calls[(kernel, tag, "parent")] = lambda f=f, a=pargs: f(*a)
+                    ref[(kernel, tag)] = pout
         # the parent's outputs first, then each of the change's against them;
         # a call that fails its check is reported and not timed
         failed = []
@@ -305,7 +393,7 @@ def kernels(opts):
             if key[2] == "parent" or want is None or key not in wrote:
                 continue
             try:
-                if key[0] in ("K2", "K8"):
+                if key[0] in GEMMS:
                     assert torch.equal(wrote[key], want), "differs from the parent"
                 else:
                     chip_smoke.hold(f"{key}: vs the parent", wrote[key], want, 1e-3)
@@ -340,11 +428,11 @@ def steps(opts):
 
     print(f"steps of {tree} on {smi()}", flush=True)
 
-    def run(tag, cfg, prompts, max_tokens):
+    def run(tag, cfg, prompts, max_tokens, **precision):
         t0 = time.perf_counter()
         engine = EngineArgs(hf_config=cfg, random_weights=True, seed=0, device="cuda",
                             block_size=256, max_num_batched_tokens=2048,
-                            max_num_seqs=64).build_engine()
+                            max_num_seqs=64, **precision).build_engine()
         print(f"  {tag}: engine built in {time.perf_counter() - t0:.1f} s", flush=True)
         rng = np.random.default_rng(0)
         for i, n in enumerate(prompts):
@@ -375,13 +463,21 @@ def steps(opts):
         torch.cuda.empty_cache()
 
     lens = np.random.default_rng(0).integers(128, 1025, 8)  # chip_smoke path a
-    run("llama3-8b w4a8kv4", chip_smoke.LLAMA3_8B, lens, 32)
-    run("mixtral-8x7b w4a8kv4", chip_smoke.MIXTRAL_8X7B, [2000, 2000], 4)
+    precisions = (("w4a8kv4", dict(precision="w4a8kv4", group_size=-1)),
+                  ("w4a8kv4 g128", dict(precision="w4a8kv4", group_size=128)),
+                  ("w8a8kv8", dict(precision="w8a8kv8", group_size=-1)))
+    for tag, kw in precisions:  # paths a, c (with its W8 lm_head), e
+        run(f"llama3-8b {tag}", chip_smoke.LLAMA3_8B, lens, 32,
+            quant_lm_head=tag.endswith("g128"), **kw)
+    for tag, kw in precisions:  # paths g, h, i
+        run(f"mixtral-8x7b {tag}", chip_smoke.MIXTRAL_8X7B, [2000, 2000], 4, **kw)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="another checkout whose K4 and K2 to time beside these")
+    ap.add_argument("--parent", help="another checkout whose kernels to time beside these")
+    ap.add_argument("--kernels", default="K2,K4,K8,K9",
+                    help="kernel mode: which of K2, K4, K8, K9 to time")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--steps", action="store_true", help="time engine steps instead")
     ap.add_argument("--tree", help="steps mode: the checkout whose engine to run")

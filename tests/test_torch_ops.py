@@ -331,12 +331,12 @@ def _wrapper_calls():
             torch.zeros(4, 64, 64, dtype=i8), torch.ones(4, 64), torch.zeros(4, 64),
             torch.zeros(2, dtype=i32)),
         "w4a8_gemm_per_group_routed": lambda: gemm.w4a8_gemm_per_group_routed(
-            torch.zeros(128, 256, dtype=i8), torch.ones(128, 1),
+            torch.zeros(256, 256, dtype=i8), torch.ones(256, 1),
             torch.zeros(4, 128, 64, dtype=i8), torch.ones(4, 2, 64, dtype=i8),
             torch.zeros(4, 2, 64, dtype=i8), torch.ones(4, 64),
             torch.zeros(2, dtype=i32)),
         "w8a8_gemm_routed": lambda: gemm.w8a8_gemm_routed(
-            torch.zeros(128, 128, dtype=i8), torch.ones(128, 1),
+            torch.zeros(256, 128, dtype=i8), torch.ones(256, 1),
             torch.zeros(4, 128, 64, dtype=i8), torch.ones(4, 64),
             torch.zeros(2, dtype=i32)),
         "kv_append": lambda: kv_append.kv_append(
@@ -375,7 +375,7 @@ def test_per_group_wrapper_refuses_groups_it_cannot_tile():
 
 @pytest.mark.parametrize("M,nb", [(96, 6), (128, 3), (128, 0)])
 def test_routed_wrappers_refuse_blocks_they_cannot_tile(M, nb):
-    """A routed block must be a whole number of the kernels' 64-row tiles
+    """A routed block must be a whole number of the kernels' 128-row tiles
     (the CPU tests' 16-row blocks run only the plain versions)."""
     from qserve_tpu_torch.kernels import gemm
 
@@ -387,18 +387,36 @@ def test_routed_wrappers_refuse_blocks_they_cannot_tile(M, nb):
             torch.zeros(nb, dtype=i32))
 
 
-@pytest.mark.parametrize("M,nb", [(128, 2), (192, 1), (256, 0)])
-def test_routed_k2_refuses_blocks_of_less_than_its_tile(M, nb):
-    """K2's routed form runs its 128-row wgmma tile: a 64-row block (which
-    K8 and K9 take) is refused before any tensor is looked at."""
+def _routed_call(flavor, M, nb):
+    """One routed wrapper on CPU tensors with M rows in nb blocks."""
     from qserve_tpu_torch.kernels import gemm
 
-    i8, i32 = torch.int8, torch.int32
-    with pytest.raises(ValueError, match="% 128"):
-        gemm.w4a8_gemm_per_chn_routed(
+    i8, be = torch.int8, torch.zeros(nb, dtype=torch.int32)
+    if flavor == "per_chn":
+        return gemm.w4a8_gemm_per_chn_routed(
             torch.zeros(M, 128, dtype=i8), torch.ones(M, 1), torch.zeros(M, 1),
-            torch.zeros(4, 64, 64, dtype=i8), torch.ones(4, 64), torch.zeros(4, 64),
-            torch.zeros(nb, dtype=i32))
+            torch.zeros(4, 64, 64, dtype=i8), torch.ones(4, 64), torch.zeros(4, 64), be)
+    if flavor == "per_group":
+        return gemm.w4a8_gemm_per_group_routed(
+            torch.zeros(M, 256, dtype=i8), torch.ones(M, 1),
+            torch.zeros(4, 128, 64, dtype=i8), torch.ones(4, 2, 64, dtype=i8),
+            torch.zeros(4, 2, 64, dtype=i8), torch.ones(4, 64), be)
+    return gemm.w8a8_gemm_routed(
+        torch.zeros(M, 128, dtype=i8), torch.ones(M, 1),
+        torch.zeros(4, 128, 64, dtype=i8), torch.ones(4, 64), be)
+
+
+@pytest.mark.parametrize("flavor", ["per_chn", "per_group", "w8"])
+@pytest.mark.parametrize("M,nb", [(128, 2), (192, 1), (256, 0)])
+def test_routed_wrappers_refuse_blocks_of_less_than_their_tile(flavor, M, nb):
+    """K2's, K8's and K9's routed forms run the 128-row wgmma tile: a 64-row
+    block is refused before any tensor is looked at, and 128- and 256-row
+    blocks pass the check (the CPU tensors are then refused as such)."""
+    with pytest.raises(ValueError, match="% 128"):
+        _routed_call(flavor, M, nb)
+    for rows in (128, 256):
+        with pytest.raises(ValueError, match="CUDA"):
+            _routed_call(flavor, 2 * rows, 2)
 
 
 @pytest.mark.parametrize("K,G", [(192, 64), (896, 128)])  # K/2 % G: 32, 64
@@ -417,7 +435,7 @@ def test_per_group_straddling_groups(K, G):
             torch.zeros(K // G, N, dtype=i8), torch.ones(N), G)
     with pytest.raises(ValueError, match="CUDA"):
         gemm.w4a8_gemm_per_group_routed(
-            torch.zeros(128, K, dtype=i8), torch.ones(128, 1),
+            torch.zeros(256, K, dtype=i8), torch.ones(256, 1),
             torch.zeros(2, K // 2, N, dtype=i8), torch.ones(2, K // G, N, dtype=i8),
             torch.zeros(2, K // G, N, dtype=i8), torch.ones(2, N),
             torch.zeros(2, dtype=torch.int32), G)
@@ -443,40 +461,119 @@ def _byte_perm(x, y, s):
     return out.astype(np.uint32)
 
 
-def k2_stage_unpack(wtile):
-    """csrc/w4a8_gemm.cu's unpack, all 256 threads at once: one step's packed
-    rows uint8 [32, 128] -> the K-major tile wgmma reads, as bytes in its
-    no-swizzle layout, returned as [128 n][64 k]."""
+def _quad():
+    """gemm_common.cuh's Quad for all 256 threads: (rq, cq, f, rot)."""
     t = np.arange(256)
     warp, lane = t >> 5, t & 31
     rq = (lane >> 3) + 4 * (warp & 1)
     cq = ((warp >> 1) * 4 + ((lane >> 1) & 3)) * 2 + (lane & 1)
     f = (lane >> 1) & 3
     rot = (f & 3) | (((f + 1) & 3) << 4) | (((f + 2) & 3) << 8) | (((f + 3) & 3) << 12)
-    words = wtile.reshape(32, 32, 4).copy().view(np.uint32)[..., 0]  # [row, word]
+    return rq, cq, f, rot.astype(np.uint32)
+
+
+def _transpose(slab, quad):
+    """Quad::transpose: uint8 [32, 128] -> col[jj], uint32 [256] each."""
+    rq, cq, _, rot = quad
+    words = slab.reshape(32, 32, 4).copy().view(np.uint32)[..., 0]  # [row, word]
     x = [_byte_perm(words[4 * rq + i, cq], np.zeros(256, np.uint32), rot)
          for i in range(4)]
     t01l, t01h = _byte_perm(x[0], x[1], 0x5140), _byte_perm(x[0], x[1], 0x7362)
     t23l, t23h = _byte_perm(x[2], x[3], 0x5140), _byte_perm(x[2], x[3], 0x7362)
-    col = [_byte_perm(t01l, t23l, 0x5410), _byte_perm(t01l, t23l, 0x7632),
-           _byte_perm(t01h, t23h, 0x5410), _byte_perm(t01h, t23h, 0x7632)]
+    return [_byte_perm(t01l, t23l, 0x5410), _byte_perm(t01l, t23l, 0x7632),
+            _byte_perm(t01h, t23h, 0x5410), _byte_perm(t01h, t23h, 0x7632)]
 
-    def kmajor(r, k):
-        return (r >> 3) * 512 + (k >> 4) * 128 + (r & 7) * 16 + (k & 15)
 
+def _kmajor(r, k):
+    return (r >> 3) * 512 + (k >> 4) * 128 + (r & 7) * 16 + (k & 15)
+
+
+def _store_tile(quad, words):
+    """The stores of a convert: words[h][jj] (uint32 [256]) to Quad::offset(jj)
+    + 256 h of the K-major tile, in its no-swizzle layout; returned as
+    [128 n][64 k] bytes."""
+    rq, cq, f, _ = quad
     bs = np.zeros(128 * 64, np.uint8)
     seen = np.zeros(128 * 64 // 4, np.int32)
     for jj in range(4):
-        o = kmajor(4 * cq + ((jj + f) & 3), 4 * rq)
-        for off, val in ((o, col[jj] & 0x0F0F0F0F), (o + 256, (col[jj] >> 4) & 0x0F0F0F0F)):
+        o = _kmajor(4 * cq + ((jj + f) & 3), 4 * rq)
+        for h, half in enumerate(words):
+            off = o + 256 * h
             # a warp's 32 stores land on 32 distinct banks
             banks = (off // 4) % 32
             assert all(len(set(banks[w * 32:(w + 1) * 32])) == 32 for w in range(8))
-            bs.view(np.uint32)[off // 4] = val
+            bs.view(np.uint32)[off // 4] = half[jj]
             np.add.at(seen, off // 4, 1)
     assert (seen == 1).all()  # every word of the tile written once
     n, k = np.meshgrid(np.arange(128), np.arange(64), indexing="ij")
-    return bs[kmajor(n, k)]
+    return bs[_kmajor(n, k)]
+
+
+def k2_stage_unpack(wtile):
+    """csrc/w4a8_gemm.cu's StageW4::convert, all 256 threads at once: one
+    step's packed rows uint8 [32, 128] -> the K-major tile wgmma reads, as
+    [128 n][64 k]."""
+    quad = _quad()
+    col = _transpose(wtile, quad)
+    return _store_tile(quad, ([c & 0x0F0F0F0F for c in col],
+                              [(c >> 4) & 0x0F0F0F0F for c in col]))
+
+
+def k9_stage_transpose(wtile):
+    """csrc/w8a8_gemm.cu's StageW8::convert: one step's rows uint8 [64, 128]
+    -> the K-major tile, [128 n][64 k]."""
+    quad = _quad()
+    return _store_tile(quad, [_transpose(wtile[32 * h:32 * h + 32], quad) for h in (0, 1)])
+
+
+def k8_stage_level2(packed, s2, z2, G):
+    """csrc/w4a8_gemm_per_group.cu's StageW4Group over a whole [K/2, 128]
+    column tile, all 256 threads at once: K2's transpose, the per-word
+    (s2, z2) reconstruction and the per-plane group counters, each group's
+    words loaded one step ahead of their use. Returns W8 uint8 [K, 128]
+    from the K-major tiles."""
+    quad = _quad()
+    _, cq, f, _ = quad
+    K2 = packed.shape[0]
+    K = 2 * K2
+    s2w = s2.copy().view(np.uint32)  # [K/G, 32]: thread cq's 4 columns
+    z2w = z2.copy().view(np.uint32)
+    c = ((np.arange(4)[:, None] + f) & 3).astype(np.uint32)  # [jj, thread]
+    sel_s, sel_z = 0x4440 | c, 0x4040 | c | (c << 8)
+    st = dict(lo_g=0, hi_g=K2 // G, lo_next=0, hi_next=0)
+
+    def load(s):
+        r0 = 32 * s
+        if r0 == st["lo_next"]:
+            st["s2lo"], st["z2lo"] = s2w[st["lo_g"], cq], z2w[st["lo_g"], cq]
+            st["lo_g"] += 1
+            st["lo_next"] += G
+        if r0 == st["hi_next"]:
+            st["s2hi"], st["z2hi"] = s2w[st["hi_g"], cq], z2w[st["hi_g"], cq]
+            st["hi_g"] += 1
+            st["hi_next"] = st["hi_g"] * G - K2
+
+    def level2(even, odd, s, zz):
+        return _byte_perm(even * s + zz, odd * s + zz, 0x6240)
+
+    zero = np.zeros(256, np.uint32)
+    w8 = np.zeros((K, 128), np.uint8)
+    load(0)
+    for s in range(K // 64):
+        col = _transpose(packed[32 * s:32 * s + 32], quad)
+        halves = ([], [])
+        for jj, w in enumerate(col):
+            for h, (plane, shift) in enumerate((("lo", 0), ("hi", 4))):
+                sc = _byte_perm(st["s2" + plane], zero, sel_s[jj])
+                zz = _byte_perm(st["z2" + plane], zero, sel_z[jj])
+                halves[h].append(level2((w >> shift) & 0x000F000F,
+                                        (w >> (shift + 8)) & 0x000F000F, sc, zz))
+        if s + 1 < K // 64:
+            load(s + 1)
+        tile = _store_tile(quad, halves)
+        w8[32 * s:32 * s + 32] = tile[:, :32].T
+        w8[K2 + 32 * s:K2 + 32 * s + 32] = tile[:, 32:].T
+    return w8
 
 
 def test_k2_stage_unpack_is_the_half_split_unpack():
@@ -490,3 +587,43 @@ def test_k2_stage_unpack_is_the_half_split_unpack():
         tile = k2_stage_unpack(packed[s * 32:(s + 1) * 32].view(np.uint8))
         want = np.concatenate([wq[s * 32:(s + 1) * 32], wq[K // 2 + s * 32:K // 2 + (s + 1) * 32]])
         np.testing.assert_array_equal(tile, want.T.astype(np.uint8))
+
+
+def test_k9_stage_transpose_is_the_weight():
+    """K9's 64-row transpose over random bytes: column n of step s's tile
+    holds W[s*64 + k, n], W the [K, N] weight as the JAX package stores it."""
+    K, N = 256, 128
+    w = np.random.default_rng(6).integers(-128, 128, (K, N)).astype(np.int8)
+    for s in range(K // 64):
+        tile = k9_stage_transpose(w[s * 64:(s + 1) * 64].view(np.uint8))
+        np.testing.assert_array_equal(tile, w[s * 64:(s + 1) * 64].T.view(np.uint8))
+
+
+# (K, G): tiled (2 groups a nibble plane); Llama-2-7B's K = 11008 at g128
+# scaled down to g32 with the same 43 groups a plane; Qwen2-0.5B's hidden
+# 896 at g128 (K/2 = 448: group 3 straddles the planes)
+_K8_STAGE = {"tiled": (512, 128), "ragged": (2752, 32), "straddling": (896, 128)}
+
+
+@pytest.mark.parametrize("bytes_", ["quantizer", "random"])
+@pytest.mark.parametrize("shape", sorted(_K8_STAGE))
+def test_k8_stage_level2_is_the_level2_reconstruction(shape, bytes_):
+    """K8's transpose, per-word reconstruction and group counters give
+    int8(q * s2 + z2) of the JAX package's qoq.pergroup_level2_int8 of its
+    unpack, on the quantizer's lattice and off it (random bytes: s2 up to
+    255, sums that wrap mod 256)."""
+    K, G = _K8_STAGE[shape]
+    N = 128
+    r = np.random.default_rng(K + G)
+    if bytes_ == "quantizer":
+        w = jnp.asarray((r.standard_normal((K, N)) * 0.05).astype(np.float32))
+        p = jlin.quantize_linear_from_float(w, 4, G)
+        packed, s2, z2 = (np.asarray(x) for x in (p.qweight, p.s2_scale, p.s2_zero))
+    else:
+        packed, s2, z2 = (r.integers(-128, 128, sh).astype(np.int8)
+                          for sh in ((K // 2, N), (K // G, N), (K // G, N)))
+    want = jqoq.pergroup_level2_int8(
+        jqoq.PerGroupW4(jpack.unpack_w4(jnp.asarray(packed)), jnp.asarray(s2),
+                        jnp.asarray(z2), jnp.ones(N)), G)
+    got = k8_stage_level2(packed.view(np.uint8), s2.view(np.uint8), z2.view(np.uint8), G)
+    np.testing.assert_array_equal(got.view(np.int8), np.asarray(want))
