@@ -5,14 +5,17 @@
 
 1. Builds every CUDA kernel from qserve_tpu_torch/kernels/csrc (one nvcc
    per source, all at once) and prints what ptxas reported for each (paged
-   decode must not spill at any instance); the Triton kernel compiles at
-   its first launch.
+   decode must not spill at any instance).
 2. Kernel phases: each of the twelve kernels at the main paths' shapes
    (Llama-3-8B: decode B = 64, prefill and chunk T = 2048, context ~1024 and
-   a 4096-token prefix over 256-token pages, sampling at [64, 128256];
+   a 4096-token prefix over 256-token pages, sampling at [B, 128256] for
+   B = 64, 1, 8 and 16 (the engine's row counts), the fused norm/quant pass
+   at T = 2048, 64 and 1;
    Llama-2-7B: its qkv, gate_up and ragged K = 11008 down projections,
    SwiGLU at I = 11008, prefill, decode and chunk attention and the cache
-   append without GQA (32 kv heads), sampling at [64, 32000]; both cache
+   append without GQA (32 kv heads), sampling at [B, 32000]; the fused
+   norm/quant pass also at a width 2 short of a multiple of 8 and one of
+   70000 columns (a row in chunks); both cache
    modes, KV4 and KV8; plus small-H, D = 64, f32-scale and sliding-window
    cases; the three routed MoE GEMMs at Mixtral-8x7B's gate_up and down
    over a stream of M = 6144 rows in 24 blocks of 256, laid out by a real
@@ -28,7 +31,9 @@
    phase (the attention kernels per element, shown to fail without one
    64-key tile); times the kernel, the plain version and, where one exists,
    one PyTorch library call computing the same function (CUDA events,
-   median of 20). The build report counts the tensor-core instructions in
+   median of 20: one call's span, the host's launch in it); the fused
+   norm/quant pass and the sampler also by device time (20 back-to-back
+   calls captured in a CUDA graph and replayed). The build report counts the tensor-core instructions in
    the SASS of K3, K6 and the three GEMM libraries (K2, K8, K9) and fails
    on none; the GEMMs must show wgmma's (IGMMA) and no mma.sync (IMMA).
 3. Reference phase: a small model served by the kernels on the card and by
@@ -117,7 +122,7 @@ BF16_OPS = 989e12
 INT8_OPS = 1979e12
 
 ROUTES = {
-    "elementwise": ("triton", "qserve_tpu_torch/kernels/elementwise_triton.py",
+    "elementwise": ("cuda", "qserve_tpu_torch/kernels/csrc/elementwise.cu",
                     "qserve_tpu/kernels/pallas_elementwise.py:159"),
     "w4a8_gemm_per_chn": ("cuda", "qserve_tpu_torch/kernels/csrc/w4a8_gemm.cu",
                           "qserve_tpu/kernels/pallas_gemm.py:200"),
@@ -173,6 +178,35 @@ def cuda_ms(fn, iters=20, warmup=3):
     return statistics.median(ts)
 
 
+def device_ms(fn, n=20, replays=5):
+    """Device time of one call: n back-to-back calls captured in one CUDA
+    graph and replayed, timed by CUDA events, so the host's launch time
+    drops out even where it exceeds the kernel's (cuda_ms's one-call span
+    includes it)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (n * replays)
+
+
 def bound(nbytes, ops, peak):
     """Least time (ms) for the work: bytes over HBM rate vs ops over peak."""
     tb, to = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
@@ -188,8 +222,9 @@ class Results:
             **extra):
         b, by = bound(nbytes, ops, peak)
         lib = "null" if library_ms is None else f"{library_ms:.4g}"
-        more = "".join(f"  {k} {v:.4g}" for k, v in extra.items())
-        log(f"  {name} [{shape}]: max_abs_err {err:.3g}  kernel {ms:.4g} ms  "
+        labels = {"dev_ms": "device ms (20 back-to-back calls in a CUDA graph)"}
+        more = "".join(f"  {labels.get(k, k)} {v:.4g}" for k, v in extra.items())
+        log(f"  {name} [{shape}]: max_abs_err {err:.3g}  kernel {ms:.4g} ms (one call)  "
             f"plain {plain_ms:.4g} ms  library {lib} ms  bound {b:.3g} ms ({by}){more}")
         row = dict(shape=shape, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                    bound_ms=b, bound_by=by, library_ms=library_ms, **extra)
@@ -247,6 +282,14 @@ def has_teeth(tag, broken, want, floor):
 
 
 def phase_elementwise(res, dev):
+    """K1's four modes against their plain versions: h + delta equal, quant
+    codes exact, the norm and SiLU modes' codes within 1 and at most 1e-3 of
+    them differing (the sum of squares and the IEEE exp are taken in other
+    orders), scales within 1e-6. Timed at T = 2048 and 64 (Llama-3-8B's E
+    and I, Llama-2-7B's I) by one-call events (the host's launch included)
+    and over back-to-back calls (device time); held also at T = 1, at a
+    width 2 short of a multiple of 8 (the kernel's scalar tail) and at a
+    width past 65536 columns (a row in two chunks, three in mode 3)."""
     import torch
 
     from qserve_tpu_torch.kernels import ops
@@ -264,7 +307,16 @@ def phase_elementwise(res, dev):
         assert rel <= 1e-6, f"scale rel err {rel}"
         return d.max().item()
 
-    for T in (2048, 64):
+    def case(name, shape, err, fn, plain, nbytes, timed):
+        if not timed:
+            log(f"  elementwise [{name} {shape}]: max code err {err}")
+            return
+        res.add("elementwise", f"{name} {shape}", err, cuda_ms(fn), cuda_ms(plain),
+                nbytes, 0, BF16_OPS, None, dev_ms=device_ms(fn))
+
+    for T, E, widths, timed in ((2048, E, widths, True), (64, E, widths, True),
+                                (1, E, widths, False), (64, E - 2, (E - 2,), False),
+                                (8, 70000, (70000,), False)):
         h = torch.randn(T, E, generator=g, device=dev).to(torch.bfloat16)
         d = torch.randn(T, E, generator=g, device=dev).to(torch.bfloat16)
         w = 1 + 0.1 * torch.randn(E, generator=g, device=dev)
@@ -272,36 +324,33 @@ def phase_elementwise(res, dev):
         want = ops.add_rmsnorm_quant_plain(h, d, w, 1e-5, True)
         assert torch.equal(got[0], want[0]), "h + delta differs"
         err = check_codes(got[1:], want[1:], exact=False)
-        nbytes = 3 * T * E * 2 + E * 4 + T * E + 8 * T
-        res.add("elementwise", f"add_rmsnorm_quant T={T} E={E}", err,
-                cuda_ms(lambda: ops.add_rmsnorm_quant(h, d, w, 1e-5, True)),
-                cuda_ms(lambda: ops.add_rmsnorm_quant_plain(h, d, w, 1e-5, True)),
-                nbytes, 0, BF16_OPS, None)
+        case("add_rmsnorm_quant", f"T={T} E={E}", err,
+             lambda: ops.add_rmsnorm_quant(h, d, w, 1e-5, True),
+             lambda: ops.add_rmsnorm_quant_plain(h, d, w, 1e-5, True),
+             3 * T * E * 2 + E * 4 + T * E + 8 * T, timed)
 
         x = torch.randn(T, E, generator=g, device=dev).to(torch.bfloat16)
         err = check_codes(ops.quant_per_token(x, True),
                           ops.quant_per_token_plain(x, True), exact=True)
-        res.add("elementwise", f"quant T={T} K={E}", err,
-                cuda_ms(lambda: ops.quant_per_token(x, True)),
-                cuda_ms(lambda: ops.quant_per_token_plain(x, True)),
-                T * E * 2 + T * E + 8 * T, 0, BF16_OPS, None)
+        case("quant", f"T={T} K={E}", err, lambda: ops.quant_per_token(x, True),
+             lambda: ops.quant_per_token_plain(x, True), T * E * 2 + T * E + 8 * T, timed)
 
         # rmsnorm_quant: the same kernel body, off the main paths
         err = check_codes(ops.rmsnorm_quant(x, w, 1e-5, True),
                           ops.rmsnorm_quant_plain(x, w, 1e-5, True), exact=False)
-        res.add("elementwise", f"rmsnorm_quant T={T} E={E}", err,
-                cuda_ms(lambda: ops.rmsnorm_quant(x, w, 1e-5, True)),
-                cuda_ms(lambda: ops.rmsnorm_quant_plain(x, w, 1e-5, True)),
-                T * E * 2 + E * 4 + T * E + 8 * T, 0, BF16_OPS, None)
+        case("rmsnorm_quant", f"T={T} E={E}", err,
+             lambda: ops.rmsnorm_quant(x, w, 1e-5, True),
+             lambda: ops.rmsnorm_quant_plain(x, w, 1e-5, True),
+             T * E * 2 + E * 4 + T * E + 8 * T, timed)
 
         for I in widths:
             gu = (2 * torch.randn(T, 2 * I, generator=g, device=dev)).to(torch.bfloat16)
             err = check_codes(ops.silu_mul_quant(gu, True),
                               ops.silu_mul_quant_plain(gu, True), exact=False)
-            res.add("elementwise", f"silu_mul_quant T={T} I={I}", err,
-                    cuda_ms(lambda: ops.silu_mul_quant(gu, True)),
-                    cuda_ms(lambda: ops.silu_mul_quant_plain(gu, True)),
-                    T * 2 * I * 2 + T * I + 8 * T, 0, BF16_OPS, None)
+            case("silu_mul_quant", f"T={T} I={I}", err,
+                 lambda: ops.silu_mul_quant(gu, True),
+                 lambda: ops.silu_mul_quant_plain(gu, True),
+                 T * 2 * I * 2 + T * I + 8 * T, timed)
 
 
 def phase_gemm(res, dev):
@@ -884,6 +933,41 @@ def phase_prefix(res, dev):
                     qs, kf, vf, attn_mask=mask, enable_gqa=True)))
 
 
+def sampler_rows(dev, g, B, V):
+    """B rows of logits over V and each row's (temperature, top_p, top_k)
+    and kind, the index into `kinds` below."""
+    import torch
+
+    logits = 3 * torch.randn(B, V, generator=g, device=dev)
+    # rows cycle through: greedy, raw temperature, top-k 50, top-p 0.9, both,
+    # top-k 1, and top-k 50 with four-way ties at the 50th value; one row
+    # alone is "both"
+    kinds = [(0.0, 1.0, 0), (0.8, 1.0, 0), (0.8, 1.0, 50), (0.7, 0.9, 0),
+             (0.8, 0.9, 50), (1.0, 1.0, 1), (0.8, 1.0, 50)]
+    kind = [4] if B == 1 else [i % 7 for i in range(B)]
+    temp = torch.tensor([kinds[c][0] for c in kind])
+    top_p = torch.tensor([kinds[c][1] for c in kind])
+    top_k = torch.tensor([kinds[c][2] for c in kind], dtype=torch.int32)
+    tie_rows = [r for r in range(B) if kind[r] == 6]
+    for r in tie_rows:  # ranks 50..53 share one value: all four are kept
+        order = logits[r].argsort(descending=True)
+        logits[r, order[50:53]] = logits[r, order[49]].item()
+    return logits, temp, top_p, top_k, kind
+
+
+def sampler_operands(dev, temp, top_p, top_k, V):
+    """What the layer hands the kernel for these rows: (p_eff, k_in) as the
+    plain version takes them, (k_eff, p_t) as the kernel does."""
+    import torch
+
+    sampling = temp > 0
+    filtered = sampling & ((top_k > 0) | (top_p < 1.0))
+    p_eff = torch.where(filtered, top_p, 1.0).to(dev)
+    k_in = torch.where(filtered, top_k, 0).to(dev)
+    k_eff = torch.where(k_in <= 0, V, k_in).to(torch.int32)
+    return p_eff, k_in, k_eff, p_eff.clamp(min=1e-9)
+
+
 def _sampler_case(res, dev, B, V):
     import torch
 
@@ -891,31 +975,19 @@ def _sampler_case(res, dev, B, V):
     from qserve_tpu_torch.layers import sampler
 
     g = torch.Generator(device=dev).manual_seed(7)
-    logits = 3 * torch.randn(B, V, generator=g, device=dev)
-    # rows cycle through: greedy, raw temperature, top-k 50, top-p 0.9, both,
-    # top-k 1, and top-k 50 with four-way ties at the 50th value
-    kinds = [(0.0, 1.0, 0), (0.8, 1.0, 0), (0.8, 1.0, 50), (0.7, 0.9, 0),
-             (0.8, 0.9, 50), (1.0, 1.0, 1), (0.8, 1.0, 50)]
-    temp = torch.tensor([kinds[i % 7][0] for i in range(B)])
-    top_p = torch.tensor([kinds[i % 7][1] for i in range(B)])
-    top_k = torch.tensor([kinds[i % 7][2] for i in range(B)], dtype=torch.int32)
-    tie_rows = list(range(6, B, 7))
-    for r in tie_rows:  # ranks 50..53 share one value: all four are kept
-        order = logits[r].argsort(descending=True)
-        logits[r, order[50:53]] = logits[r, order[49]].item()
+    logits, temp, top_p, top_k, kind = sampler_rows(dev, g, B, V)
+    tie_rows = [r for r in range(B) if kind[r] == 6]
     noise = -torch.log(-torch.log(
         torch.rand(B, V, generator=g, device=dev).clamp(min=2.0**-24)))
 
     # the plain version's pieces, on the card
     sampling = temp > 0
-    filtered = sampling & ((top_k > 0) | (top_p < 1.0))
-    p_eff = torch.where(filtered, top_p, 1.0).to(dev)
-    k_in = torch.where(filtered, top_k, 0).to(dev)
+    p_eff, k_in, k_eff, p_t = sampler_operands(dev, temp, top_p, top_k, V)
     scaled = logits / temp.clamp(min=1e-6).to(dev)[:, None]
     kept = sampler.threshold_mask(scaled, p_eff, k_in) > -1e29
     sizes = kept.sum(-1)
     assert all(int(sizes[r]) == 53 for r in tie_rows), "ties at the k-th value"
-    assert all(int(sizes[r]) == 1 for r in range(5, B, 7))
+    assert all(int(sizes[r]) == 1 for r in range(B) if kind[r] == 5)
     plain = sampler.sample_filtered_plain(scaled, p_eff, k_in, noise).to(torch.int32)
     want = torch.where(sampling.to(dev), plain, logits.argmax(-1).to(torch.int32))
 
@@ -927,8 +999,6 @@ def _sampler_case(res, dev, B, V):
 
     # 2. the kernel's own generator: draws stay in the kept sets, reach more
     # than the mode, and repeat for the same (seed, offset)
-    k_eff = torch.where(k_in <= 0, V, k_in).to(torch.int32)
-    p_t = p_eff.clamp(min=1e-9)
     rows = torch.arange(B, device=dev)
     draws = torch.stack([
         ksampler.sample_filtered(scaled, k_eff, p_t, True, True, seed=11, offset=i)
@@ -940,13 +1010,17 @@ def _sampler_case(res, dev, B, V):
     assert bool((distinct[wide] > 1).all()) and bool((distinct[~wide] == 1).all())
     again = ksampler.sample_filtered(scaled, k_eff, p_t, True, True, seed=11, offset=7)
     assert torch.equal(again, draws[7]), "same (seed, offset), other tokens"
-    other = ksampler.sample_filtered(scaled, k_eff, p_t, True, True, seed=12, offset=7)
-    assert not torch.equal(other, draws[7]), "the seed does not reach the draw"
+    # another seed over the same 300 offsets: at B = 1 one offset's draw
+    # can repeat by chance
+    other = torch.stack([
+        ksampler.sample_filtered(scaled, k_eff, p_t, True, True, seed=12, offset=i)
+        for i in range(300)])
+    assert not torch.equal(other, draws), "the seed does not reach the draw"
     # 3. the draw follows the kept set's softmax: 64 copies of one row,
     # top-k 8, 300 draws each -> 19200 samples, each frequency within 0.02
-    one = scaled[2:3].expand(B, V).contiguous()
-    k8 = torch.full((B,), 8, dtype=torch.int32, device=dev)
-    p1 = torch.ones(B, device=dev)
+    one = (3 * torch.randn(1, V, generator=g, device=dev) / 0.8).expand(64, V).contiguous()
+    k8 = torch.full((64,), 8, dtype=torch.int32, device=dev)
+    p1 = torch.ones(64, device=dev)
     many = torch.stack([
         ksampler.sample_filtered(one, k8, p1, True, False, seed=5, offset=i)
         for i in range(300)]).flatten().long()
@@ -958,25 +1032,36 @@ def _sampler_case(res, dev, B, V):
     log(f"  V={V} own generator: 300 draws in the kept sets, {int(distinct.max())} distinct "
         f"tokens at most per row; top-8 frequencies within {ferr:.3g} of softmax")
 
-    res.add("sample_filtered",
-            f"B={B} V={V} rows: greedy, temperature, top-k 50, top-p 0.9, both, "
-            f"top-k 1, ties", float(n_diff),
-            cuda_ms(lambda: ksampler.sample_filtered(
-                scaled, k_eff, p_t, True, True, seed=3, offset=1)),
-            cuda_ms(lambda: sampler.sample_filtered_plain(scaled, p_eff, k_in, noise),
-                    iters=5, warmup=1),
-            B * V * 4 + 12 * B, 0, BF16_OPS, None)
-    res.add("sample_filtered", f"B={B} V={V} with a noise operand", float(n_diff),
-            cuda_ms(lambda: ksampler.sample_filtered(
-                scaled, k_eff, p_t, True, True, noise=noise)),
-            cuda_ms(lambda: sampler.sample_filtered_plain(scaled, p_eff, k_in, noise),
-                    iters=5, warmup=1),
-            2 * B * V * 4 + 12 * B, 0, BF16_OPS, None)
+    def own():
+        return ksampler.sample_filtered(scaled, k_eff, p_t, True, True, seed=3, offset=1)
+
+    def with_noise():
+        return ksampler.sample_filtered(scaled, k_eff, p_t, True, True, noise=noise)
+
+    rows = ("both" if B == 1 else
+            "greedy, temperature, top-k 50, top-p 0.9, both, top-k 1, ties")
+    split = ksampler.cluster_split(V)
+    for tag, fn, nbytes in (("", own, B * V * 4 + 12 * B),
+                            (" with a noise operand", with_noise, 2 * B * V * 4 + 12 * B)):
+        # the noise operand: each kept column's noise read, not the whole row
+        if tag:
+            nbytes = B * V * 4 + int(sizes.sum()) * 4 + 12 * B
+        res.add("sample_filtered",
+                f"B={B} V={V} rows: {rows}{tag}; cluster {split.cluster} x "
+                f"{split.slice} columns", float(n_diff),
+                cuda_ms(fn),
+                cuda_ms(lambda: sampler.sample_filtered_plain(scaled, p_eff, k_in, noise),
+                        iters=5, warmup=1),
+                nbytes, 0, BF16_OPS, None, dev_ms=device_ms(fn))
 
 
 def phase_sampler(res, dev):
-    for cfg in (LLAMA3_8B, LLAMA2_7B):
-        _sampler_case(res, dev, 64, cfg["vocab_size"])
+    """K7 at the engine's row counts (1, 8, 16) and at B = 64, over
+    Llama-3-8B's and Llama-2-7B's vocabularies; B = 64 at 128256 first, the
+    headline row."""
+    for B in (64, 1, 8, 16):
+        for cfg in (LLAMA3_8B, LLAMA2_7B):
+            _sampler_case(res, dev, B, cfg["vocab_size"])
 
 
 # --------------------------------------------------------------------------
@@ -1716,6 +1801,7 @@ def main() -> int:
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
+            dev_ms=r.get("dev_ms"),
         ))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
 """qserve_tpu_torch: the PyTorch/CUDA port of qserve_tpu for NVIDIA Hopper.
 
 A W4A8KV4 serving engine (continuous batching over a paged 4-bit KV cache)
-whose kernels are hand-written for sm_90a (kernels/csrc/*.cu, and Triton
-for the elementwise fusions). Importing the package loads no kernel and no
+whose kernels are hand-written for sm_90a in CUDA C++ (kernels/csrc/*.cu,
+built by nvcc at first use). Importing the package loads no kernel and no
 JAX: kernels build at first use on the card, and CPU tensors take each op's
 plain PyTorch version.
 

@@ -153,6 +153,9 @@ F = ctypes.c_float
 
 
 def stream() -> int:
+    """PyTorch's current CUDA stream of the current device, as a raw handle
+    (the call every launch makes: the raw getter skips building a Stream
+    object)."""
     import torch
 
-    return torch.cuda.current_stream().cuda_stream
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())

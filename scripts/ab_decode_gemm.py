@@ -416,61 +416,68 @@ def kernels(opts):
     return 1 if failed else 0
 
 
+def run_steps(tag, cfg, prompts, max_tokens, **precision):
+    """Serves `prompts` (token counts, random ids) on a fresh engine of the
+    imported tree at full width and depth, random weights; prints each step
+    kind's host ms (the first four, and the median) and CUDA-event device
+    ms median."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from qserve_tpu_torch.engine.arg_utils import EngineArgs
+    from qserve_tpu_torch.sampling_params import SamplingParams
+
+    t0 = time.perf_counter()
+    engine = EngineArgs(hf_config=cfg, random_weights=True, seed=0, device="cuda",
+                        block_size=256, max_num_batched_tokens=2048,
+                        max_num_seqs=64, **precision).build_engine()
+    print(f"  {tag}: engine built in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate(prompts):
+        engine.add_request(
+            f"{tag}{i}", prompt_token_ids=rng.integers(0, cfg["vocab_size"], int(n)).tolist(),
+            sampling_params=SamplingParams(max_tokens=max_tokens, ignore_eos=True))
+    host, dev = {}, {}
+    while engine.has_unfinished_requests():
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        engine.step()
+        e1.record()
+        torch.cuda.synchronize()
+        kind = engine.last_step_kind
+        host.setdefault(kind, []).append((time.perf_counter() - t) * 1e3)
+        dev.setdefault(kind, []).append(e0.elapsed_time(e1))
+    for kind in host:
+        print(f"  {tag} {kind}: {len(host[kind])} steps, host ms "
+              f"{[round(x, 2) for x in host[kind][:4]]} (median "
+              f"{statistics.median(host[kind]):.4g}), device ms median "
+              f"{statistics.median(dev[kind]):.4g}", flush=True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def steps(opts):
     tree = os.path.abspath(opts.tree or ROOT)
     sys.path.insert(0, tree)
     import numpy as np
-    import torch
 
     import chip_smoke  # this script's tree: only its model configs are read
-    from qserve_tpu_torch.engine.arg_utils import EngineArgs
-    from qserve_tpu_torch.sampling_params import SamplingParams
 
     print(f"steps of {tree} on {smi()}", flush=True)
-
-    def run(tag, cfg, prompts, max_tokens, **precision):
-        t0 = time.perf_counter()
-        engine = EngineArgs(hf_config=cfg, random_weights=True, seed=0, device="cuda",
-                            block_size=256, max_num_batched_tokens=2048,
-                            max_num_seqs=64, **precision).build_engine()
-        print(f"  {tag}: engine built in {time.perf_counter() - t0:.1f} s", flush=True)
-        rng = np.random.default_rng(0)
-        for i, n in enumerate(prompts):
-            engine.add_request(
-                f"{tag}{i}", prompt_token_ids=rng.integers(0, cfg["vocab_size"], int(n)).tolist(),
-                sampling_params=SamplingParams(max_tokens=max_tokens, ignore_eos=True))
-        host, dev = {}, {}
-        while engine.has_unfinished_requests():
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            t = time.perf_counter()
-            e0.record()
-            engine.step()
-            e1.record()
-            torch.cuda.synchronize()
-            kind = engine.last_step_kind
-            host.setdefault(kind, []).append((time.perf_counter() - t) * 1e3)
-            dev.setdefault(kind, []).append(e0.elapsed_time(e1))
-        for kind in host:
-            print(f"  {tag} {kind}: {len(host[kind])} steps, host ms "
-                  f"{[round(x, 2) for x in host[kind][:4]]} (median "
-                  f"{statistics.median(host[kind]):.4g}), device ms median "
-                  f"{statistics.median(dev[kind]):.4g}", flush=True)
-        del engine
-        import gc
-
-        gc.collect()
-        torch.cuda.empty_cache()
-
     lens = np.random.default_rng(0).integers(128, 1025, 8)  # chip_smoke path a
     precisions = (("w4a8kv4", dict(precision="w4a8kv4", group_size=-1)),
                   ("w4a8kv4 g128", dict(precision="w4a8kv4", group_size=128)),
                   ("w8a8kv8", dict(precision="w8a8kv8", group_size=-1)))
     for tag, kw in precisions:  # paths a, c (with its W8 lm_head), e
-        run(f"llama3-8b {tag}", chip_smoke.LLAMA3_8B, lens, 32,
-            quant_lm_head=tag.endswith("g128"), **kw)
+        run_steps(f"llama3-8b {tag}", chip_smoke.LLAMA3_8B, lens, 32,
+                  quant_lm_head=tag.endswith("g128"), **kw)
     for tag, kw in precisions:  # paths g, h, i
-        run(f"mixtral-8x7b {tag}", chip_smoke.MIXTRAL_8X7B, [2000, 2000], 4, **kw)
+        run_steps(f"mixtral-8x7b {tag}", chip_smoke.MIXTRAL_8X7B, [2000, 2000], 4, **kw)
 
 
 def main():

@@ -1,6 +1,7 @@
 """The port stands alone: importing qserve_tpu_torch (engine included)
 loads neither JAX nor the JAX package nor triton, and no source file of the
-port or chip_smoke.py imports JAX or the JAX package."""
+port or chip_smoke.py imports JAX, the JAX package or triton (every kernel
+is CUDA C++ built by nvcc)."""
 
 import os
 import re
@@ -14,7 +15,7 @@ PKG = os.path.join(ROOT, "qserve_tpu_torch")
 
 # `qserve_tpu_torch` starts with `qserve_tpu`: match the JAX package only
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|qserve_tpu(?!_torch)\b)", re.M
+    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|triton\b|qserve_tpu(?!_torch)\b)", re.M
 )
 
 
@@ -22,7 +23,7 @@ def _port_modules():
     mods = []
     for dirpath, _, files in os.walk(PKG):
         for f in files:
-            if f.endswith(".py") and f != "elementwise_triton.py":
+            if f.endswith(".py"):
                 rel = os.path.relpath(os.path.join(dirpath, f), ROOT)[:-3]
                 mod = rel.replace(os.sep, ".")
                 mods.append(mod[: -len(".__init__")] if mod.endswith("__init__") else mod)
@@ -87,4 +88,5 @@ def test_package_root_exports():
 def test_scan_pattern():
     assert FORBIDDEN.search("from qserve_tpu.kernels import ops")
     assert FORBIDDEN.search("    import jax.numpy as jnp")
+    assert FORBIDDEN.search("    import triton.language as tl")
     assert not FORBIDDEN.search("from qserve_tpu_torch.kernels import ops")
