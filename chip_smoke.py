@@ -33,9 +33,15 @@
    one PyTorch library call computing the same function (CUDA events,
    median of 20: one call's span, the host's launch in it); the fused
    norm/quant pass and the sampler also by device time (20 back-to-back
-   calls captured in a CUDA graph and replayed). The build report counts the tensor-core instructions in
-   the SASS of K3, K6 and the three GEMM libraries (K2, K8, K9) and fails
-   on none; the GEMMs must show wgmma's (IGMMA) and no mma.sync (IMMA).
+   calls captured in a CUDA graph and replayed); the fused KV quantize-and-
+   append (K5) bit for bit in 11 cases (KV4 and KV8, with and without a
+   zero point, bf16 and f32 scales, D = 64, 96, 128 and 256, the mixed
+   step's strided view, an unaligned view on its scalar path), timed also
+   by device time and beside the plain quantize alone, with the peak
+   memory of it and of its plain chain at the 8B prefill. The build report
+   counts the tensor-core instructions in the SASS of K3, K6 and the three
+   GEMM libraries (K2, K8, K9) and fails on none; the GEMMs must show
+   wgmma's (IGMMA) and no mma.sync (IMMA).
 3. Reference phase: a small model served by the kernels on the card and by
    the plain versions on the CPU (prefill, decode, one chunk step, one mixed
    chunk+decode step) at W4A8KV4 per-channel, W4A8KV4 g128, W4A8KV8 g128
@@ -48,7 +54,8 @@
    layers, random weights from a seed, default scheduler: chunked prefill
    and mixed steps on), each engine built and freed in turn, the launch
    counts set to 0 before each path and read after it, each step timed on
-   the host clock and by CUDA events around its launches:
+   the host clock and by CUDA events around its launches, with its peak
+   allocated memory:
    a. Llama-3-8B W4A8KV4 per-channel, whole-prompt prefill + paged decode:
       8 requests of 128-1024 prompt tokens and 32 output tokens (6 greedy, 2
       at temperature 0.8);
@@ -116,8 +123,9 @@ MIXTRAL_8X7B = dict(
     rope_theta=1e6, rms_norm_eps=1e-5, sliding_window=None,
     num_local_experts=8, num_experts_per_tok=2,
 )
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and int8 ops/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32, bf16 and int8 ops/s
 HBM_BPS = 3.35e12
+F32_OPS = 67e12  # outside the tensor cores
 BF16_OPS = 989e12
 INT8_OPS = 1979e12
 
@@ -222,7 +230,8 @@ class Results:
             **extra):
         b, by = bound(nbytes, ops, peak)
         lib = "null" if library_ms is None else f"{library_ms:.4g}"
-        labels = {"dev_ms": "device ms (20 back-to-back calls in a CUDA graph)"}
+        labels = {"dev_ms": "device ms (20 back-to-back calls in a CUDA graph)",
+                  "quantize_ms": "plain quantize alone ms"}
         more = "".join(f"  {labels.get(k, k)} {v:.4g}" for k, v in extra.items())
         log(f"  {name} [{shape}]: max_abs_err {err:.3g}  kernel {ms:.4g} ms (one call)  "
             f"plain {plain_ms:.4g} ms  library {lib} ms  bound {b:.3g} ms ({by}){more}")
@@ -775,7 +784,52 @@ def phase_paged(res, dev):
                     qs, k, v, attn_mask=mask, enable_gqa=True)))
 
 
+def _append_case(dev, g, L, T, H, D, ps, P, kv_bits, extra_rows=0, unaligned=False):
+    """A cache of random bytes and a batch's bf16 k/v [L, T, H, D]: views of
+    [L, T + extra_rows, H, D] buffers (the mixed step's k_all[:, :T]), or
+    of a buffer one element off 16-byte alignment (the scalar path)."""
+    import torch
+
+    from qserve_tpu_torch.kernels import kv_cache as kvc
+
+    cache = kvc.create_kv_cache(L, P, H, ps, D, kv_bits, device=dev)
+    cache.data.copy_(torch.randint(-128, 128, cache.data.shape, generator=g,
+                                   device=dev, dtype=torch.int8))
+    kv = []
+    for _ in range(2):
+        n = (T + extra_rows) * H * D
+        flat = torch.randn(L, n + unaligned, generator=g, device=dev).to(torch.bfloat16)
+        kv.append(flat[:, int(unaligned):].view(L, T + extra_rows, H, D))
+    return cache, kv[0], kv[1]
+
+
+def _append_is_one_launch(tag, cache, k, v, pg, sl, kv_bits, zp):
+    """kv_cache.append_all_layers on CUDA tensors launches K5 once and runs
+    no PyTorch op of the plain quantize (profiled on the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qserve_tpu_torch.kernels import _build, kv_cache as kvc
+
+    before = _build.LAUNCHES.get("kv_append", 0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        kvc.append_all_layers(cache, k, v, pg, sl, kv_bits, zp)
+    ops = sorted({e.key for e in prof.key_averages()})
+    quantize = {"aten::amax", "aten::amin", "aten::round", "aten::clamp", "aten::stack",
+                "aten::cat", "aten::div", "aten::bitwise_and", "aten::index_put_"}
+    log(f"  kv_append {tag}: append_all_layers made "
+        f"{_build.LAUNCHES.get('kv_append', 0) - before} launch; PyTorch ops: {ops}")
+    assert _build.LAUNCHES.get("kv_append", 0) - before == 1, tag
+    assert not quantize & set(ops), f"{tag}: plain quantize ops ran: {quantize & set(ops)}"
+
+
 def phase_kv_append(res, dev):
+    """K5, the fused quantize-and-append, against its plain chain
+    (kv_cache.append_plain: the plain quantize, then the row scatter): data
+    and scale bytes equal (tolerance: none) in every case. Timed: the
+    kernel (one-call events, and device time from a CUDA graph of 20
+    calls), the plain chain, and the plain quantize alone (what the parent
+    ran before its row-scatter kernel); peak memory above the inputs of
+    the fused and the plain append at the 8B prefill."""
     import torch
 
     from qserve_tpu_torch.kernels import kv_append, kv_cache as kvc
@@ -792,42 +846,66 @@ def phase_kv_append(res, dev):
         p0 += -(-n // ps)
     pages += [-1] * (2048 - len(pages))
     slots += [0] * (2048 - len(slots))
-    cases.append(("8B prefill", 8, 128, ps, p0 + 2, pages, slots, 4))
     # decode: 64 tokens, each into its own sequence's last page
+    d_pages = list(range(3, 67))
     d_slots = np.random.default_rng(5).integers(0, ps, 64).tolist()
-    cases.append(("8B decode", 8, 128, ps, 70, list(range(3, 67)), d_slots, 4))
+    # (tag, H, D, ps, P, pages, slots, kv_bits, zero_point, extra)
+    cases.append(("8B prefill", 8, 128, ps, p0 + 2, pages, slots, 4, True, {}))
+    cases.append(("8B decode", 8, 128, ps, 70, d_pages, d_slots, 4, True, {}))
     cases.append(("f32 scales", 2, 64, 16, 12, [0, 5, -1, 7, 11, 2],
-                  [0, 15, 3, 9, 1, 4], 4))
-    # KV8 rows are H * D bytes wide: the scatter takes any row width
-    cases.append(("8B KV8 decode", 8, 128, ps, 70, list(range(3, 67)), d_slots, 8))
-    cases.append(("Llama-2-7B KV8 prefill", 32, 128, ps, p0 + 2, pages, slots, 8))
-    cases.append(("Llama-2-7B KV8 decode", 32, 128, ps, 70, list(range(3, 67)), d_slots, 8))
-    for tag, H, D, ps, P, pages, slots, kv_bits in cases:
-        T = len(pages)
-        cache = kvc.create_kv_cache(L, P, H, ps, D, kv_bits, device=dev)
-        cache.data.copy_(torch.randint(-128, 128, cache.data.shape, generator=g,
-                                       device=dev, dtype=torch.int8))
-        k = torch.randn(L, T, H, D, generator=g, device=dev).to(torch.bfloat16)
-        v = torch.randn(L, T, H, D, generator=g, device=dev).to(torch.bfloat16)
-        rows, sc = kvc._quantize_rows(k, v, kv_bits, True)
-        del k, v
-        sc = sc.to(cache.scales.dtype).contiguous()
-        pg = torch.tensor(pages, dtype=torch.int32, device=dev)
-        sl = torch.tensor(slots, dtype=torch.int32, device=dev)
+                  [0, 15, 3, 9, 1, 4], 4, True, {}))
+    cases.append(("8B KV8 decode", 8, 128, ps, 70, d_pages, d_slots, 8, True, {}))
+    cases.append(("Llama-2-7B KV8 prefill", 32, 128, ps, p0 + 2, pages, slots, 8, True, {}))
+    cases.append(("Llama-2-7B KV8 decode", 32, 128, ps, 70, d_pages, d_slots, 8, True, {}))
+    # the mixed step's chunk rows, a strided view of [L, 2048 + 64, H, D]
+    cases.append(("8B mixed-step chunk view", 8, 128, ps, p0 + 2, pages, slots, 4, True,
+                  dict(extra_rows=64)))
+    cases.append(("D=96 prefill", 8, 96, ps, p0 + 2, pages, slots, 4, True, {}))
+    cases.append(("D=256 KV8 symmetric prefill", 8, 256, ps, p0 + 2, pages, slots, 8,
+                  False, {}))
+    cases.append(("8B symmetric decode", 8, 128, ps, 70, d_pages, d_slots, 4, False, {}))
+    cases.append(("unaligned view (scalar path)", 8, 128, ps, 70, d_pages, d_slots, 4,
+                  True, dict(unaligned=True)))
+    for tag, H, D, ps_, P, pg_, sl_, kv_bits, zp, extra in cases:
+        T = len(pg_)
+        cache, k, v = _append_case(dev, g, L, T, H, D, ps_, P, kv_bits, **extra)
+        k, v = k[:, :T], v[:, :T]
+        pg = torch.tensor(pg_, dtype=torch.int32, device=dev)
+        sl = torch.tensor(sl_, dtype=torch.int32, device=dev)
         ref = kvc.KVCache(cache.data.clone(), cache.scales.clone())
-        kv_append.kv_append(cache.data, cache.scales, rows, sc, pg, sl)
-        kvc.append_rows_plain(ref, rows, sc, pg, sl)
+        shape = kv_append.launch_shape(L, T, H, D, kv_bits, not extra.get("unaligned"))
+        fused = lambda: kv_append.kv_append(cache.data, cache.scales, k, v, pg, sl,
+                                            kv_bits, zp)
+        plain = lambda: kvc.append_plain(ref, k, v, pg, sl, kv_bits, zp)
+        torch.cuda.synchronize()
+        peaks = []
+        for fn in (fused, plain):
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            peaks.append((torch.cuda.max_memory_allocated() - base) / 2**20)
         assert torch.equal(cache.data, ref.data), f"kv_append ({tag}) data bytes differ"
         assert torch.equal(cache.scales.view(torch.uint8), ref.scales.view(torch.uint8)), \
             f"kv_append ({tag}) scale bytes differ"
+        if tag == "8B prefill":
+            log(f"  kv_append 8B prefill: peak allocated above the inputs: fused "
+                f"{peaks[0]:.1f} MiB, plain chain {peaks[1]:.1f} MiB")
+        if tag in ("8B prefill", "8B decode"):  # the engine's entry: one launch
+            _append_is_one_launch(tag, cache, k, v, pg, sl, kv_bits, zp)
+        if "view" in tag:
+            assert not k.is_contiguous()
         valid = int((pg >= 0).sum())
-        nbytes = 2 * valid * L * (rows.shape[-1] * 2 + sc.shape[-1] * 2 * sc.element_size()) + 8 * T
-        res.add("kv_append", f"{tag}: KV{kv_bits} L={L} T={T} H={H} D={D} ps={ps} "
-                f"scales={cache.scales.dtype}", 0.0,
-                cuda_ms(lambda: kv_append.kv_append(cache.data, cache.scales, rows,
-                                                    sc, pg, sl)),
-                cuda_ms(lambda: kvc.append_rows_plain(ref, rows, sc, pg, sl)),
-                nbytes, 0, BF16_OPS, None)
+        vec = valid * L * 2 * H  # (layer, token, kv, head) vectors written
+        hdc = cache.data.shape[-1] // H
+        nbytes = vec * (D * 2 + hdc + 2 * cache.scales.element_size()) + 8 * T
+        res.add("kv_append", f"{tag}: KV{kv_bits} zero_point={zp} L={L} T={T} H={H} "
+                f"D={D} ps={ps_} scales={cache.scales.dtype} lanes={shape.lanes} "
+                f"tb={shape.tb}", 0.0,
+                cuda_ms(fused), cuda_ms(plain), nbytes, 6 * vec * D, F32_OPS, None,
+                dev_ms=device_ms(fused),
+                quantize_ms=cuda_ms(lambda: kvc._quantize_rows(k, v, kv_bits, zp)))
+        del cache, ref, k, v
 
 
 def _prefix_case(dev, g, H, rep, D, ps, prefix_len, T, live, maxP, kv_bits=4):
@@ -1324,6 +1402,7 @@ def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"], moe=
     arrivals = sorted(arrivals, key=lambda a: a[0])
     ms, per_kind, finished, tokens_out, steps, step_log = {}, {}, 0, 0, 0, []
     dev_ms = {}  # CUDA events on the stream around each step's launches
+    peak = {}  # torch.cuda.max_memory_allocated over each step
     t_run = time.perf_counter()
     while engine.has_unfinished_requests() or arrivals:
         while arrivals and (arrivals[0][0] <= steps
@@ -1334,6 +1413,7 @@ def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"], moe=
             moe.rows.clear()
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         ev0.record()
         outs = engine.step()
@@ -1344,6 +1424,7 @@ def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"], moe=
         kind = engine.last_step_kind
         ms.setdefault(kind, []).append(dt)
         dev_ms.setdefault(kind, []).append(ev0.elapsed_time(ev1))
+        peak.setdefault(kind, []).append(torch.cuda.max_memory_allocated() / 2**30)
         delta = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
                  if v - before.get(k, 0)}
         per_kind.setdefault(kind, delta)
@@ -1361,7 +1442,7 @@ def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"], moe=
     run_s = time.perf_counter() - t_run
     assert finished == len(want_tokens), \
         f"{finished} of {len(want_tokens)} requests finished"
-    return dict(ms=ms, dev_ms=dev_ms, per_kind=per_kind, finished=finished,
+    return dict(ms=ms, dev_ms=dev_ms, peak=peak, per_kind=per_kind, finished=finished,
                 tokens_out=tokens_out, run_s=run_s, log=step_log)
 
 
@@ -1372,8 +1453,8 @@ def _report(tag, r, launches):
         dv = r["dev_ms"][kind]
         log(f"    {len(ts)} {kind} steps: median {statistics.median(ts):.2f} ms, "
             f"min {min(ts):.2f}, max {max(ts):.2f} (host clock); device "
-            f"{statistics.median(dv):.2f} ms median (CUDA events); launches in the "
-            f"first: {r['per_kind'][kind]}")
+            f"{statistics.median(dv):.2f} ms median (CUDA events); peak allocated "
+            f"{max(r['peak'][kind]):.3f} GiB; launches in the first: {r['per_kind'][kind]}")
     log(f"    launches in the run: {launches}")
     return dict(
         finished=r["finished"], tokens_out=r["tokens_out"], run_s=r["run_s"],
@@ -1381,6 +1462,7 @@ def _report(tag, r, launches):
         steps={k: len(v) for k, v in r["ms"].items()},
         step_ms_median={k: statistics.median(v) for k, v in r["ms"].items()},
         step_device_ms_median={k: statistics.median(v) for k, v in r["dev_ms"].items()},
+        step_peak_gib={k: max(v) for k, v in r["peak"].items()},
         step_ms={k: [round(x, 2) for x in v] for k, v in r["ms"].items()
                  if k != "decode"},
         launches_per_step={k: v for k, v in r["per_kind"].items()},

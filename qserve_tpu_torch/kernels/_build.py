@@ -149,6 +149,7 @@ def check_operands(operands) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 

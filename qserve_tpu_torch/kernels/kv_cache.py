@@ -99,8 +99,8 @@ def quantize_kv_unpacked(
 
 def _quantize_rows(k_all, v_all, kv_bits, zero_point):
     """[L, T, H, D] k/v -> packed data rows int8 [L, T, 2, H*Dc] and
-    scale rows f32 [L, T, 2, 2H]. Plain PyTorch on every device: the JAX
-    package ran this in XLA, outside its append kernels."""
+    scale rows f32 [L, T, 2, 2H]: the quantizing half of `append_plain`
+    (the JAX package ran it in XLA, outside its append kernels)."""
     L, T = k_all.shape[:2]
     kq, ks, kz = quantize_kv_unpacked(k_all, kv_bits, zero_point)
     vq, vs, vz = quantize_kv_unpacked(v_all, kv_bits, zero_point)
@@ -122,7 +122,7 @@ def append_rows_plain(
     page_ids: torch.Tensor,  # int32 [T], -1 = drop
     slots: torch.Tensor,  # int32 [T]
 ) -> None:
-    """Plain version of the row-scatter kernel (kernels/kv_append.py):
+    """The scattering half of `append_plain`:
     data[l, page, kv, slot, :] = rows[l, t, kv, :] and
     scales[l, page, kv, :, slot] = sc[l, t, kv, :] for every valid token."""
     valid = page_ids >= 0
@@ -131,6 +131,21 @@ def append_rows_plain(
     # non-adjacent advanced indices put the token dim first: [T', L, 2, ...]
     cache.data[:, pages, :, sl, :] = rows[:, valid].transpose(0, 1)
     cache.scales[:, pages, :, :, sl] = sc[:, valid].transpose(0, 1)
+
+
+def append_plain(
+    cache: KVCache,
+    k_all: torch.Tensor,  # [L, T, H, D] fp (already RoPE'd)
+    v_all: torch.Tensor,  # [L, T, H, D]
+    page_ids: torch.Tensor,  # [T] int32 (-1 = drop)
+    slots: torch.Tensor,  # [T] int32
+    kv_bits: int,
+    zero_point: bool,
+) -> None:
+    """Plain version of the fused K5 kernel (kernels/kv_append.py): the
+    JAX package's quantize (_quantize_rows), then the row scatter."""
+    rows, sc = _quantize_rows(k_all, v_all, kv_bits, zero_point)
+    append_rows_plain(cache, rows, sc.to(cache.scales.dtype), page_ids, slots)
 
 
 def append_all_layers(
@@ -143,17 +158,16 @@ def append_all_layers(
     zero_point: bool,
 ) -> KVCache:
     """Quantize every layer's new tokens and write them into their
-    (page, slot), in place. On CUDA the write is the KV-append kernel; one
-    direct row scatter serves the decode append and the prefill page write
-    alike (the TPU needed staged whole-page DMAs for the latter)."""
-    rows, sc = _quantize_rows(k_all, v_all, kv_bits, zero_point)
-    sc = sc.to(cache.scales.dtype).contiguous()
+    (page, slot), in place. On CUDA that is one launch of the fused K5
+    kernel for the decode append and the prefill page write alike (the TPU
+    quantized in XLA and needed staged whole-page DMAs for the latter)."""
     if cache.data.is_cuda:
         from qserve_tpu_torch.kernels.kv_append import kv_append
 
-        kv_append(cache.data, cache.scales, rows, sc, page_ids, slots)
+        kv_append(cache.data, cache.scales, k_all, v_all, page_ids, slots,
+                  kv_bits, zero_point)
     else:
-        append_rows_plain(cache, rows, sc, page_ids, slots)
+        append_plain(cache, k_all, v_all, page_ids, slots, kv_bits, zero_point)
     return cache
 
 

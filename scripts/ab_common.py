@@ -1,12 +1,13 @@
 """What the A/B timing scripts (scripts/ab_*.py) share: building a variant
 of a kernel source with the committed nvcc flags, timing a call on the
-card, and the card's name and power limit."""
+card (device and host time), and the card's name and power limit."""
 
 from __future__ import annotations
 
 import os
 import shutil
 import subprocess
+import time
 
 CSRC = os.path.join("qserve_tpu_torch", "kernels", "csrc")
 
@@ -52,6 +53,21 @@ def device_ms(fn, n=20):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / n
+
+
+def host_ms(fn, n=200):
+    """Host time of one call: n calls without a sync (the card's queue
+    absorbs them), then one sync outside the span."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
 
 
 def smi() -> str:

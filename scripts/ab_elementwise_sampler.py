@@ -48,9 +48,8 @@ import os
 import statistics
 import sys
 import tempfile
-import time
 
-from ab_common import CSRC, build, smi
+from ab_common import CSRC, build, host_ms, smi
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODES = {"quant": 0, "rmsnorm_quant": 1, "add_rmsnorm_quant": 2, "silu_mul_quant": 3}
@@ -114,21 +113,6 @@ def k7_direct(fn, s, k, p, noise=None, split=None):
             split.cluster, split.slice, split.threads, 1, 1, _build.stream())
     assert rc == 0, rc
     return o
-
-
-def host_ms(fn, n=200):
-    """Host time of one call: n calls without a sync (the card's queue
-    absorbs them), then one sync outside the span."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(n):
-        fn()
-    ms = (time.perf_counter() - t) * 1e3 / n
-    torch.cuda.synchronize()
-    return ms
 
 
 def _load(name, path):

@@ -342,8 +342,8 @@ def _wrapper_calls():
         "kv_append": lambda: kv_append.kv_append(
             torch.zeros(1, 3, 2, 16, 64, dtype=i8),
             torch.zeros(1, 3, 2, 4, 16, dtype=f32),
-            torch.zeros(1, 2, 2, 64, dtype=i8), torch.zeros(1, 2, 2, 4, dtype=f32),
-            torch.zeros(2, dtype=i32), torch.zeros(2, dtype=i32)),
+            torch.zeros(1, 2, 2, 64, **bf), torch.zeros(1, 2, 2, 64, **bf),
+            torch.zeros(2, dtype=i32), torch.zeros(2, dtype=i32), 4, True),
     }
 
 
