@@ -59,6 +59,22 @@
    a. Llama-3-8B W4A8KV4 per-channel, whole-prompt prefill + paged decode:
       8 requests of 128-1024 prompt tokens and 32 output tokens (6 greedy, 2
       at temperature 0.8);
+   checkpoint phase, after path a (checkpoint files go to a gitignored
+      directory in the checkout, once the disk is shown to have room, and
+      are removed after):
+      - path a's params saved as a packed QoQ checkpoint (~5.6 GB) and
+        served again through EngineArgs(model=<dir>, quant_path=<dir>):
+        every leaf bit for bit, path a's greedy streams token for token,
+        path a's kernels launched; save and load GB/s;
+      - the same checkpoint rebuilt with benchmarking=True (device-fed
+        decode): the chain of sampled ids kept on the card equals path a's
+        greedy streams, and no decode step waits for the card
+        (torch.cuda.set_sync_debug_mode); the decode step's host ms,
+        CUDA-event span and busy share (torch.profiler) with the feed and
+        without, interleaved in one engine;
+      - a float HF directory at Llama-3-8B widths cut to 2 layers (bf16,
+        two safetensors shards, ~3 GB) quantized at load on the card: equal
+        bit for bit to quantize_params on the CPU, then 4 requests served;
    b. the same engine, chunked prefill: 7 short requests are decoding when a
       ~6000-token prompt arrives and admits in three chunks that ride with
       the decode batch; two more requests share a page-aligned prefix with
@@ -86,7 +102,10 @@
 Prints the card's name and power limit, one JSON line of per-kernel results
 and, last, {"ok": true, "device": {...}}. Exits non-zero, without those
 lines, when there is no CUDA device, when the port cannot be imported, or
-when any phase fails.
+when any phase fails. The port's text path (tokenizer, chat templates)
+is held against the JAX package on the CPU (tests/test_torch_checkpoint.py);
+here it runs once, through e2e_generation, where transformers and
+tokenizers are installed.
 """
 
 from __future__ import annotations
@@ -1401,6 +1420,7 @@ def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"], moe=
 
     arrivals = sorted(arrivals, key=lambda a: a[0])
     ms, per_kind, finished, tokens_out, steps, step_log = {}, {}, 0, 0, 0, []
+    streams = {}  # request id -> its output token ids
     dev_ms = {}  # CUDA events on the stream around each step's launches
     peak = {}  # torch.cuda.max_memory_allocated over each step
     t_run = time.perf_counter()
@@ -1439,11 +1459,12 @@ def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"], moe=
                     f"{out.request_id}: {len(toks)} tokens"
                 assert all(0 <= x < vocab for x in toks)
                 tokens_out += len(toks)
+                streams[out.request_id] = list(toks)
     run_s = time.perf_counter() - t_run
     assert finished == len(want_tokens), \
         f"{finished} of {len(want_tokens)} requests finished"
     return dict(ms=ms, dev_ms=dev_ms, peak=peak, per_kind=per_kind, finished=finished,
-                tokens_out=tokens_out, run_s=run_s, log=step_log)
+                tokens_out=tokens_out, run_s=run_s, log=step_log, streams=streams)
 
 
 def _report(tag, r, launches):
@@ -1500,32 +1521,46 @@ def _release():
     log(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
 
 
-def _path_a(engine):
-    """Whole-prompt prefill + paged decode."""
-    from qserve_tpu_torch.kernels import _build
+PATH_A_GREEDY = [f"a{i}" for i in range(6)]  # a6 and a7 sample at temperature 0.8
+
+
+def _add_path_a(engine, prefix="a"):
+    """Path a's 8 requests (the same prompts each call); returns
+    {request id: output tokens}."""
     from qserve_tpu_torch.sampling_params import SamplingParams
 
     V = LLAMA3_8B["vocab_size"]
     rng = np.random.default_rng(0)
     lens = rng.integers(128, 1025, 8)
-    want = {}
     for i, n in enumerate(lens):
-        want[f"a{i}"] = 32
         engine.add_request(
-            f"a{i}", prompt_token_ids=rng.integers(0, V, int(n)).tolist(),
+            f"{prefix}{i}", prompt_token_ids=rng.integers(0, V, int(n)).tolist(),
             sampling_params=SamplingParams(
                 max_tokens=32, ignore_eos=True, temperature=0.8 if i >= 6 else 0.0))
-    log(f"  path a: 8 requests, prompt lengths {lens.tolist()}, 32 output tokens each")
+    return {f"{prefix}{i}": 32 for i in range(8)}, lens
+
+
+def _path_a(engine, tag="path a"):
+    """Whole-prompt prefill + paged decode. Returns (launches, summary,
+    {request id: tokens})."""
+    from qserve_tpu_torch.kernels import _build
+
+    want, lens = _add_path_a(engine)
+    log(f"  {tag}: 8 requests, prompt lengths {lens.tolist()}, 32 output tokens each")
     _build.reset_launch_counts()
     ra = _drive(engine, want)
     launches_a = dict(_build.LAUNCHES)
-    summary_a = _report("path a", ra, launches_a)
-    _require("path a", launches_a,
+    summary_a = _report(tag, ra, launches_a)
+    _require_path_a(tag, launches_a)
+    assert set(ra["ms"]) == {"prefill", "decode"}, set(ra["ms"])
+    return launches_a, summary_a, ra["streams"]
+
+
+def _require_path_a(tag, launches):
+    _require(tag, launches,
              ran=("elementwise", "w4a8_gemm_per_chn", "flash_prefill_attention",
                   "paged_decode_attention", "kv_append"),
              idle=("w4a8_gemm_per_group", "w8a8_gemm") + ROUTED_GEMMS)
-    assert set(ra["ms"]) == {"prefill", "decode"}, set(ra["ms"])
-    return launches_a, summary_a
 
 
 def _require(tag, launches, ran, idle=()):
@@ -1678,7 +1713,12 @@ def phase_engine(dev):
     engine = _build_engine(dev, "paths a, b (Llama-3-8B w4a8kv4 per-channel)",
                            LLAMA3_8B, precision="w4a8kv4", group_size=-1,
                            max_model_len=8192, num_device_pages=160)
-    launches["a"], summary["path_a"] = _path_a(engine)
+    launches["a"], summary["path_a"], streams_a = _path_a(engine)
+    log("phase checkpoint")
+    t = time.perf_counter()
+    ck_launches, summary["checkpoint"] = phase_checkpoint(dev, engine, streams_a)
+    launches.update(ck_launches)
+    log(f"  phase checkpoint ok in {time.perf_counter() - t:.1f} s")
     launches["b"], summary["path_b"] = _path_b(engine)
     del engine
     _release()
@@ -1756,6 +1796,397 @@ def phase_engine(dev):
                 moe=(rec, dense, routed))
         del engine
         _release()
+    return launches, summary
+
+
+# --------------------------------------------------------------------------
+# checkpoint phase
+# --------------------------------------------------------------------------
+
+
+def _leaves(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [leaf for y in x for leaf in _leaves(y)]
+
+
+def _same_bits(tag, got, want):
+    """Every leaf of two params trees equal bit for bit (dtype and shape
+    too); returns the bytes compared."""
+    import torch
+
+    g, w = _leaves(got), _leaves(want)
+    assert len(g) == len(w), f"{tag}: {len(g)} leaves against {len(w)}"
+    for i, (a, b) in enumerate(zip(g, w)):
+        assert a.dtype == b.dtype and a.shape == b.shape, \
+            f"{tag}: leaf {i} is {a.dtype} {tuple(a.shape)}, want {b.dtype} {tuple(b.shape)}"
+        assert torch.equal(a, b.to(a.device)), f"{tag}: leaf {i} {tuple(a.shape)} differs"
+    return sum(t.numel() * t.element_size() for t in w)
+
+
+def _ckpt_dir(tag, need_bytes):
+    """A directory for checkpoint files inside the checkout (gitignored),
+    once the disk is shown to have room for them."""
+    import os
+    import shutil
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    free = shutil.disk_usage(root).free
+    log(f"  {tag}: {need_bytes / 1e9:.2f} GB to write, {free / 1e9:.1f} GB free on the disk")
+    if free < need_bytes + (2 << 30):
+        raise RuntimeError(f"checkpoint phase: {tag} needs {need_bytes / 1e9:.2f} GB "
+                           f"(+2 GiB spare) on disk, {free / 1e9:.2f} GB free under {root}")
+    return tempfile.mkdtemp(prefix=f".chip_smoke_ckpt_{tag}_", dir=root)
+
+
+def _has(module):
+    import importlib.util
+
+    return importlib.util.find_spec(module) is not None
+
+
+def _write_config(d, cfg):
+    import os
+
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(dict(cfg, architectures=["LlamaForCausalLM"]), f)
+
+
+def _ckpt_engine(dev, model, **kw):
+    import torch
+
+    from qserve_tpu_torch.engine.arg_utils import EngineArgs
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = EngineArgs(model=model, device=dev, block_size=256, max_num_batched_tokens=2048,
+                        max_num_seqs=64, max_model_len=8192, num_device_pages=160,
+                        **kw).build_engine()
+    torch.cuda.synchronize()
+    return engine, time.perf_counter() - t0
+
+
+class _DecodeWatch:
+    """Wraps a runner's execute_decode: records each decode step's
+    (sequence order, sampled ids) in device feed, and every wait for the
+    card its launches made, as torch.cuda.set_sync_debug_mode("warn")
+    reports them (source line and message); prefill steps are not watched
+    (they read their ids back by design)."""
+
+    def __init__(self, runner):
+        self.runner, self.real = runner, runner.execute_decode
+        self.steps, self.waits = [], []
+        runner.execute_decode = self
+
+    def __call__(self, md, cache_engine):
+        import warnings
+
+        import torch
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = self.real(md, cache_engine)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        self.waits += [f"{w.filename}:{w.lineno}: {str(w.message).splitlines()[0]}"
+                       for w in caught if "called a synchronizing" in str(w.message)]
+        if getattr(self.runner, "benchmarking", False):
+            self.steps.append((self.runner._prev_order, self.runner._prev_toks.clone()))
+        return out
+
+    def close(self):
+        self.runner.execute_decode = self.real
+
+
+def _chain(engine, steps, outputs):
+    """{request id: tokens} of a device-fed run: each request's prefill
+    token, then the ids each decode step sampled and kept on the card."""
+    chain = {rid: [toks[0]] for rid, toks in outputs.items()}
+    req = {sid: g.request_id for sid, (g, _) in engine._seq_index.items()}
+    for order, toks in steps:
+        for sid, t in zip(order, toks.cpu().tolist()):
+            chain[req[sid]].append(t)
+    return chain
+
+
+def _decode_round(engine, prefix, profile=False):
+    """Path a's requests with no synchronize between steps (as a server
+    steps). Returns per decode step (host ms, CUDA-event ms), the run's
+    host seconds, and with profile the card's busy ms over the decode steps
+    after the first (torch.profiler, kernels only) and their wall ms."""
+    import torch
+
+    want, _ = _add_path_a(engine, prefix)
+    torch.cuda.synchronize()
+    host, events, prof, t_dec = [], [], None, None
+    t_run = time.perf_counter()
+    while engine.has_unfinished_requests():
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        ev0.record()
+        engine.step()
+        ev1.record()
+        dt = (time.perf_counter() - t) * 1e3
+        if engine.last_step_kind == "decode":
+            host.append(dt)
+            events.append((ev0, ev1))
+            if profile and prof is None:  # from the second decode step on
+                import torch.profiler as tp
+
+                prof = tp.profile(activities=[tp.ProfilerActivity.CPU,
+                                              tp.ProfilerActivity.CUDA])
+                prof.start()
+                t_dec = time.perf_counter()
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    out = dict(host_ms=host, event_ms=[a.elapsed_time(b) for a, b in events],
+               run_s=end - t_run, requests=len(want))
+    if prof is not None:
+        prof.stop()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA"))
+        out.update(busy_ms=busy_us / 1e3, wall_ms=(end - t_dec) * 1e3)
+    return out
+
+
+def _text_on_card(model_dir, vocab):
+    """e2e_generation's main() on the card: a word-level tokenizer of
+    `vocab` entries saved beside the weights (built here with the tokenizers
+    library, offline; the port's get_tokenizer loads it), the
+    default prompts through the chat template, the default sampling
+    (temperature 0.7, top-p 0.9: the filtered sampler), 16 tokens each."""
+    import contextlib
+    import io
+    import re
+
+    import os
+
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    from qserve_tpu_torch.entrypoints import e2e_generation
+    from qserve_tpu_torch.kernels import _build
+
+    words = sorted(set(re.findall(r"\w+|[^\w\s]+", " ".join(e2e_generation.DEFAULT_PROMPTS))))
+    table = ["<unk>", "<s>", "</s>"] + words
+    table += [f"w{i}" for i in range(vocab - len(table))]
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(table)}, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.save(os.path.join(model_dir, "tokenizer.json"))
+    with open(os.path.join(model_dir, "tokenizer_config.json"), "w") as f:
+        json.dump(dict(tokenizer_class="PreTrainedTokenizerFast", unk_token="<unk>",
+                       bos_token="<s>", eos_token="</s>"), f)
+    argv = ["e2e_generation", "--model", model_dir, "--max-tokens", "16",
+            "--num-device-pages", "64", "--max-model-len", "2048"]
+    out, saved = io.StringIO(), sys.argv
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        sys.argv = argv
+        with contextlib.redirect_stdout(out):
+            e2e_generation.main()
+    finally:
+        sys.argv = saved
+    launches = dict(_build.LAUNCHES)
+    text = out.getvalue()
+    blocks = text.split("\n=== request ")[1:]
+    outputs = re.findall(r"\[output\] (.*)", text)
+    log(f"  text: e2e_generation on the card in {time.perf_counter() - t0:.2f} s: "
+        f"{len(blocks)} requests; outputs {[o[:60] for o in outputs]}; launches {launches}")
+    assert len(blocks) == len(e2e_generation.DEFAULT_PROMPTS) and "finished 4 requests" in text
+    assert all(o.split() and set(o.split()) <= set(table) for o in outputs), outputs
+    _require("text", launches, ran=("elementwise", "w4a8_gemm_per_chn", "flash_prefill_attention",
+                                    "paged_decode_attention", "kv_append", "sample_filtered"))
+    return launches, dict(requests=len(blocks), outputs=outputs)
+
+
+def phase_checkpoint(dev, engine_a, streams_a):
+    """Checkpoints on the card, after path a:
+    1. path a's params (Llama-3-8B w4a8kv4 per-channel, bf16 head, 32
+       layers) saved as a packed checkpoint and served again through
+       EngineArgs(model, quant_path): every leaf bit for bit, path a's
+       streams token for token, path a's kernels launched;
+    2. the loaded engine rebuilt with benchmarking=True: path a's requests
+       with the sampled ids fed back on the card, their chain equal to
+       path a's greedy streams, no wait for the card in a decode step
+       (sync debug mode); then the decode step's host ms, CUDA-event span
+       and busy share with and without the feed, interleaved;
+    3. an HF directory of bf16 weights at Llama-3-8B widths, 2 layers, in
+       two safetensors shards, quantized at load on the card: equal bit for
+       bit to quantize_params on the CPU, then serving token-id requests;
+       where transformers and tokenizers are installed, e2e_generation's
+       main() then serves text from it with a tokenizer built here.
+    Returns ({path: launches}, summary)."""
+    import os
+    import shutil
+
+    import torch
+
+    from qserve_tpu_torch.convert import checkpoint_converter as cc
+    from qserve_tpu_torch.kernels import _build
+    from qserve_tpu_torch.models import llama, loader
+    from qserve_tpu_torch.sampling_params import SamplingParams
+    from qserve_tpu_torch.utils.weight_utils import write_safetensors
+
+    launches, summary, dirs = {}, {}, []
+    runner_a = engine_a.worker.model_runner
+    params_a, args_a = runner_a.params, runner_a.model_args
+    try:
+        # 1. packed: save, load, bits, streams
+        nbytes = sum(t.numel() * t.element_size() for t in _leaves(params_a))
+        d = _ckpt_dir("packed", nbytes)
+        dirs.append(d)
+        _write_config(d, LLAMA3_8B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = cc.save_packed_checkpoint(params_a, args_a, d)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = cc.load_packed_checkpoint(d, args_a, dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        log(f"  packed: {written / 1e9:.3f} GB saved in {save_s:.2f} s "
+            f"({written / 1e9 / save_s:.2f} GB/s: card to host to file, no fsync), loaded "
+            f"in {load_s:.2f} s ({written / 1e9 / load_s:.2f} GB/s: file to card)")
+        compared = _same_bits("packed", loaded, params_a)
+        del loaded
+        engine, build_s = _ckpt_engine(dev, d, quant_path=d)
+        compared = _same_bits("packed engine", engine.worker.model_runner.params, params_a)
+        log(f"  packed: {compared / 1e9:.3f} GB of weights equal to path a's bit for bit, "
+            f"loaded alone and in an engine built in {build_s:.2f} s (its tokenizer lookup "
+            f"included; transformers here: {_has('transformers')}, safetensors: "
+            f"{_has('safetensors')}, tokenizers: {_has('tokenizers')})")
+        launches["ckpt"], summary["packed_path_a"], streams = _path_a(engine, "packed path a")
+        same = {r: streams[r] == streams_a[r] for r in streams_a}
+        log(f"  packed path a: streams equal to path a's: {same}")
+        assert all(same[r] for r in PATH_A_GREEDY), "packed: greedy streams differ from path a's"
+        summary.update(save_gb_s=written / 1e9 / save_s, load_gb_s=written / 1e9 / load_s,
+                       packed_gb=written / 1e9, save_s=save_s, load_s=load_s,
+                       engine_build_s=build_s,
+                       sampled_streams_equal=all(same.values()))
+        del engine
+        _release()
+
+        # 2. device feed from the same checkpoint
+        engine, _ = _ckpt_engine(dev, d, quant_path=d, benchmarking=True)
+        runner = engine.worker.model_runner
+        assert runner.benchmarking
+        watch = _DecodeWatch(runner)
+        want, _ = _add_path_a(engine)
+        _build.reset_launch_counts()
+        r = _drive(engine, want)
+        launches["feed"] = dict(_build.LAUNCHES)
+        _require_path_a("device-fed path a", launches["feed"])
+        chain = _chain(engine, watch.steps, r["streams"])
+        same = {rid: chain[rid] == streams_a[rid] for rid in streams_a}
+        log(f"  device feed: {len(watch.steps)} decode steps; chains equal to path a's "
+            f"streams: {same}; waits for the card in its decode steps: {watch.waits}")
+        assert all(same[rid] for rid in PATH_A_GREEDY), "device feed: greedy chains differ"
+        assert not watch.waits, f"a device-fed decode step waited for the card: {watch.waits}"
+        # the same engine with the feed off: its decode steps' waits
+        runner.benchmarking = False
+        _drive(engine, _add_path_a(engine, "w")[0])
+        waits_normal = sorted(set(watch.waits))
+        log(f"  without the feed, decode steps wait for the card at: {waits_normal}")
+        watch.close()
+        # interleaved: off, on, on, off; then one profiled round of each
+        rounds = {False: [], True: []}
+        for i, feed in enumerate((False, True, True, False)):
+            runner.benchmarking = feed
+            rounds[feed].append(_decode_round(engine, f"t{i}"))
+        busy = {}
+        for feed in (False, True):
+            runner.benchmarking = feed
+            p = _decode_round(engine, f"p{int(feed)}", profile=True)
+            busy[feed] = p
+        for feed in (False, True):
+            host = [x for rr in rounds[feed] for x in rr["host_ms"]]
+            ev = [x for rr in rounds[feed] for x in rr["event_ms"]]
+            name = "device feed" if feed else "ids read back"
+            b = busy[feed]
+            log(f"  decode steps, {name}: {len(host)} steps in 2 rounds; host ms median "
+                f"{statistics.median(host):.3f} (min {min(host):.3f}, max {max(host):.3f}); "
+                f"CUDA-event span median {statistics.median(ev):.3f} ms; rounds "
+                f"{[round(rr['run_s'], 3) for rr in rounds[feed]]} s; card busy "
+                f"{b['busy_ms']:.1f} of {b['wall_ms']:.1f} ms over 30 profiled decode steps "
+                f"({100 * b['busy_ms'] / b['wall_ms']:.1f}%)")
+            summary[f"decode_{'feed' if feed else 'readback'}"] = dict(
+                host_ms_median=statistics.median(host), event_ms_median=statistics.median(ev),
+                round_s=[rr["run_s"] for rr in rounds[feed]],
+                busy_ms=b["busy_ms"], wall_ms=b["wall_ms"],
+                busy_share=b["busy_ms"] / b["wall_ms"])
+        summary["waits_readback"] = waits_normal
+        del engine, runner, watch
+        _release()
+
+        # 3. HF directory, self-quantized on the card
+        hf_cfg = dict(LLAMA3_8B, num_hidden_layers=2)
+        args = loader.args_from_config_dict(hf_cfg, args_a.quant)
+        E, I, V = args.hidden_size, args.intermediate_size, args.vocab_size
+        shapes = {"self_attn.q_proj": (args.q_size, E), "self_attn.k_proj": (args.kv_size, E),
+                  "self_attn.v_proj": (args.kv_size, E), "self_attn.o_proj": (E, args.q_size),
+                  "mlp.gate_proj": (I, E), "mlp.up_proj": (I, E), "mlp.down_proj": (E, I)}
+        hf_bytes = 2 * (2 * V * E + 2 * sum(a * b for a, b in shapes.values()))
+        h = _ckpt_dir("hf", hf_bytes)
+        dirs.append(h)
+        _write_config(h, hf_cfg)
+        g = torch.Generator(device=dev).manual_seed(7)
+
+        def rnd(*shape, scale=0.02, base=0.0):
+            return (base + scale * torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+
+        t0 = time.perf_counter()
+        for li, names in ((0, ("model.embed_tokens.weight",)), (1, ("lm_head.weight", "model.norm.weight"))):
+            shard = {}
+            for n in names:
+                shard[n] = rnd(E, scale=0.1, base=1.0) if n == "model.norm.weight" else rnd(V, E)
+            p = f"model.layers.{li}"
+            shard[f"{p}.input_layernorm.weight"] = rnd(E, scale=0.1, base=1.0)
+            shard[f"{p}.post_attention_layernorm.weight"] = rnd(E, scale=0.1, base=1.0)
+            for n, shape in shapes.items():
+                shard[f"{p}.{n}.weight"] = rnd(*shape)
+            write_safetensors(shard, os.path.join(h, f"model-0000{li + 1}-of-00002.safetensors"))
+            del shard
+        write_s = time.perf_counter() - t0
+        engine, hf_s = _ckpt_engine(dev, h)
+        log(f"  hf: {hf_bytes / 1e9:.3f} GB of bf16 in two shards written in {write_s:.2f} s; "
+            f"engine built (read, quantized on the card) in {hf_s:.2f} s")
+        t0 = time.perf_counter()
+        cpu = llama.quantize_params(loader.load_float_params_from_hf(h, args), args, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        compared = _same_bits("hf", engine.worker.model_runner.params, cpu)
+        log(f"  hf: {compared / 1e9:.3f} GB of quantized weights equal bit for bit to "
+            f"quantize_params on the CPU ({cpu_s:.1f} s there)")
+        del cpu
+        rng = np.random.default_rng(9)
+        want = {}
+        for i in range(4):
+            want[f"hf{i}"] = 16
+            engine.add_request(f"hf{i}", prompt_token_ids=rng.integers(0, V, 200 + 50 * i).tolist(),
+                               sampling_params=SamplingParams(max_tokens=16, ignore_eos=True,
+                                                              temperature=0.0))
+        _build.reset_launch_counts()
+        r = _drive(engine, want)
+        launches["hf"] = dict(_build.LAUNCHES)
+        _require_path_a("hf (2 layers)", launches["hf"])
+        log(f"  hf: {r['finished']} requests served, {r['tokens_out']} tokens; launches "
+            f"{launches['hf']}")
+        summary.update(hf_gb=hf_bytes / 1e9, hf_write_s=write_s, hf_engine_s=hf_s,
+                       hf_cpu_quantize_s=cpu_s)
+        del engine
+        _release()
+        if _has("transformers") and _has("tokenizers"):
+            launches["text"], summary["text"] = _text_on_card(h, V)
+        else:
+            log("  text: not run on the card: transformers or tokenizers is not installed "
+                "here (tests/test_torch_checkpoint.py holds the text path on the CPU)")
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
     return launches, summary
 
 

@@ -1,22 +1,30 @@
 """EngineArgs: the CLI flag surface -> config objects -> engine
 (qserve_tpu/engine/arg_utils.py).
 
-The port builds a dense Llama, or a Mixtral sparse-MoE model when the config
-has `num_local_experts`, with random weights (`random_weights=True`, the
-geometry from a config dict or a model dir's config.json) on one device,
-at any precision of config._PRECISIONS (W4A8, W8A8 or W16A16 over a KV4 or
-KV8 cache), per-channel or per-group W4 (`group_size`), with a bf16 or a W8
-lm_head (`quant_lm_head`), and with the scheduler's defaults (chunked
-prefill and mixed chunk+decode steps on). Real checkpoints, VLM and TP/DP
-raise NotImplementedError naming their ROADMAP items.
+The port builds a dense Llama, or a Mixtral sparse-MoE model, on one
+device, at any precision of config._PRECISIONS (W4A8, W8A8 or W16A16 over
+a KV4 or KV8 cache), per-channel or per-group W4 (`group_size`), with a
+bf16 or a W8 lm_head (`quant_lm_head`), and with the scheduler's defaults
+(chunked prefill and mixed chunk+decode steps on). Its weights come from
+`model`, a local Hugging Face directory:
+
+  * a float checkpoint there, quantized at load on `device`;
+  * or, with `quant_path`, a packed QoQ checkpoint (dense Llama; either
+    package's), read and moved to `device`;
+  * or, with `random_weights`, seeded random weights of the geometry in
+    its config.json (or in `hf_config`, a config dict, with no directory).
+
+The tokenizer loads from `tokenizer` or `model` as in the JAX package; when
+it cannot load, the engine serves token ids only and says so in a warning.
+`benchmarking` keeps a stable decode batch's sampled ids on the device as
+the next step's input (worker/model_runner.py). VLM and TP/DP raise
+NotImplementedError naming their ROADMAP items.
 
 The CLI takes every flag of qserve_tpu's, so its command lines parse here.
 Flags with no meaning in the port (--no-ifb-mode, --no-scan-layers, the
-profiling lengths, -pp, --trust-remote-code) are accepted and ignored; the
-flags of unported items (--benchmarking, --quant-path, --tokenizer,
---tokenizer-mode, --img-per-seq) parse and then raise in build_engine. The
-NUM_GPU_PAGE_BLOCKS environment variable sets the page count when
---num-device-pages is not given, as in qserve_tpu.
+profiling lengths, -pp) are accepted and ignored. The NUM_GPU_PAGE_BLOCKS
+environment variable sets the page count when --num-device-pages is not
+given, as in qserve_tpu.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ class EngineArgs:
     model: str = ""
     tokenizer: Optional[str] = None
     tokenizer_mode: str = "auto"
-    trust_remote_code: bool = True  # accepted, ignored: no remote code runs
+    trust_remote_code: bool = True
     # Hugging Face config.json contents; with random_weights it replaces
     # reading `model`/config.json
     hf_config: Optional[dict] = None
@@ -91,7 +99,7 @@ class EngineArgs:
         g("--no-kv-zero-point", dest="kv_zero_point", action="store_false")
         g("--quant-lm-head", action="store_true")
         g("--quant-path", type=str, default=None,
-          help="packed QoQ checkpoint (not ported yet)")
+          help="packed QoQ checkpoint (from either package's checkpoint converter)")
         g("--block-size", type=int, default=256)
         g("--num-device-pages", type=int, default=None,
           help="KV pages on the card (auto-sized if omitted; the "
@@ -106,7 +114,8 @@ class EngineArgs:
         g("--pipeline-parallel-size", "-pp", type=int, default=1)
         g("--no-ifb-mode", dest="ifb_mode", action="store_false")
         g("--benchmarking", action="store_true",
-          help="device-feed decode (not ported yet)")
+          help="device-feed decode: a stable decode batch's sampled ids stay "
+               "on the device as the next step's input (placeholder ids out)")
         g("--profiling-prompt-len", type=int, default=None)
         g("--profiling-generation-len", type=int, default=None)
         g("--random-weights", action="store_true")
@@ -151,24 +160,9 @@ class EngineArgs:
     def _refuse_unported(self) -> None:
         if self.run_vlm or self.img_per_seq != 1:
             raise NotImplementedError("VLM is not ported yet (ROADMAP queue 1, VLM)")
-        if self.benchmarking:
-            raise NotImplementedError(
-                "the benchmarking device-feed mode is not ported yet (ROADMAP "
-                "queue 1, the runner's benchmarking device-feed mode)"
-            )
-        if self.quant_path or self.tokenizer or self.tokenizer_mode != "auto":
-            raise NotImplementedError(
-                "checkpoints and tokenizers are not ported yet (ROADMAP queue "
-                "1, the checkpoint loader, with the tokenizer)"
-            )
         if self.tensor_parallel_size > 1 or self.data_parallel_size > 1:
             raise NotImplementedError(
                 "tensor/data parallelism is not ported yet (ROADMAP queue 1, TP)"
-            )
-        if not self.random_weights:
-            raise NotImplementedError(
-                "checkpoint loading is not ported yet (ROADMAP queue 1, the "
-                "checkpoint loader); use random_weights=True"
             )
 
     def model_config_dict(self) -> dict:
@@ -179,26 +173,37 @@ class EngineArgs:
 
     # ------------------------------------------------------------------
     def build_engine(self):
-        """Construct the engine (random init included)."""
+        """Construct the engine (checkpoint load or random init included)."""
         from qserve_tpu_torch.engine.llm_engine import LLMEngine
-        from qserve_tpu_torch.models import llama, mixtral
+        from qserve_tpu_torch.models import llama, loader, mixtral
         from qserve_tpu_torch.worker.worker import Worker
 
         self._refuse_unported()
         cache_config, scheduler_config = self.create_engine_configs()
-        cfg = self.model_config_dict()
-        # an MoE config builds MoE layers (the JAX package's single-device
-        # random-weight path read it as a dense model of the same widths)
-        if cfg.get("num_local_experts"):
-            args = mixtral.args_from_config_dict(cfg, self.quant_spec())
-            build = mixtral.random_quantized_params
+        quant = self.quant_spec()
+        # params before the cache: auto-sizing reads what the weights left free
+        if self.random_weights:
+            cfg = self.model_config_dict()
+            # an MoE config builds MoE layers (the JAX package's single-device
+            # random-weight path read it as a dense model of the same widths)
+            if cfg.get("num_local_experts"):
+                args = mixtral.args_from_config_dict(cfg, quant)
+                build = mixtral.random_quantized_params
+            else:
+                args = llama.LlamaArgs.from_config_dict(cfg, quant)
+                build = llama.random_quantized_params
+            params = build(self.seed, args, self.device)
         else:
-            args = llama.LlamaArgs.from_config_dict(cfg, self.quant_spec())
-            build = llama.random_quantized_params
+            if self.hf_config is not None:
+                raise ValueError(
+                    "hf_config serves random weights only: a checkpoint needs "
+                    "`model` to be its directory"
+                )
+            args, params = loader.load_model(
+                self.model, quant, quant_path=self.quant_path, device=self.device
+            )
         if args.sliding_window is not None:
             cache_config.sliding_window = args.sliding_window
-        # params before the cache: auto-sizing reads what the weights left free
-        params = build(self.seed, args, self.device)
         if cache_config.num_device_pages is None:
             cache_config.num_device_pages = auto_num_pages(
                 args, cache_config, self.gpu_memory_utilization, self.device
@@ -206,12 +211,26 @@ class EngineArgs:
             logger.info("Auto-sized KV cache: %d pages", cache_config.num_device_pages)
         worker = Worker.create(
             args, cache_config, scheduler_config, params=params,
-            seed=self.seed, device=self.device,
+            seed=self.seed, device=self.device, benchmarking=self.benchmarking,
         )
         return LLMEngine(
-            worker, scheduler_config, cache_config,
+            worker, scheduler_config, cache_config, tokenizer=self.load_tokenizer(),
             log_stats=not self.disable_log_stats,
         )
+
+    def load_tokenizer(self):
+        """The tokenizer of `tokenizer` or `model`, or None (token ids only)
+        with a warning when it cannot load, as in the JAX package."""
+        from qserve_tpu_torch.utils.tokenizer import get_tokenizer
+
+        try:
+            return get_tokenizer(
+                self.tokenizer or self.model, self.tokenizer_mode,
+                self.trust_remote_code,
+            )
+        except Exception as e:
+            logger.warning("Tokenizer unavailable (%s); token-id-only mode", e)
+            return None
 
 
 def auto_num_pages(model_args, cache_config: CacheConfig, mem_fraction: float,
@@ -230,3 +249,25 @@ def auto_num_pages(model_args, cache_config: CacheConfig, mem_fraction: float,
     else:
         free = 8 << 30
     return max(16, int(free * mem_fraction) // page_bytes)
+
+
+@dataclasses.dataclass
+class AsyncEngineArgs(EngineArgs):
+    """Async-serving argument surface (qserve_tpu's, kept for API parity).
+
+    engine_use_ray / worker_use_ray have no meaning here (one engine process
+    drives one device); they are accepted and ignored so vLLM-style
+    launchers keep working.
+    """
+
+    engine_use_ray: bool = False
+    worker_use_ray: bool = False
+    max_log_len: int = 0
+
+    @staticmethod
+    def add_cli_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+        parser = EngineArgs.add_cli_args(parser)
+        parser.add_argument("--engine-use-ray", action="store_true")
+        parser.add_argument("--worker-use-ray", action="store_true")
+        parser.add_argument("--max-log-len", type=int, default=0)
+        return parser

@@ -5,9 +5,15 @@ GLOBAL_BATCH_SIZE requests of fixed prompt/generation lengths with random
 token ids, run for N rounds; prints and appends output tok/s to a CSV.
 
   python -m qserve_tpu_torch.entrypoints.benchmark --model <dir with config.json> \
-      --random-weights --precision w4a8kv4 [--group-size 128] [--quant-lm-head]
+      --random-weights --precision w4a8kv4 [--group-size 128] [--quant-lm-head] \
+      [--benchmarking]
 
-Each CSV row names the precision, the W4 group size and the lm_head bits.
+`--model` may also hold a float checkpoint (quantized at load), with
+`--quant-path` a packed one, in place of `--random-weights`. With
+`--benchmarking` a stable decode batch feeds its sampled ids back on the
+device (worker/model_runner.py) and the engine sees placeholder ids. Each
+CSV row names the precision, the W4 group size, the lm_head bits and
+whether the decode was device-fed.
 """
 
 from __future__ import annotations
@@ -133,6 +139,7 @@ def run(engine, vocab_size, batch, prompt_len, gen_len, rounds, csv_path,
               f"median {dec:.2f} ms")
         rows.append(dict(precision=quant.precision, group_size=quant.group_size,
                          lm_head_bits=quant.lm_head_bits,
+                         device_feed=engine.worker.model_runner.benchmarking,
                          round=rnd, batch=batch, prompt_len=prompt_len,
                          generation_len=gen_len, seconds=dt, tokens_per_s=tput,
                          prefill_step_ms_mean=pre, decode_step_ms_median=dec,

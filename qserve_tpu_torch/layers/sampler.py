@@ -2,7 +2,8 @@
 
 Per-request temperature / top-k / top-p arrive as host tensors [B], so the
 branch between greedy, raw-temperature and filtered sampling is decided on
-the host without reading the device.
+the host without reading the device; they reach the device through pinned
+staging copies (utils.to_device), which do not wait for the card.
 
   all greedy                    -> argmax
   raw temperature (no filters)  -> Gumbel-argmax over the scaled row
@@ -25,6 +26,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from qserve_tpu_torch.utils.utils import to_device
 
 NEG_INF = -1e30
 
@@ -104,7 +107,7 @@ def _sample_filtered_cuda(scaled, top_p, top_k, noise, seed_generator):
         ).tolist()
     dev = scaled.device
     return sample_filtered(
-        scaled.contiguous(), k_eff.to(dev), p_target.to(dev),
+        scaled.contiguous(), to_device(k_eff, dev), to_device(p_target, dev),
         bool((k_eff < V).any()), bool((top_p < 1.0).any()),
         seed, offset, noise,
     )
@@ -129,7 +132,8 @@ def sample(
     dev = logits.device
     k_eff = torch.where(top_k <= 0, V, top_k.clamp(1, V))
     filtered = sampling & ((k_eff < V) | (top_p < 1.0))
-    scaled = logits / temperature.clamp(min=1e-6).to(dev)[:, None]
+    scaled = logits / to_device(temperature.clamp(min=1e-6), dev)[:, None]
+    sampling_dev = to_device(sampling, dev)
     if bool(filtered.any()):
         # rows without a filter of their own get top_p = 1, top_k = 0, so
         # the bisections see exactly the rows that need them
@@ -137,10 +141,10 @@ def sample(
         k_in = torch.where(filtered, top_k, 0)
         if logits.is_cuda:
             sampled = _sample_filtered_cuda(scaled, p_eff, k_in, noise, seed_generator)
-            return torch.where(sampling.to(dev), sampled, greedy_ids)
+            return torch.where(sampling_dev, sampled, greedy_ids)
         scaled = threshold_mask(scaled, p_eff, k_in)
     if noise is None:
         u = torch.rand(scaled.shape, generator=generator, device=dev)
         noise = -torch.log(-torch.log(u))
     sampled = (scaled + noise).argmax(dim=-1).to(torch.int32)
-    return torch.where(sampling.to(dev), sampled, greedy_ids)
+    return torch.where(sampling_dev, sampled, greedy_ids)

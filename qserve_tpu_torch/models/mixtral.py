@@ -3,11 +3,11 @@
 
 The forward lives in models/llama.py (`_moe_mlp`, chosen by the layers'
 type, MoELayerParams); here the stacked per-expert weights are built:
-random from a seeded generator on the device, or quantized from the JAX
-package's float weight dict. Both quantize expert by expert into
-preallocated stacked tensors, so the float model never exists whole
-(Mixtral-8x7B would be ~187 GB in f32). Loading a Hugging Face checkpoint
-waits for the port's checkpoint loader.
+random from a seeded generator on the device, or quantized from a float
+weight dict (the JAX package's layout, or a Hugging Face checkpoint's
+through load_float_params_from_hf). Both quantize expert by expert into
+preallocated stacked tensors, so the f32 model never exists whole
+(Mixtral-8x7B would be ~187 GB in f32).
 """
 
 from __future__ import annotations
@@ -122,3 +122,53 @@ def quantize_params(float_params: dict, args: llama.LlamaArgs,
         final_ln=t(float_params["final_ln"]),
         lm_head=llama.make_lm_head(t(float_params["lm_head"]), args.quant),
     )
+
+
+def load_float_params_from_hf(model_dir: str, args: llama.LlamaArgs) -> dict:
+    """HF Mixtral weights -> the float param dict quantize_params takes
+    ([in, out] layout, CPU tensors in the stored dtype):
+    self_attn.{q,k,v,o}_proj, block_sparse_moe.gate (the router) and
+    block_sparse_moe.experts.{e}.{w1 gate, w3 up, w2 down}."""
+    from qserve_tpu_torch.models.loader import _layer_name
+    from qserve_tpu_torch.utils.weight_utils import hf_model_weights_iterator
+
+    L, NE = args.num_layers, args.num_experts
+    layers = [dict() for _ in range(L)]
+    qkv_parts = [dict() for _ in range(L)]
+    w13 = [[dict() for _ in range(NE)] for _ in range(L)]
+    top = {}
+    attn = {
+        "input_layernorm.weight": ("input_ln", False),
+        "post_attention_layernorm.weight": ("post_ln", False),
+        "self_attn.o_proj.weight": ("o", True),
+        "block_sparse_moe.gate.weight": ("router", True),
+    }
+    for name, w in hf_model_weights_iterator(model_dir):
+        if name == "model.embed_tokens.weight":
+            top["embed"] = w
+        elif name == "model.norm.weight":
+            top["final_ln"] = w
+        elif name == "lm_head.weight":
+            top["lm_head"] = w.T
+        elif (hit := _layer_name(name)) is not None:
+            li, sub, parts = hit
+            if sub in attn:
+                key, transpose = attn[sub]
+                layers[li][key] = w.T if transpose else w
+            elif sub in ("self_attn.q_proj.weight", "self_attn.k_proj.weight",
+                         "self_attn.v_proj.weight"):
+                qkv_parts[li][sub[len("self_attn.")]] = w.T
+            elif sub.startswith("block_sparse_moe.experts."):
+                w13[li][int(parts[5])][parts[6]] = w.T
+
+    for li in range(L):
+        qp = qkv_parts[li]
+        layers[li]["qkv"] = torch.cat([qp["q"], qp["k"], qp["v"]], dim=1)
+        layers[li]["experts_gate_up"] = [
+            torch.cat([w13[li][e]["w1"], w13[li][e]["w3"]], dim=1) for e in range(NE)
+        ]
+        layers[li]["experts_down"] = [w13[li][e]["w2"] for e in range(NE)]
+    if "lm_head" not in top:
+        top["lm_head"] = top["embed"].T
+    return dict(embed=top["embed"], layers=layers,
+                final_ln=top["final_ln"], lm_head=top["lm_head"])

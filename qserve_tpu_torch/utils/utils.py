@@ -46,3 +46,16 @@ def resolve_device(device) -> "torch.device":
             "PyTorch path"
         )
     return dev
+
+
+def to_device(x: "torch.Tensor", device) -> "torch.Tensor":
+    """A host tensor on `device`. To CUDA through a pinned staging copy
+    queued on the current stream: a copy from pageable memory makes the host
+    wait for the stream, and so for the card's queued work. The caching
+    host allocator keeps the staging block until the copy has run."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)

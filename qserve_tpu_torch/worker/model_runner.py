@@ -5,12 +5,21 @@ Shapes are bucketed as in the JAX package (prefill and chunk tokens to a
 power of two >= 16, decode batch to a power of two), so the kernels see the
 same padded shapes. Sampling runs on the device; only the sampled ids [B]
 cross back. A chunk's start is a host integer and reaches the attention
-kernel as a scalar argument, never through a device read.
+kernel as a scalar argument, never through a device read. Host inputs
+reach the card from pinned staging copies (utils.to_device), so no copy
+waits for the card's queue.
+
+With `benchmarking` (the JAX package's device-feed mode), a decode step
+whose batch has the same sequences in the same order and width as the
+decode step before takes that step's sampled ids, still on the device, as
+its input tokens, and returns placeholder ids (0) without reading them
+back: the host queues step n+1 while the card runs step n. Prefill, chunk
+and mixed steps return real ids; a mixed step ends the feed.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +28,7 @@ from qserve_tpu_torch import native
 from qserve_tpu_torch.layers import sampler as sampler_mod
 from qserve_tpu_torch.models import llama
 from qserve_tpu_torch.sequence import SequenceGroupMetadata
-from qserve_tpu_torch.utils.utils import bucket, resolve_device
+from qserve_tpu_torch.utils.utils import bucket, resolve_device, to_device
 
 _SAMPLING_EPS = 1e-5
 
@@ -67,6 +76,7 @@ class ModelRunner:
         max_num_seqs: int = 256,
         rng_seed: int = 0,
         device="cuda",
+        benchmarking: bool = False,
     ) -> None:
         self.device = resolve_device(device)
         self.params = params
@@ -82,6 +92,10 @@ class ModelRunner:
         self._host_rng = np.random.default_rng(rng_seed + 1)
         # seq_id -> extra candidate tokens from the latest prefill (best_of>1)
         self.last_extra_samples: Dict[int, List[int]] = {}
+        # device feed: the last decode step's sequence order and sampled ids
+        self.benchmarking = benchmarking
+        self._prev_order: Optional[tuple] = None
+        self._prev_toks: Optional[torch.Tensor] = None
 
     @classmethod
     def from_random(
@@ -99,7 +113,7 @@ class ModelRunner:
 
     # ------------------------------------------------------------------
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device, non_blocking=True)
+        return to_device(torch.from_numpy(a), self.device)
 
     @staticmethod
     def _sampling_arrays(per_seq_params, pad_to: int):
@@ -228,6 +242,7 @@ class ModelRunner:
         )
         toks = self._sample(logits, [chunk_md.sampling_params] + d_sps, 1 + B)
         self.last_extra_samples = {}
+        self._prev_order = None  # the decode rows advanced outside execute_decode
         out = toks.cpu().numpy()
         return [(seq_id, int(out[0]))] + [
             (sid, int(out[1 + i])) for i, sid in enumerate(d_order)
@@ -263,10 +278,18 @@ class ModelRunner:
         cache_engine,
     ) -> List[Tuple[int, int]]:
         seq_order, sp_list, packed, B = self._pack_decode(metadata)
+        order = tuple(seq_order)
+        if (self.benchmarking and self._prev_order == order
+                and self._prev_toks is not None and self._prev_toks.shape[0] == B):
+            packed = (self._prev_toks,) + packed[1:]
         logits, cache_engine.cache = llama.decode(
             self.params, cache_engine.cache, *packed, self.model_args
         )
         toks = self._sample(logits, sp_list, B)
         self.last_extra_samples = {}
+        if self.benchmarking:
+            self._prev_order, self._prev_toks = order, toks
+            # placeholder ids: benchmark mode never reads the values back
+            return [(sid, 0) for sid in seq_order]
         out = toks.cpu().numpy()
         return [(sid, int(out[i])) for i, sid in enumerate(seq_order)]

@@ -26,6 +26,7 @@ class Worker:
         params=None,
         seed: int = 0,
         device="cuda",
+        benchmarking: bool = False,
     ) -> "Worker":
         kw = dict(
             max_model_len=scheduler_config.max_model_len,
@@ -33,6 +34,7 @@ class Worker:
             max_num_batched_tokens=scheduler_config.max_num_batched_tokens,
             max_num_seqs=scheduler_config.max_num_seqs,
             device=device,
+            benchmarking=benchmarking,
         )
         if params is None:
             runner = ModelRunner.from_random(model_args, seed=seed, **kw)

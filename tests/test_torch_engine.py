@@ -360,11 +360,6 @@ def test_benchmark_labels_steps_by_what_the_scheduler_emitted(pair, tmp_path):
     dict(run_vlm=True),
     dict(tensor_parallel_size=2),
     dict(data_parallel_size=2),
-    dict(random_weights=False),
-    dict(benchmarking=True),
-    dict(quant_path="packed.safetensors"),
-    dict(tokenizer="tok"),
-    dict(tokenizer_mode="slow"),
     dict(img_per_seq=2),
 ])
 def test_engine_args_refuse_unported(kw):
@@ -444,23 +439,27 @@ def test_engine_args_default_to_cuda():
                        num_device_pages=16).build_engine()
 
 
-def test_cli_takes_the_jax_packages_flags():
+def test_cli_takes_the_jax_packages_flags(tmp_path):
     """The JAX benchmark's documented command line (and every flag of
-    qserve_tpu's EngineArgs) parses on the port's benchmark parser; the
-    flags without meaning here are accepted and left at their values."""
+    qserve_tpu's EngineArgs) parses on the port's benchmark parser and
+    builds a device-fed engine; the flags without meaning here are accepted
+    and left at their values."""
     import argparse
+    import json
 
     from qserve_tpu.engine.arg_utils import EngineArgs as JEngineArgs
     from qserve_tpu_torch.entrypoints import benchmark
 
-    argv = ["--model", "cfgdir", "--random-weights", "--precision", "w4a8kv4",
-            "--benchmarking"]
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump(_hf_config(), f)
+    argv = ["--model", str(tmp_path), "--random-weights", "--precision", "w4a8kv4",
+            "--benchmarking", "--device", "cpu", "--num-device-pages", "16",
+            "--block-size", str(BS), "--max-model-len", "128"]
     a = benchmark.add_args(argparse.ArgumentParser()).parse_args(argv)
     ea = EngineArgs.from_cli_args(a)
-    assert ea.model == "cfgdir" and ea.random_weights and ea.benchmarking
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, the runner's "
-                                                  "benchmarking device-feed mode"):
-        ea._refuse_unported()
+    assert ea.model == str(tmp_path) and ea.random_weights and ea.benchmarking
+    engine = ea.build_engine()
+    assert engine.worker.model_runner.benchmarking and engine.tokenizer is None
     # every option string of the JAX parser is one of the port's
     jp, tp = argparse.ArgumentParser(), argparse.ArgumentParser()
     JEngineArgs.add_cli_args(jp)

@@ -1,7 +1,10 @@
 """The port stands alone: importing qserve_tpu_torch (engine included)
-loads neither JAX nor the JAX package nor triton, and no source file of the
-port or chip_smoke.py imports JAX, the JAX package or triton (every kernel
-is CUDA C++ built by nvcc)."""
+loads neither JAX nor the JAX package nor triton, safetensors or
+transformers, and no source file of the port or chip_smoke.py imports JAX,
+the JAX package, triton (every kernel is CUDA C++ built by nvcc) or
+safetensors (the port reads and writes the format itself); transformers is
+imported only inside a function (utils/tokenizer.py's get_tokenizer), never
+by chip_smoke.py: the port needs neither library to serve token ids."""
 
 import os
 import re
@@ -15,8 +18,13 @@ PKG = os.path.join(ROOT, "qserve_tpu_torch")
 
 # `qserve_tpu_torch` starts with `qserve_tpu`: match the JAX package only
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|triton\b|qserve_tpu(?!_torch)\b)", re.M
+    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|triton\b|safetensors\b|qserve_tpu(?!_torch)\b)",
+    re.M,
 )
+# transformers: inside a function only (an indented import)
+TOP_LEVEL_TRANSFORMERS = re.compile(r"^(?:import|from)\s+transformers\b", re.M)
+ANY_TRANSFORMERS = re.compile(r"^\s*(?:import|from)\s+transformers\b", re.M)
+NOT_IMPORTED = ('jax', 'jaxlib', 'qserve_tpu', 'triton', 'safetensors', 'transformers')
 
 
 def _port_modules():
@@ -37,7 +45,7 @@ def test_import_leaves_jax_out():
         f"for m in {_port_modules()!r}:\n"
         "    __import__(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'qserve_tpu', 'triton'))\n"
+        f"{NOT_IMPORTED!r})\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -58,7 +66,10 @@ def _sources():
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_import_in_source(path):
     with open(path) as f:
-        hits = FORBIDDEN.findall(f.read())
+        src = f.read()
+    hits = FORBIDDEN.findall(src) + TOP_LEVEL_TRANSFORMERS.findall(src)
+    if path.endswith("chip_smoke.py"):
+        hits += ANY_TRANSFORMERS.findall(src)
     assert not hits, hits
 
 
@@ -90,3 +101,6 @@ def test_scan_pattern():
     assert FORBIDDEN.search("    import jax.numpy as jnp")
     assert FORBIDDEN.search("    import triton.language as tl")
     assert not FORBIDDEN.search("from qserve_tpu_torch.kernels import ops")
+    assert FORBIDDEN.search("    from safetensors.numpy import load_file")
+    assert TOP_LEVEL_TRANSFORMERS.search("from transformers import AutoTokenizer")
+    assert not TOP_LEVEL_TRANSFORMERS.search("    from transformers import AutoTokenizer")
