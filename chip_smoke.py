@@ -96,7 +96,47 @@
    i. Mixtral-8x7B W8A8KV8, the same.
    Every kernel a path's precision calls must have launched on it, and the
    GEMMs of the other precisions must not.
-5. Refusal phase: what is still unported (tensor parallelism) raises
+5. VLM reference phase: a small VILA (the `tiny` preset's tower: hidden
+   64, 2 layers, image 32, patch 8; an mlp_downsample projector; the small
+   model above as its LLM) served by the kernels on the card and by the
+   plain versions on the CPU at W4A8KV4 per-channel and W8A8KV8: an image
+   prefill of two prompts and three images, a chunk whose first rows
+   finish an image's marker run, a decode step; logits within 5% of their
+   range. Towers phase: CLIP-L/14-336 and SigLIP-so400m-384 with their
+   mlp_downsample projectors at full width on 2 images, card (bf16)
+   against CPU (bf16, the same code), each element within one bf16 step
+   plus TOWER_FLOOR of the largest |output| (the measured need printed)
+   and a relative RMS error within TOWER_RMS; a tower with one layer
+   skipped and one with the wrong activation must fail that check (a third
+   control, bf16 attention, is printed: it reads as a sound tower does).
+6. VLM phase, at full width and depth (32 layers), random weights from a
+   seed, mixed steps off (a VLM's chunks run alone):
+   j. Llama-3-8B W4A8KV4 per-channel with a CLIP-L/14-336 tower and an
+      mlp_downsample projector (144 tokens an image), through
+      EngineArgs(run_vlm=True, random_weights=True, hf_config=LLAMA3_8B);
+   k. Llama-3-8B W8A8KV8 with a SigLIP-so400m-384 tower (27-grid, padded
+      to 14 x 14 = 196 tokens an image), built through
+      VisionArgs.from_hf_config, Worker.create_vlm and LLMEngine.
+   Traffic of each: 8 one-image captions (6 greedy, 2 at temperature 0.8 /
+   top-p 0.9, 32 tokens), a 4-image request, a text-only one and an n = 2
+   image request; then a ~2240-token prompt (text, 2 images, 50 ids) alone,
+   whose first 2048-row chunk ends inside its second image's markers.
+   Images are numpy arrays passed with their pixel values; where PIL
+   imports, one caption goes through preprocess_images. Asserts the path's
+   GEMM (K2 on j, K9 on k) and no other, K3, K4, K5, K6 (the straddling
+   chunk) and K7, no mixed step, and different greedy streams for two
+   images in one prompt slot; prints step ms by kind, peak memory, the
+   tower + projector ms per image batch and the caption round's images/s
+   (a smoke reading). Then two load rounds at the captioning entry point's
+   own batch (64 one-image requests, 96 greedy tokens): images/s, step ms
+   by kind, the tower's share of the prefill steps (CUDA events read after
+   each step, cold calls marked).
+7. VLM entry points, where PIL (and a tokenizer library) imports:
+   vila_caption.main() over a two-sample tar shard written into a
+   gitignored directory of the checkout (j's config cut to 2 layers), run
+   twice (the rerun skips the finished shard), and benchmark_image.main()
+   at j's geometry with 64 one-image requests of 96 tokens.
+8. Refusal phase: what is still unported (tensor parallelism) raises
    instead of running something else.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
@@ -142,6 +182,28 @@ MIXTRAL_8X7B = dict(
     rope_theta=1e6, rms_norm_eps=1e-5, sliding_window=None,
     num_local_experts=8, num_experts_per_tok=2,
 )
+# CLIP-L/14-336 (openai/clip-vit-large-patch14-336 config.json vision_config)
+CLIP_L_336 = dict(
+    model_type="clip_vision_model", hidden_size=1024, intermediate_size=4096,
+    num_hidden_layers=24, num_attention_heads=16, image_size=336, patch_size=14,
+)
+# SigLIP-so400m (google/siglip-so400m-patch14-384 config.json vision_config;
+# the tower of Efficient-Large-Model/Llama-3-VILA1.5-8B)
+SIGLIP_SO400M_384 = dict(
+    model_type="siglip_vision_model", hidden_size=1152, intermediate_size=4304,
+    num_hidden_layers=27, num_attention_heads=16, image_size=384, patch_size=14,
+    layer_norm_eps=1e-6,
+)
+# the full-width towers against their CPU run (random weights, the same
+# code): each element within one bf16 step plus TOWER_FLOOR of the largest
+# |output|, and the relative RMS error within TOWER_RMS. Sound towers over
+# 4 weight and image seeds on an H100 (scripts/tower_noise.py) need a floor
+# of 0.0114-0.0254 and read an RMS error of 0.0125-0.0148; a skipped layer
+# needs 0.177-0.205 (RMS 0.198-0.209), the wrong activation reads an RMS
+# error of 0.0215-0.0245. bf16 attention reads as a sound tower does:
+# neither statistic sees it.
+TOWER_FLOOR = 5e-2
+TOWER_RMS = 1.8e-2
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32, bf16 and int8 ops/s
 HBM_BPS = 3.35e12
 F32_OPS = 67e12  # outside the tensor cores
@@ -1277,13 +1339,8 @@ def _reference(dev, precision, group_size, lm_head_bits, moe, rec):
     tag = f"{'Mixtral ' if moe else ''}{precision} group {group_size} lm_head W{lm_head_bits}"
     before = dict(_build.LAUNCHES)
 
-    def to(x, d):  # a tensor, or a (nested) NamedTuple of tensors
-        if isinstance(x, torch.Tensor):
-            return x.to(d)
-        return type(x)(*(to(y, d) for y in x))
-
     cpu = (mixtral if moe else llama).random_quantized_params(0, args, device="cpu")
-    gpu = to(cpu, dev)
+    gpu = _to(cpu, dev)
     ps, lens, T = 16, [37, 20], 64
     rng = np.random.default_rng(7)
     tok = np.zeros(T, np.int32)
@@ -1491,6 +1548,8 @@ def _report(tag, r, launches):
 
 
 def _build_engine(dev, tag, cfg, **kw):
+    """EngineArgs -> engine at the default scheduler (mixed steps off for a
+    VLM, whose chunks run alone)."""
     import torch
 
     from qserve_tpu_torch.engine.arg_utils import EngineArgs
@@ -1501,7 +1560,8 @@ def _build_engine(dev, tag, cfg, **kw):
         max_num_batched_tokens=2048, max_num_seqs=64, **kw,
     ).build_engine()
     sc = engine.scheduler.scheduler_config
-    assert sc.enable_chunked_prefill and sc.mixed_chunk_decode, "default scheduler"
+    assert sc.enable_chunked_prefill and sc.mixed_chunk_decode != kw.get("run_vlm", False), \
+        "default scheduler"
     torch.cuda.synchronize()
     cache = engine.worker.cache_engine.cache
     log(f"  {tag}: engine built in {time.perf_counter() - t0:.1f} s "
@@ -1697,6 +1757,8 @@ def _param_gib(params):
     """GiB of a (nested) NamedTuple of tensors."""
     import torch
 
+    if params is None:
+        return 0.0
     if isinstance(params, torch.Tensor):
         return params.numel() * params.element_size() / 2**30
     return sum(_param_gib(p) for p in params)
@@ -1796,6 +1858,529 @@ def phase_engine(dev):
                 moe=(rec, dense, routed))
         del engine
         _release()
+    return launches, summary
+
+
+# --------------------------------------------------------------------------
+# VLM phases
+# --------------------------------------------------------------------------
+
+
+def _to(x, d):
+    """A tensor, None, or a (nested) tuple / NamedTuple of them, on d."""
+    import torch
+
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.to(d)
+    items = [_to(y, d) for y in x]
+    return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+
+
+def phase_reference_vlm(dev, precision, group_size=-1):
+    """A small VILA served by the kernels on the card and by the plain
+    versions on the CPU, same params: the `tiny` preset's tower (hidden 64,
+    2 layers, image 32, patch 8, bf16) and an mlp_downsample projector (4
+    tokens an image) over phase_reference's small LLM. Steps: an image
+    prefill of two prompts holding three images (the second prompt starts on
+    its image); a 32-token prefill of a third prompt, then a chunk over that
+    cached prefix whose first rows finish its image's marker run; a decode
+    step of the first two. Logits within 5% of their range at every step."""
+    import torch
+
+    from qserve_tpu_torch import native
+    from qserve_tpu_torch.config import QuantSpec
+    from qserve_tpu_torch.kernels import _build, kv_cache as kvc
+    from qserve_tpu_torch.models import clip, llama, mm_projector, vila
+    from qserve_tpu_torch.utils.constants import IMAGE_TOKEN_INDEX as IMG
+
+    quant = QuantSpec.from_precision(precision, group_size)
+    largs = llama.LlamaArgs(quant=quant, vocab_size=512, hidden_size=256,
+                            intermediate_size=512, num_layers=2, num_heads=4,
+                            num_kv_heads=2, head_dim=64)
+    vargs = clip.VisionArgs(hidden_size=64, intermediate_size=128, num_layers=2,
+                            num_heads=4, image_size=32, patch_size=8)
+    args = vila.VilaArgs(largs, vargs, mm_projector.ProjectorArgs(
+        "mlp_downsample", 64, 256, grid=vargs.grid))
+    tpi, ps = args.tokens_per_image, 16
+    cpu = vila.random_params(0, args, device="cpu")
+    params = {"cpu": cpu, dev: _to(cpu, dev)}
+    caches = {d: kvc.create_kv_cache(2, 10, 2, ps, 64, quant.kv_bits, device=d)
+              for d in ("cpu", dev)}
+    rng = np.random.default_rng(11)
+    text = lambda n: rng.integers(1, 512, n).tolist()
+    before = dict(_build.LAUNCHES)
+    worst = {}
+
+    def both(fn):  # the card first, then the CPU
+        return {d: fn(d, lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(d))
+                for d in (dev, "cpu")}
+
+    def compare(tag, outs):
+        a, b = outs["cpu"].float(), outs[dev].float().cpu()
+        assert torch.isfinite(b).all()
+        rel = (a - b).abs().max().item() / a.abs().max().item()
+        worst[tag] = round(rel, 5)
+        assert rel <= 0.05, f"{tag}: card vs CPU differ by {rel:.3g} of their range"
+        return a
+
+    def prefill(d, t, packed, emb):
+        tok, pos, seg, pg, sl, ii, li, _ = packed
+        return vila.vlm_prefill(params[d].llm, caches[d], t(tok), emb[d], t(ii),
+                                *map(t, (pos, seg, pg, sl, li)), largs)[0]
+
+    prompts = [text(5) + [IMG] * tpi + text(6) + [IMG] * tpi + text(3),
+               [IMG] * tpi + text(17)]
+    images = rng.standard_normal((3, 3, 32, 32)).astype(np.float32)
+    emb = both(lambda d, t: vila.encode_images(params[d], t(images), args))
+    compare("image embeddings (tower + projector)", emb)
+    packed = native.pack_prefill(prompts, [[0, 1], [2, 3]], ps, 64, 2, image_token=IMG)
+    logits = compare("image prefill", both(lambda d, t: prefill(d, t, packed, emb)))
+
+    ids3 = text(30) + [IMG] * tpi + text(10)  # the image straddles position 32
+    img3 = rng.standard_normal((1, 3, 32, 32)).astype(np.float32)
+    emb3 = both(lambda d, t: vila.encode_images(params[d], t(img3), args))
+    table3 = [5, 6, 7]
+    first = native.pack_prefill([ids3[:32]], [table3], ps, 32, 1, image_token=IMG)
+    compare("prefill of a chunked prompt's first 32 tokens",
+            both(lambda d, t: prefill(d, t, first, emb3)))
+    tok, pos, seg, pg, sl, ii, li, _ = native.pack_prefill(
+        [ids3[32:]], [table3], ps, 16, 1, starts=[32], image_token=IMG)
+    ii = np.where(tok == IMG, ii + ids3[:32].count(IMG), 0).astype(np.int32)
+    assert tok[0] == IMG and ii[0] == 2, "the chunk must start inside the image's markers"
+    bt3 = np.array([table3], np.int32)
+    compare("chunk finishing an image", both(lambda d, t: vila.vlm_prefill_chunk(
+        params[d].llm, caches[d], t(tok), emb3[d], t(ii), *map(t, (pos, seg, pg, sl, li)),
+        t(bt3), 32, largs)[0]))
+
+    tok_d = logits.argmax(-1).to(torch.int32).numpy()
+    ctx = np.array([len(p) + 1 for p in prompts], np.int32)
+    bt = np.array([[0, 1], [2, 3]], np.int32)
+    compare("decode", both(lambda d, t: llama.decode(
+        params[d].llm, caches[d], *map(t, (tok_d, bt, ctx)), largs)[0]))
+    ran = sorted(k for k, v in _build.LAUNCHES.items() if v > before.get(k, 0))
+    log(f"  reference VLM {precision} group {group_size}: card vs CPU max|diff| / max|out| "
+        f"by step {worst} (limit 0.05); kernels: {ran}")
+    gemm = "w4a8_gemm_per_chn" if quant.weight_bits == 4 else "w8a8_gemm"
+    _require(f"reference VLM {precision}", {k: 1 for k in ran},
+             ran=("elementwise", gemm, "flash_prefill_attention", "prefix_prefill_attention",
+                  "paged_decode_attention", "kv_append"))
+
+
+def phase_towers(dev):
+    """The full-width towers and their projectors at bf16 on 2 images, the
+    card against the CPU (the same code, the same weights): CLIP-L/14-336
+    and SigLIP-so400m-384, each with an mlp_downsample projector into
+    Llama-3-8B's width (144 and 196 tokens an image). Each element of the
+    features and of the embeddings within one bf16 step plus TOWER_FLOOR of
+    the largest |output| (`hold`, which prints the floor that would just
+    pass), and a relative RMS error within TOWER_RMS; the broken towers of
+    _tower_controls must fail that (scripts/tower_noise.py reads both over
+    seeds). Times tower + projector on the card, warm, at 1, 2, 8 and 16
+    images."""
+    import torch
+
+    from qserve_tpu_torch.models import clip, mm_projector
+
+    out = {}
+    for name, cfg in (("CLIP-L/14-336", CLIP_L_336), ("SigLIP-so400m-384", SIGLIP_SO400M_384)):
+        vargs = clip.VisionArgs.from_hf_config(cfg)
+        pargs = mm_projector.ProjectorArgs("mlp_downsample", vargs.hidden_size,
+                                           LLAMA3_8B["hidden_size"], grid=vargs.grid)
+        gen = torch.Generator().manual_seed(0)
+        vp = clip.random_params(gen, vargs, "cpu")
+        pp = mm_projector.random_params(gen, pargs, "cpu")
+        S = vargs.image_size
+        img = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (2, 3, S, S)).astype(np.float32))
+        t0 = time.perf_counter()
+        feats = clip.forward_features(vp, img, vargs)
+        emb = mm_projector.apply_projector(pp, feats, pargs)
+        cpu_s = time.perf_counter() - t0
+        vg, pg, ig = _to(vp, dev), _to(pp, dev), img.to(dev)
+        gfeats = clip.forward_features(vg, ig, vargs)
+        gemb = mm_projector.apply_projector(pg, gfeats, pargs)
+        assert gemb.shape == (2, pargs.tokens_per_image, LLAMA3_8B["hidden_size"])
+        ms = {}  # warm card ms of tower + projector by image count
+        for n in (1, 2, 8, 16):
+            x = ig[:1].expand(n, -1, -1, -1).contiguous() if n != 2 else ig
+            ms[n] = cuda_ms(lambda: mm_projector.apply_projector(
+                pg, clip.forward_features(vg, x, vargs), pargs), iters=5, warmup=1)
+        log(f"  {name}: grid {vargs.grid}, {pargs.tokens_per_image} tokens an image; card "
+            f"(bf16, warm) " + ", ".join(f"{n} images {t:.2f} ms" for n, t in ms.items())
+            + f"; CPU {cpu_s:.1f} s for 2")
+        ef = hold(f"{name} features [2, {vargs.num_patches}, {vargs.hidden_size}]",
+                  gfeats.cpu(), feats, TOWER_FLOOR)
+        ee = hold(f"{name} + projector embeddings", gemb.cpu(), emb, TOWER_FLOOR)
+        rms = max(_rel_rms(gfeats.cpu(), feats), _rel_rms(gemb.cpu(), emb))
+        log(f"  {name}: relative RMS error {rms:.3g} (limit {TOWER_RMS:g})")
+        assert rms <= TOWER_RMS, f"{name}: relative RMS error {rms}"
+        controls = _tower_controls(name, vg, ig, vargs, feats)
+        for tag, (n, r) in controls.items():  # bf16 attention is within the noise
+            assert tag == "bf16 attention" or n > TOWER_FLOOR or r > TOWER_RMS, \
+                f"{name}, {tag}: passes the tower's check"
+        out[name] = dict(card_ms_by_images=ms, features_max_abs_err=ef,
+                         embeddings_max_abs_err=ee, tokens_per_image=pargs.tokens_per_image,
+                         sound=(max(_need(gfeats.cpu(), feats), _need(gemb.cpu(), emb)), rms),
+                         controls=controls)
+        del vg, pg, ig, gfeats, gemb
+    return out
+
+
+def _need(got, want):
+    """The floor that hold would just pass with: the worst element's excess
+    over one bf16 step, over the largest |want|."""
+    wf = want.float()
+    diff = (got.float() - wf).abs()
+    return ((diff - 2.0**-7 * wf.abs()) / wf.abs().max()).max().item()
+
+
+def _rel_rms(got, want):
+    """|got - want| / |want| over all elements (2-norms)."""
+    wf = want.float()
+    return ((got.float() - wf).norm() / wf.norm()).item()
+
+
+def _tower_controls(name, vp, images, vargs, want):
+    """Broken towers on the card against the sound CPU features: one layer
+    skipped, the other tower family's activation (a SigLIP config read as
+    CLIP's quick GELU, CLIP's read as the exact GELU), and attention on bf16
+    q/k/v. Returns {control: (the floor hold would need, relative RMS
+    error)}; phase_towers requires the first two to fail its check."""
+    import dataclasses
+
+    import torch
+
+    from qserve_tpu_torch.models import clip
+
+    wrong_act = "quick_gelu" if vargs.hidden_act == "gelu_pytanh" else "gelu"
+    attend = clip._attend
+    out = {}
+    for tag, args in (("one layer skipped", dataclasses.replace(
+                          vargs, num_layers=vargs.num_layers - 1)),
+                      (f"{wrong_act} activation", dataclasses.replace(vargs, hidden_act=wrong_act)),
+                      ("bf16 attention", vargs)):
+        if tag == "bf16 attention":
+            clip._attend = lambda q, k, v: attend(
+                q.bfloat16(), k.bfloat16(), v.bfloat16()).float()
+        try:
+            got = clip.forward_features(vp, images, args).cpu()
+        finally:
+            clip._attend = attend
+        out[tag] = (_need(got, want), _rel_rms(got, want))
+        torch.cuda.synchronize()
+    log(f"  {name} controls (floor needed, relative RMS error): "
+        + ", ".join(f"{k} {n:.3g}, {r:.3g}" for k, (n, r) in out.items())
+        + f" (limits {TOWER_FLOOR:g}, {TOWER_RMS:g})")
+    return out
+
+
+def _np_images(rng, n, S):
+    """n random RGB images [S, S, 3] uint8, and their pixel values as
+    preprocess_images gives them for a square S-pixel image (CLIP mean and
+    std, as LLMEngine.add_request uses) in numpy."""
+    from qserve_tpu_torch.utils import image_processing as ip
+
+    arrs = rng.integers(0, 256, (n, S, S, 3), np.uint8)
+    mean, std = np.asarray(ip.CLIP_MEAN, np.float32), np.asarray(ip.CLIP_STD, np.float32)
+    px = ((arrs.astype(np.float32) / 255.0 - mean) / std).transpose(0, 3, 1, 2)
+    return list(arrs), np.ascontiguousarray(px)
+
+
+def _timed_tower(runner, record):
+    """Wrap the runner's image encode in CUDA events, read only after the
+    step's own read-back (no wait inside the step). record gets (images,
+    start, end, cold) a call; cold marks the first call at that image count
+    on this runner (cuBLAS and SDPA choose their kernels then)."""
+    import torch
+
+    real, seen = runner._encode_prompt_images, set()
+
+    def encode(pixel_values):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(pixel_values)
+        b.record()
+        n = out.shape[0] // runner.vila_args.tokens_per_image
+        record.append((n, a, b, n not in seen))
+        seen.add(n)
+        return out
+
+    runner._encode_prompt_images = encode
+
+
+def _tower_ms(record):
+    """[(images, ms, cold)] of _timed_tower's calls; _drive has synchronised
+    every step by the time this is read."""
+    return [(n, round(a.elapsed_time(b), 3), cold) for n, a, b, cold in record]
+
+
+def _fmt_tower(calls):
+    return ", ".join(f"{n} images {ms:.2f} ms{' (cold)' if cold else ''}"
+                     for n, ms, cold in calls)
+
+
+def _path_vlm(engine, tag, smi, gemm, long_text):
+    """Paths j, k: the caption round (8 one-image captions, 6 greedy and 2 at
+    temperature 0.8 / top-p 0.9, 32 tokens each; a 4-image request; a
+    text-only one; an n = 2 image request), then a long prompt alone
+    (long_text ids, 2 images, 50 ids) whose first 2048-row chunk ends inside
+    its second image's markers; then two load rounds at the captioning entry
+    point's own batch: 64 one-image requests, 96 greedy tokens each. Images
+    are numpy arrays passed as `images` with their `pixel_values`; where PIL
+    imports, one caption request passes a PIL image alone, through
+    preprocess_images. The caption round is a smoke reading; images/s and
+    where a round's time goes are read from the load rounds."""
+    import torch
+
+    from qserve_tpu_torch.kernels import _build
+    from qserve_tpu_torch.sampling_params import SamplingParams
+    from qserve_tpu_torch.utils.constants import IMAGE_TOKEN_INDEX as IMG
+
+    runner = engine.worker.model_runner
+    tpi, S = runner.vila_args.tokens_per_image, runner.vila_args.vision.image_size
+    V = runner.model_args.vocab_size
+    rng = np.random.default_rng(21)
+    text = lambda n: rng.integers(0, V, n).tolist()
+    pil = _has("PIL")
+    tower = []  # _timed_tower's record
+    _timed_tower(runner, tower)
+
+    def add(rid, ids, n_img, max_tokens, via_pil=False, **sp):
+        mm = None
+        if n_img:
+            arrs, px = _np_images(rng, n_img, S)
+            if via_pil:
+                from PIL import Image
+
+                mm = {"images": [Image.fromarray(a) for a in arrs]}
+            else:
+                mm = {"images": arrs, "pixel_values": px}
+        engine.add_request(rid, prompt_token_ids=ids, multi_modal_data=mm,
+                           sampling_params=SamplingParams(max_tokens=max_tokens,
+                                                          ignore_eos=True, **sp))
+
+    stub_a, stub_b = text(8), text(6)
+    want = {}
+    for i in range(8):
+        sp = dict(temperature=0.8, top_p=0.9) if i >= 6 else dict(temperature=0.0)
+        add(f"{tag}cap{i}", stub_a + [IMG] + stub_b, 1, 32, via_pil=pil and i == 5, **sp)
+        want[f"{tag}cap{i}"] = 32
+    add(f"{tag}img4", text(4) + [IMG] * 4 + text(10), 4, 32, temperature=0.0)
+    add(f"{tag}text", text(100), 0, 32, temperature=0.0)
+    add(f"{tag}n2", text(8) + [IMG] + text(6), 1, 32, n=2, temperature=0.8, top_p=0.9)
+    want.update({f"{tag}img4": 32, f"{tag}text": 32, f"{tag}n2": 32})
+    n_images = 8 + 4 + 1
+    long_ids = text(long_text) + [IMG, IMG] + text(50)
+    n_long = len(long_ids) - 2 + 2 * tpi
+    assert long_text + tpi < 2048 < long_text + 2 * tpi, "the first chunk must end in image 2"
+
+    def add_long():
+        add(f"{tag}long", long_ids, 2, 8, temperature=0.0)
+
+    log(f"  path {tag}: {tpi} tokens an image; caption round of 11 requests ({n_images} "
+        f"images; one through preprocess_images: {pil}), then a {n_long}-token prompt "
+        f"({long_text} ids, 2 images, 50 ids) alone")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    r_cap = _drive(engine, want, vocab=V)
+    cap_s = time.perf_counter() - t0
+    launches_cap = dict(_build.LAUNCHES)
+    n_cap = len(tower)
+    r_long = _drive(engine, {f"{tag}long": 8}, [(0, add_long)], vocab=V)
+    launches_long = dict(_build.LAUNCHES)
+    n_long_calls = len(tower) - n_cap
+    summary = _report(f"path {tag} caption round", r_cap, launches_cap)
+    summary["long"] = _report(f"path {tag} long prompt", r_long,
+                              {k: v - launches_cap.get(k, 0) for k, v in launches_long.items()})
+    log(f"    caption round (a smoke reading, 11 requests): tower + projector "
+        f"{_fmt_tower(_tower_ms(tower[:n_cap]))}; {n_images} images in {cap_s:.3f} s: "
+        f"{n_images / cap_s:.2f} images/s, {r_cap['tokens_out'] / cap_s:.1f} tok/s ({smi})")
+
+    # the captioning entry point's own load: vila_caption batches
+    # max_num_seqs = 64 one-image requests and decodes 96 greedy tokens;
+    # two rounds, the second warm
+    load = []
+    for rnd in range(2):
+        want_l, first = {}, len(tower)
+        for i in range(64):
+            want_l[f"{tag}load{rnd}-{i}"] = 96
+            add(f"{tag}load{rnd}-{i}", stub_a + [IMG] + stub_b, 1, 96, temperature=0.0)
+        t0 = time.perf_counter()
+        r = _drive(engine, want_l, vocab=V)
+        s = time.perf_counter() - t0
+        calls = _tower_ms(tower[first:])
+        steps = {k: dict(n=len(v), ms=round(sum(v), 2), median=round(float(np.median(v)), 3))
+                 for k, v in r["ms"].items()}
+        row = dict(round=rnd, images=64, s=s, images_per_s=64 / s, tok_per_s=r["tokens_out"] / s,
+                   steps=steps, tower_ms=round(sum(ms for _, ms, _ in calls), 2),
+                   tower_calls=calls, other_ms=round(s * 1e3 - sum(sum(v) for v in r["ms"].values()), 2),
+                   peak_gib=round(max(max(v) for v in r["peak"].values()), 3))
+        load.append(row)
+        log(f"    load round {rnd} (64 one-image requests, 96 greedy tokens): {row['images_per_s']:.2f} "
+            f"images/s, {row['tok_per_s']:.1f} tok/s in {s:.3f} s; steps "
+            + ", ".join(f"{k} {v['n']} x median {v['median']:.2f} = {v['ms']:.1f} ms"
+                        for k, v in steps.items())
+            + f"; tower + projector {row['tower_ms']:.1f} ms of the prefill steps "
+            f"({_fmt_tower(calls)}); outside steps {row['other_ms']:.1f} ms; peak "
+            f"{row['peak_gib']:.3f} GiB ({smi})")
+        assert "mixed" not in r["ms"], r["ms"]
+        assert sum(n for n, _, _ in calls) == 64, calls
+    launches = dict(_build.LAUNCHES)
+
+    streams = r_cap["streams"]
+    assert streams[f"{tag}cap0"] != streams[f"{tag}cap1"], \
+        "two images in the same prompt slot gave the same greedy stream"
+    kinds = set(r_cap["ms"]) | set(r_long["ms"])
+    assert "mixed" not in kinds, kinds
+    assert r_long["ms"].get("chunk") and r_long["ms"].get("prefill"), r_long["ms"]
+    assert r_long["per_kind"]["chunk"].get("prefix_prefill_attention"), \
+        "the straddling chunk did not launch K6"
+    idle = tuple(k for k in DENSE_GEMMS if k != gemm) + ROUTED_GEMMS
+    _require(f"path {tag}", launches,
+             ran=("elementwise", gemm, "flash_prefill_attention", "prefix_prefill_attention",
+                  "paged_decode_attention", "kv_append", "sample_filtered"), idle=idle)
+    # the long prompt's images are encoded once, by its first chunk
+    assert n_long_calls == 1, f"the long prompt encoded {_tower_ms(tower[n_cap:])}"
+    summary.update(
+        tokens_per_image=tpi, caption_images=n_images, caption_s=cap_s,
+        caption_images_per_s=n_images / cap_s, caption_tower_ms=_tower_ms(tower[:n_cap]),
+        load=load, via_preprocess_images=pil)
+    return launches, summary
+
+
+def phase_vlm(dev, smi):
+    """Paths j and k at full width and depth (32 layers), random weights from
+    a seed, page 256, 2048 batched tokens, 64 sequences. Returns
+    ({path: launches}, {path: summary})."""
+    import torch
+
+    from qserve_tpu_torch.config import CacheConfig, QuantSpec, SchedulerConfig
+    from qserve_tpu_torch.engine.llm_engine import LLMEngine
+    from qserve_tpu_torch.models import clip, llama, mm_projector, vila
+    from qserve_tpu_torch.worker.worker import Worker
+
+    launches, summary = {}, {}
+    engine = _build_engine(dev, "path j (Llama-3-8B w4a8kv4 per-channel, CLIP-L/14-336)",
+                           LLAMA3_8B, precision="w4a8kv4", group_size=-1, run_vlm=True,
+                           max_model_len=4096, num_device_pages=160)
+    va = engine.worker.model_runner.vila_args
+    assert (va.vision.hidden_size, va.vision.num_layers, va.tokens_per_image) == (1024, 24, 144)
+    log(f"    tower + projector weights {_param_gib(engine.worker.model_runner.vila_params[:2]):.3f} GiB")
+    launches["j"], summary["path_j"] = _path_vlm(engine, "j", smi, "w4a8_gemm_per_chn", 1900)
+    del engine
+    _release()
+
+    # k: built from the published vision config through Worker.create_vlm
+    t0 = time.perf_counter()
+    quant = QuantSpec.from_precision("w8a8kv8")
+    vargs = clip.VisionArgs.from_hf_config(SIGLIP_SO400M_384)
+    args = vila.VilaArgs(
+        llm=llama.LlamaArgs.from_config_dict(LLAMA3_8B, quant), vision=vargs,
+        projector=mm_projector.ProjectorArgs("mlp_downsample", vargs.hidden_size,
+                                             LLAMA3_8B["hidden_size"], grid=vargs.grid))
+    assert (vargs.grid, args.tokens_per_image, vargs.layer_norm_eps) == (27, 196, 1e-6)
+    assert not vargs.use_class_token and vargs.hidden_act == "gelu_pytanh"
+    sc = SchedulerConfig(max_num_batched_tokens=2048, max_num_seqs=64, max_model_len=4096)
+    sc.mixed_chunk_decode = False  # as EngineArgs(run_vlm=True) sets it
+    cc = CacheConfig(block_size=256, num_device_pages=160, quant=quant)
+    engine = LLMEngine(Worker.create_vlm(args, cc, sc, seed=0, device=dev), sc, cc)
+    torch.cuda.synchronize()
+    log(f"  path k (Llama-3-8B w8a8kv8, SigLIP-so400m-384): engine built in "
+        f"{time.perf_counter() - t0:.1f} s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated)")
+    launches["k"], summary["path_k"] = _path_vlm(engine, "k", smi, "w8a8_gemm", 1800)
+    del engine
+    _release()
+    return launches, summary
+
+
+def phase_vlm_entry_points(dev):
+    """Where PIL imports: vila_caption.main() over a two-sample tar shard
+    written into a gitignored directory of the checkout (j's config cut to 2
+    layers, a word-level tokenizer), run twice: the second run skips the
+    finished shard; then benchmark_image.main() at j's geometry (32 layers)
+    and vila_caption's batch: 64 one-image requests, 96 tokens. Returns ({name: launches}, summary)."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tarfile
+
+    from qserve_tpu_torch.entrypoints import benchmark_image, vila_caption
+    from qserve_tpu_torch.kernels import _build
+
+    if not (_has("PIL") and _has("transformers") and _has("tokenizers")):
+        log(f"  not run: PIL {_has('PIL')}, transformers {_has('transformers')}, "
+            f"tokenizers {_has('tokenizers')} (the entry points read images with PIL and "
+            f"prompts with a tokenizer)")
+        return {}, dict(ran=False)
+    from PIL import Image
+
+    def run(main, argv):
+        out, saved = io.StringIO(), sys.argv
+        try:
+            sys.argv = ["entry"] + argv
+            with contextlib.redirect_stdout(out):
+                main()
+        finally:
+            sys.argv = saved
+        return out.getvalue()
+
+    d = _ckpt_dir("vlm", 1 << 20)
+    launches, summary = {}, {}
+    try:
+        model = os.path.join(d, "model")
+        os.makedirs(model)
+        _write_config(model, dict(LLAMA3_8B, num_hidden_layers=2))
+        _save_word_tokenizer(model, ["Can", "you", "describe", "the", "image", "?"],
+                             LLAMA3_8B["vocab_size"])
+        rng = np.random.default_rng(5)
+        shard = os.path.join(d, "cc-00000.tar")
+        with tarfile.open(shard, "w") as tf:
+            for i in range(2):
+                buf = io.BytesIO()
+                Image.fromarray(rng.integers(0, 256, (300 + 40 * i, 336, 3), np.uint8)).save(
+                    buf, format="PNG")
+                info = tarfile.TarInfo(f"sample{i:04d}.png")
+                info.size = len(buf.getvalue())
+                tf.addfile(info, io.BytesIO(buf.getvalue()))
+        common = ["--model", model, "--random-weights", "--num-device-pages", "32",
+                  "--max-model-len", "1024", "--max-tokens", "16"]
+        caps = os.path.join(d, "caps")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        first = run(vila_caption.main, common + ["--data-path", shard, "--output-path", caps])
+        launches["vila_caption"] = dict(_build.LAUNCHES)
+        first_s = time.perf_counter() - t0
+        again = run(vila_caption.main, common + ["--data-path", shard, "--output-path", caps])
+        with open(os.path.join(caps, "cc-00000.json")) as f:
+            captions = json.load(f)
+        log(f"  vila_caption (2 layers) in {first_s:.2f} s: {first.strip()!r}; rerun: "
+            f"{again.strip()!r}; captions {captions}; launches {launches['vila_caption']}")
+        assert sorted(captions) == ["sample0000", "sample0001"]
+        assert "cc-00000: 2 captions" in first and again.strip() == "skip cc-00000 (exists)"
+        _require("vila_caption", launches["vila_caption"],
+                 ran=("elementwise", "w4a8_gemm_per_chn", "flash_prefill_attention",
+                      "paged_decode_attention", "kv_append"))
+
+        full = os.path.join(d, "full")
+        os.makedirs(full)
+        _write_config(full, LLAMA3_8B)
+        _save_word_tokenizer(full, [], LLAMA3_8B["vocab_size"])
+        _build.reset_launch_counts()
+        printed = run(benchmark_image.main, ["--model", full, "--random-weights",
+                                             "--num-device-pages", "160", "--global-batch-size",
+                                             "64", "--generation-len", "96", "--rounds", "2"])
+        launches["benchmark_image"] = dict(_build.LAUNCHES)
+        log(f"  benchmark_image (Llama-3-8B w4a8kv4, CLIP-L/14-336, 64 one-image requests, "
+            f"96 tokens): {printed.strip()!r}")
+        rounds = [line for line in printed.splitlines() if line.startswith("round ")]
+        assert len(rounds) == 2 and all("64 seqs, 6144 tokens" in r for r in rounds), rounds
+        summary = dict(ran=True, captions=captions, benchmark_image=rounds)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
     return launches, summary
 
 
@@ -1954,6 +2539,25 @@ def _decode_round(engine, prefix, profile=False):
     return out
 
 
+def _save_word_tokenizer(model_dir, words, vocab):
+    """A word-level tokenizer of `vocab` entries (specials, `words`, then
+    filler words) saved in model_dir with the tokenizers library, offline;
+    the port's get_tokenizer loads it. Returns its word table."""
+    import os
+
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    table = ["<unk>", "<s>", "</s>"] + list(words)
+    table += [f"w{i}" for i in range(vocab - len(table))]
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(table)}, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.save(os.path.join(model_dir, "tokenizer.json"))
+    with open(os.path.join(model_dir, "tokenizer_config.json"), "w") as f:
+        json.dump(dict(tokenizer_class="PreTrainedTokenizerFast", unk_token="<unk>",
+                       bos_token="<s>", eos_token="</s>"), f)
+    return table
+
+
 def _text_on_card(model_dir, vocab):
     """e2e_generation's main() on the card: a word-level tokenizer of
     `vocab` entries saved beside the weights (built here with the tokenizers
@@ -1964,22 +2568,11 @@ def _text_on_card(model_dir, vocab):
     import io
     import re
 
-    import os
-
-    from tokenizers import Tokenizer, models, pre_tokenizers
-
     from qserve_tpu_torch.entrypoints import e2e_generation
     from qserve_tpu_torch.kernels import _build
 
     words = sorted(set(re.findall(r"\w+|[^\w\s]+", " ".join(e2e_generation.DEFAULT_PROMPTS))))
-    table = ["<unk>", "<s>", "</s>"] + words
-    table += [f"w{i}" for i in range(vocab - len(table))]
-    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(table)}, unk_token="<unk>"))
-    tok.pre_tokenizer = pre_tokenizers.Whitespace()
-    tok.save(os.path.join(model_dir, "tokenizer.json"))
-    with open(os.path.join(model_dir, "tokenizer_config.json"), "w") as f:
-        json.dump(dict(tokenizer_class="PreTrainedTokenizerFast", unk_token="<unk>",
-                       bos_token="<s>", eos_token="</s>"), f)
+    table = _save_word_tokenizer(model_dir, words, vocab)
     argv = ["e2e_generation", "--model", model_dir, "--max-tokens", "16",
             "--num-device-pages", "64", "--max-model-len", "2048"]
     out, saved = io.StringIO(), sys.argv
@@ -2291,10 +2884,28 @@ def main() -> int:
         phase_reference(dev, *spec)
     for spec in (("w4a8kv4", -1), ("w4a8kv4", 128), ("w8a8kv8", -1), ("w16a16kv8", -1)):
         phase_reference(dev, *spec, moe=True)
+    log("phase reference_vlm")
+    for spec in (("w4a8kv4", -1), ("w8a8kv8", -1)):
+        phase_reference_vlm(dev, *spec)
+    log("phase towers")
+    t = time.perf_counter()
+    towers = phase_towers(dev)
+    log(f"  phase towers ok in {time.perf_counter() - t:.1f} s")
     log("phase engine")
     t = time.perf_counter()
     launches, summary = phase_engine(dev)
     log(f"  phase engine ok in {time.perf_counter() - t:.1f} s")
+    log("phase vlm")
+    t = time.perf_counter()
+    vlm_launches, summary["vlm"] = phase_vlm(dev, smi)
+    launches.update(vlm_launches)
+    summary["vlm"]["towers"] = towers
+    log(f"  phase vlm ok in {time.perf_counter() - t:.1f} s")
+    log("phase vlm_entry_points")
+    t = time.perf_counter()
+    ep_launches, summary["vlm_entry_points"] = phase_vlm_entry_points(dev)
+    launches.update(ep_launches)
+    log(f"  phase vlm_entry_points ok in {time.perf_counter() - t:.1f} s")
     log("phase refusal")
     phase_refusal(dev)
     log(f"kernel rows: {json.dumps(res.all)}")

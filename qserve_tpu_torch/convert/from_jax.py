@@ -4,7 +4,10 @@
 mapped every leaf to numpy (e.g. `jax.tree.map(np.asarray, params)`), and
 returns the port's LlamaParams. It reads fields by name only, so it imports
 neither JAX nor the JAX package; bf16 leaves (numpy's ml_dtypes bfloat16)
-cross as their raw 16-bit patterns.
+cross as their raw 16-bit patterns. `vila_params_from_numpy` does the same
+for a VILA model (tower, projector, LLM) and `vila_args_from_jax` rebuilds
+the JAX package's VilaArgs as the port's, its compute dtypes mapped by
+`torch_dtype`.
 """
 
 from __future__ import annotations
@@ -12,8 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from qserve_tpu_torch.config import QuantSpec
 from qserve_tpu_torch.layers import linear as lin
-from qserve_tpu_torch.models import llama
+from qserve_tpu_torch.models import clip, llama, mm_projector, vila
 from qserve_tpu_torch.utils.utils import resolve_device
 
 
@@ -70,3 +74,59 @@ def params_from_numpy(tree, device="cuda") -> llama.LlamaParams:
         lm_head=(linear(tree.lm_head) if hasattr(tree.lm_head, "qweight")
                  else t(tree.lm_head)),
     )
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A numpy dtype, or jnp.bfloat16 / np.float32 as the JAX package's args
+    hold them, as the torch dtype of the same name."""
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[np.dtype(dtype).name]
+
+
+def _fields(obj, cls, **override) -> dict:
+    """obj's dataclass fields that cls has too, by name, with overrides."""
+    import dataclasses
+
+    names = {f.name for f in dataclasses.fields(cls)}
+    out = {k: v for k, v in vars(obj).items() if k in names}
+    out.update(override)
+    return out
+
+
+def vila_args_from_jax(jargs) -> vila.VilaArgs:
+    """The JAX package's VilaArgs (read by field name) as the port's."""
+    v, p, m = jargs.vision, jargs.projector, jargs.llm
+    quant = QuantSpec(**_fields(m.quant, QuantSpec))
+    return vila.VilaArgs(
+        llm=llama.LlamaArgs(**_fields(m, llama.LlamaArgs, quant=quant,
+                                      logit_dtype=torch.float32)),
+        vision=clip.VisionArgs(**_fields(
+            v, clip.VisionArgs, compute_dtype=torch_dtype(v.compute_dtype))),
+        projector=mm_projector.ProjectorArgs(**_fields(
+            p, mm_projector.ProjectorArgs, compute_dtype=torch_dtype(p.compute_dtype))),
+    )
+
+
+def vila_params_from_numpy(tree, device="cuda") -> vila.VilaParams:
+    """JAX VilaParams with numpy leaves (vision layers stacked [L, ...], the
+    LLM as `params_from_numpy` takes it) -> the port's VilaParams. Every
+    tower and projector leaf keeps its dtype (the JAX package's f32
+    weights), so the port's tower computes the JAX package's mixed
+    bf16-by-f32 products."""
+    device = resolve_device(device)
+
+    def t(x):
+        return None if x is None else tensor_from_numpy(x, device)
+
+    v, p = tree.vision, tree.projector
+    layers = clip.VisionLayerParams(*(t(getattr(v.layers, f))
+                                      for f in clip.VisionLayerParams._fields))
+    vision = clip.VisionParams(
+        patch_w=t(v.patch_w), patch_b=t(v.patch_b), class_embed=t(v.class_embed),
+        pos_embed=t(v.pos_embed), pre_ln_scale=t(v.pre_ln_scale),
+        pre_ln_bias=t(v.pre_ln_bias), layers=layers,
+    )
+    projector = mm_projector.ProjectorParams(
+        weights=tuple(t(w) for w in p.weights), biases=tuple(t(b) for b in p.biases))
+    return vila.VilaParams(vision=vision, projector=projector,
+                           llm=params_from_numpy(tree.llm, device))

@@ -17,8 +17,15 @@ bf16 or a W8 lm_head (`quant_lm_head`), and with the scheduler's defaults
 The tokenizer loads from `tokenizer` or `model` as in the JAX package; when
 it cannot load, the engine serves token ids only and says so in a warning.
 `benchmarking` keeps a stable decode batch's sampled ids on the device as
-the next step's input (worker/model_runner.py). VLM and TP/DP raise
-NotImplementedError naming their ROADMAP items.
+the next step's input (worker/model_runner.py).
+
+With `run_vlm` it builds a VILA/LLaVA VLM (vision tower, projector and the
+quantized LLM): from a VILA or LLaVA directory (models/loader.py
+`load_vlm_model`), or with `random_weights` a CLIP-L/14-336 tower and an
+`mlp_downsample` projector (144 tokens an image) over the LLM of the
+config (`QSERVE_TPU_VISION_PRESET=tiny`: a 64-wide, 2-layer tower on
+32-pixel images). Mixed chunk+decode steps are off for a VLM: its chunks
+run alone. TP/DP raise NotImplementedError naming their ROADMAP item.
 
 The CLI takes every flag of qserve_tpu's, so its command lines parse here.
 Flags with no meaning in the port (--no-ifb-mode, --no-scan-layers, the
@@ -82,6 +89,7 @@ class EngineArgs:
     # VLM
     run_vlm: bool = False
     img_per_seq: int = 1
+    omit_vision_tower: bool = False  # True raises: the tower always runs
 
     @staticmethod
     def add_cli_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -158,11 +166,14 @@ class EngineArgs:
         return cache_config, scheduler_config
 
     def _refuse_unported(self) -> None:
-        if self.run_vlm or self.img_per_seq != 1:
-            raise NotImplementedError("VLM is not ported yet (ROADMAP queue 1, VLM)")
         if self.tensor_parallel_size > 1 or self.data_parallel_size > 1:
             raise NotImplementedError(
                 "tensor/data parallelism is not ported yet (ROADMAP queue 1, TP)"
+            )
+        if self.omit_vision_tower:
+            raise NotImplementedError(
+                "omit_vision_tower is not served: the vision tower always runs (qserve_tpu "
+                "accepts the flag and ignores it; ROADMAP, standing VLM divergences)"
             )
 
     def model_config_dict(self) -> dict:
@@ -175,14 +186,29 @@ class EngineArgs:
     def build_engine(self):
         """Construct the engine (checkpoint load or random init included)."""
         from qserve_tpu_torch.engine.llm_engine import LLMEngine
-        from qserve_tpu_torch.models import llama, loader, mixtral
+        from qserve_tpu_torch.models import llama, loader, mixtral, vila
         from qserve_tpu_torch.worker.worker import Worker
 
         self._refuse_unported()
         cache_config, scheduler_config = self.create_engine_configs()
         quant = self.quant_spec()
         # params before the cache: auto-sizing reads what the weights left free
-        if self.random_weights:
+        vlm_args = vlm_params = None
+        if self.run_vlm:
+            if self.random_weights:
+                vlm_args = self._random_vlm_args(quant)
+                vlm_params = vila.random_params(self.seed, vlm_args, self.device)
+            else:
+                if self.hf_config is not None:
+                    raise ValueError("hf_config serves random weights only")
+                vlm_args, vlm_params = loader.load_vlm_model(
+                    self.model, quant, quant_path=self.quant_path, device=self.device
+                )
+            args = vlm_args.llm
+            # VLM prompts chunk through vila.vlm_prefill_chunk; the fused
+            # chunk+decode step is the dense model's: VLM chunks run alone
+            scheduler_config.mixed_chunk_decode = False
+        elif self.random_weights:
             cfg = self.model_config_dict()
             # an MoE config builds MoE layers (the JAX package's single-device
             # random-weight path read it as a dense model of the same widths)
@@ -209,10 +235,16 @@ class EngineArgs:
                 args, cache_config, self.gpu_memory_utilization, self.device
             )
             logger.info("Auto-sized KV cache: %d pages", cache_config.num_device_pages)
-        worker = Worker.create(
-            args, cache_config, scheduler_config, params=params,
-            seed=self.seed, device=self.device, benchmarking=self.benchmarking,
-        )
+        if self.run_vlm:
+            worker = Worker.create_vlm(
+                vlm_args, cache_config, scheduler_config, params=vlm_params,
+                seed=self.seed, device=self.device,
+            )
+        else:
+            worker = Worker.create(
+                args, cache_config, scheduler_config, params=params,
+                seed=self.seed, device=self.device, benchmarking=self.benchmarking,
+            )
         return LLMEngine(
             worker, scheduler_config, cache_config, tokenizer=self.load_tokenizer(),
             log_stats=not self.disable_log_stats,
@@ -223,14 +255,38 @@ class EngineArgs:
         with a warning when it cannot load, as in the JAX package."""
         from qserve_tpu_torch.utils.tokenizer import get_tokenizer
 
+        tok_path = self.tokenizer or self.model
+        if self.run_vlm and os.path.isdir(os.path.join(tok_path, "llm")):
+            tok_path = os.path.join(tok_path, "llm")  # VILA keeps it under llm/
         try:
-            return get_tokenizer(
-                self.tokenizer or self.model, self.tokenizer_mode,
-                self.trust_remote_code,
-            )
+            return get_tokenizer(tok_path, self.tokenizer_mode, self.trust_remote_code)
         except Exception as e:
             logger.warning("Tokenizer unavailable (%s); token-id-only mode", e)
             return None
+
+    def _random_vlm_args(self, quant: QuantSpec):
+        """Random-weight VLM geometry: a CLIP-L/14-336 tower
+        (openai/clip-vit-large-patch14-336) and an mlp_downsample projector
+        (24x24 grid -> 144 tokens an image) over the LLM of the config
+        (`hf_config`, or `model`/config.json)."""
+        from qserve_tpu_torch.models import clip, llama, mm_projector, vila
+
+        largs = llama.LlamaArgs.from_config_dict(self.model_config_dict(), quant)
+        if os.environ.get("QSERVE_TPU_VISION_PRESET") == "tiny":  # CPU smoke
+            vargs = clip.VisionArgs(
+                hidden_size=64, intermediate_size=128, num_layers=2,
+                num_heads=4, image_size=32, patch_size=8,
+            )
+        else:
+            vargs = clip.VisionArgs(
+                hidden_size=1024, intermediate_size=4096, num_layers=24,
+                num_heads=16, image_size=336, patch_size=14,
+            )
+        pargs = mm_projector.ProjectorArgs(
+            kind="mlp_downsample", vision_hidden=vargs.hidden_size,
+            llm_hidden=largs.hidden_size, grid=vargs.grid,
+        )
+        return vila.VilaArgs(llm=largs, vision=vargs, projector=pargs)
 
 
 def auto_num_pages(model_args, cache_config: CacheConfig, mem_fraction: float,

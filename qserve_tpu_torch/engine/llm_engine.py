@@ -91,13 +91,15 @@ class LLMEngine:
     ) -> None:
         if sampling_params is None:
             sampling_params = SamplingParams()
-        if multi_modal_data and multi_modal_data.get("images"):
-            raise NotImplementedError(
-                "VLM requests are not ported yet (ROADMAP queue 1, VLM)"
-            )
+        is_vlm_request = bool(multi_modal_data and multi_modal_data.get("images"))
         if prompt_token_ids is None:
             assert self.tokenizer is not None, "no tokenizer: pass prompt_token_ids"
-            prompt_token_ids = self.tokenizer.encode(prompt)
+            if is_vlm_request:
+                from qserve_tpu_torch.models.vila import tokenizer_image_token
+
+                prompt_token_ids = tokenizer_image_token(prompt, self.tokenizer)
+            else:
+                prompt_token_ids = self.tokenizer.encode(prompt)
         if sampling_params.use_beam_search:
             raise NotImplementedError("beam search not supported")
         if sampling_params.best_of > 1 and not getattr(
@@ -106,6 +108,24 @@ class LLMEngine:
             raise NotImplementedError(
                 "n>1 / best_of>1 not supported by this model runner"
             )
+        if is_vlm_request:
+            # each image tag becomes tokens_per_image marker slots and the
+            # images are preprocessed once, at admission (the scheduler then
+            # counts pages and context exactly); only a request with
+            # `images` expands, and given `pixel_values` skip preprocessing
+            from qserve_tpu_torch.models.vila import expand_multimodal_prompt
+            from qserve_tpu_torch.utils.image_processing import preprocess_images
+
+            vila_args = getattr(self.worker.model_runner, "vila_args", None)
+            assert vila_args is not None, "engine was not built with a VLM model"
+            prompt_token_ids = expand_multimodal_prompt(
+                prompt_token_ids, vila_args.tokens_per_image
+            )
+            if "pixel_values" not in multi_modal_data:
+                multi_modal_data = dict(multi_modal_data)
+                multi_modal_data["pixel_values"] = preprocess_images(
+                    multi_modal_data["images"], vila_args.vision.image_size
+                )
 
         seq = Sequence(
             next(self.seq_counter),

@@ -1,6 +1,7 @@
 """Model construction and weight loading (qserve_tpu/models/loader.py).
 
-Two load paths, as in the JAX package:
+Two load paths, as in the JAX package (and `load_vlm_model` for a VILA
+or LLaVA directory, whose LLM loads through them):
   * a float Hugging Face checkpoint (safetensors, .bin or .pt), quantized
     at load time on the target device with the QoQ round-to-nearest math of
     quant/qoq.py (Mixtral too: its experts quantize one by one);
@@ -100,7 +101,51 @@ def load_float_params_from_hf(model_dir: str, args: llama.LlamaArgs) -> dict:
 
 def load_vlm_model(model_dir: str, quant: QuantSpec, quant_path: Optional[str] = None,
                    device="cuda"):
-    raise NotImplementedError("VLM is not ported yet (ROADMAP queue 1, VLM)")
+    """A VILA/LLaVA checkpoint: vision tower + projector + quantized LLM, as
+    (VilaArgs, VilaParams) on `device`. Two layouts, as in the JAX package:
+      * VILA: <dir>/{llm, vision_tower, mm_projector}/, each HF-style;
+      * LLaVA: one HF directory whose state dict holds model.mm_projector.*
+        and whose config's mm_vision_tower names a local directory.
+    The tower's matmul weights load in its compute dtype (bf16)."""
+    from qserve_tpu_torch.models import clip, mm_projector, vila
+
+    cfg = load_hf_config_dict(model_dir)
+    llm_dir = model_dir
+    if os.path.isdir(os.path.join(model_dir, "llm")):
+        llm_dir = os.path.join(model_dir, "llm")
+    largs, lparams = load_model(llm_dir, quant, quant_path=quant_path, device=device)
+
+    vt_dir = os.path.join(model_dir, "vision_tower")
+    if not os.path.isdir(vt_dir):
+        vt_name = cfg.get("mm_vision_tower") or cfg.get("vision_tower")
+        if not (vt_name and os.path.isdir(vt_name)):
+            raise FileNotFoundError(
+                f"vision tower not found: {vt_name!r} (needs a local path)")
+        vt_dir = vt_name
+    vt_cfg = load_hf_config_dict(vt_dir)
+    vargs = clip.VisionArgs.from_hf_config(vt_cfg.get("vision_config", vt_cfg))
+    vparams = clip.params_from_hf_state(
+        dict(hf_model_weights_iterator(vt_dir)), vargs, device=device)
+
+    proj_type = cfg.get("mm_projector_type", cfg.get("mm_projector", "linear"))
+    if not isinstance(proj_type, str) or os.path.isdir(str(proj_type)):
+        proj_type = "mlp_downsample"
+    pargs = mm_projector.ProjectorArgs(
+        kind=proj_type, vision_hidden=vargs.hidden_size,
+        llm_hidden=largs.hidden_size, grid=vargs.grid,
+    )
+    proj_dir = os.path.join(model_dir, "mm_projector")
+    proj_state = dict(hf_model_weights_iterator(
+        proj_dir if os.path.isdir(proj_dir) else model_dir))
+    pparams = mm_projector.params_from_hf_state(proj_state, pargs, device=device)
+
+    args = vila.VilaArgs(llm=largs, vision=vargs, projector=pargs)
+    logger.info(
+        "Loaded VLM: tower %dpx/%d grid %d, projector %s (%d tok/img), LLM %s",
+        vargs.image_size, vargs.patch_size, vargs.grid, proj_type,
+        args.tokens_per_image, quant.precision,
+    )
+    return args, vila.VilaParams(vision=vparams, projector=pparams, llm=lparams)
 
 
 def load_model(

@@ -49,6 +49,40 @@ class Worker:
         )
         return cls(runner, cache_engine)
 
+    @classmethod
+    def create_vlm(
+        cls,
+        vila_args,
+        cache_config: CacheConfig,
+        scheduler_config: SchedulerConfig,
+        params=None,
+        seed: int = 0,
+        device="cuda",
+    ) -> "Worker":
+        """VLM worker: VLMModelRunner over the same cache machinery."""
+        from qserve_tpu_torch.worker.vlm_runner import VLMModelRunner
+
+        kw = dict(
+            max_model_len=scheduler_config.max_model_len,
+            block_size=cache_config.block_size,
+            max_num_batched_tokens=scheduler_config.max_num_batched_tokens,
+            max_num_seqs=scheduler_config.max_num_seqs,
+            device=device,
+        )
+        if params is None:
+            runner = VLMModelRunner.from_random_vlm(vila_args, seed=seed, **kw)
+        else:
+            runner = VLMModelRunner(params, vila_args, rng_seed=seed, **kw)
+        largs = vila_args.llm
+        cache_engine = CacheEngine(
+            num_layers=largs.num_layers,
+            num_kv_heads=largs.num_kv_heads,
+            head_dim=largs.head_dim,
+            cache_config=cache_config,
+            device=device,
+        )
+        return cls(runner, cache_engine)
+
     def execute_model(
         self,
         seq_group_metadata_list: List[SequenceGroupMetadata],

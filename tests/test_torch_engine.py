@@ -357,10 +357,9 @@ def test_benchmark_labels_steps_by_what_the_scheduler_emitted(pair, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(run_vlm=True),
     dict(tensor_parallel_size=2),
     dict(data_parallel_size=2),
-    dict(img_per_seq=2),
+    dict(run_vlm=True, omit_vision_tower=True),
 ])
 def test_engine_args_refuse_unported(kw):
     args = dict(hf_config=_hf_config(), random_weights=True, device="cpu",

@@ -1,10 +1,12 @@
-"""The port stands alone: importing qserve_tpu_torch (engine included)
-loads neither JAX nor the JAX package nor triton, safetensors or
-transformers, and no source file of the port or chip_smoke.py imports JAX,
-the JAX package, triton (every kernel is CUDA C++ built by nvcc) or
-safetensors (the port reads and writes the format itself); transformers is
-imported only inside a function (utils/tokenizer.py's get_tokenizer), never
-by chip_smoke.py: the port needs neither library to serve token ids."""
+"""The port stands alone: importing qserve_tpu_torch (engine and VLM
+modules included) loads neither JAX nor the JAX package nor triton,
+safetensors, transformers or PIL, and no source file of the port or
+chip_smoke.py imports JAX, the JAX package, triton (every kernel is CUDA
+C++ built by nvcc) or safetensors (the port reads and writes the format
+itself); transformers and PIL are imported only inside a function
+(utils/tokenizer.py's get_tokenizer, utils/image_processing.py), and
+transformers never by chip_smoke.py: the port needs neither library to
+serve token ids or pixel values."""
 
 import os
 import re
@@ -21,10 +23,11 @@ FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|triton\b|safetensors\b|qserve_tpu(?!_torch)\b)",
     re.M,
 )
-# transformers: inside a function only (an indented import)
-TOP_LEVEL_TRANSFORMERS = re.compile(r"^(?:import|from)\s+transformers\b", re.M)
+# transformers and PIL: inside a function only (an indented import)
+TOP_LEVEL_TRANSFORMERS = re.compile(r"^(?:import|from)\s+(?:transformers|PIL)\b", re.M)
 ANY_TRANSFORMERS = re.compile(r"^\s*(?:import|from)\s+transformers\b", re.M)
-NOT_IMPORTED = ('jax', 'jaxlib', 'qserve_tpu', 'triton', 'safetensors', 'transformers')
+NOT_IMPORTED = ('jax', 'jaxlib', 'qserve_tpu', 'triton', 'safetensors', 'transformers',
+                'PIL')
 
 
 def _port_modules():
@@ -104,3 +107,5 @@ def test_scan_pattern():
     assert FORBIDDEN.search("    from safetensors.numpy import load_file")
     assert TOP_LEVEL_TRANSFORMERS.search("from transformers import AutoTokenizer")
     assert not TOP_LEVEL_TRANSFORMERS.search("    from transformers import AutoTokenizer")
+    assert TOP_LEVEL_TRANSFORMERS.search("from PIL import Image")
+    assert not TOP_LEVEL_TRANSFORMERS.search("    from PIL import Image")
