@@ -10,7 +10,11 @@
    (Llama-3-8B: decode B = 64, prefill and chunk T = 2048, context ~1024 and
    a 4096-token prefix over 256-token pages, sampling at [B, 128256] for
    B = 64, 1, 8 and 16 (the engine's row counts), the fused norm/quant pass
-   at T = 2048, 64 and 1;
+   at T = 2048, 64 and 1; and its shapes on one rank at tp = 2 (paths l
+   and m): K2 at qkv N 3072, o K 2048, gate_up N 14336 and down K 7168,
+   the routed K2 at Mixtral's gate_up N 14336 and down K 7168, K3, K4, K5
+   and K6 over 16 query and 4 kv heads (the rank's cache keeps bf16
+   scales), SwiGLU at I = 7168 and the per-token quant at K = 2048;
    Llama-2-7B: its qkv, gate_up and ragged K = 11008 down projections,
    SwiGLU at I = 11008, prefill, decode and chunk attention and the cache
    append without GQA (32 kv heads), sampling at [B, 32000]; the fused
@@ -42,12 +46,12 @@
    counts the tensor-core instructions in the SASS of K3, K6 and the three
    GEMM libraries (K2, K8, K9) and fails on none; the GEMMs must show
    wgmma's (IGMMA) and no mma.sync (IMMA).
-3. Reference phase: a small model served by the kernels on the card and by
-   the plain versions on the CPU (prefill, decode, one chunk step, one mixed
-   chunk+decode step) at W4A8KV4 per-channel, W4A8KV4 g128, W4A8KV8 g128
-   with the W8 lm_head, W8A8KV8 with the W8 lm_head and W16A16KV8, and a
-   small Mixtral (4 experts, top-2, routed in 128-row blocks from 16 rows
-   up) at W4A8KV4 per-channel, W4A8KV4 g128, W8A8KV8 and W16A16KV8; logits
+3. Reference phase: a small model (reference_args, reference_steps)
+   served by the kernels on the card and by the plain versions on the CPU
+   (prefill, decode, one chunk step, one mixed chunk+decode step) at
+   W4A8KV4 per-channel, W4A8KV4 g128, W4A8KV8 g128 with the W8 lm_head,
+   W8A8KV8 with the W8 lm_head and W16A16KV8, and a small Mixtral (4
+   experts, top-2, routed in 128-row blocks from 16 rows up) at W4A8KV4 per-channel, W4A8KV4 g128, W8A8KV8 and W16A16KV8; logits
    must agree at every step, and so must the Mixtral's router probabilities
    (within 5e-3), the CPU giving a token whose experts differ the card's.
 4. Engine phase: EngineArgs -> LLMEngine at full width and depth (32
@@ -136,8 +140,36 @@
    gitignored directory of the checkout (j's config cut to 2 layers), run
    twice (the rerun skips the finished shard), and benchmark_image.main()
    at j's geometry with 64 one-image requests of 96 tokens.
-8. Refusal phase: what is still unported (tensor parallelism) raises
-   instead of running something else.
+8. Tensor parallelism, tp = 2: two ranks, each a process started with the
+   `spawn` method once the paths above have freed their memory, share the
+   one card over gloo (NCCL refuses two ranks on one device; gloo stages
+   each collective through the host), and load the kernels built above.
+   reference_tp: the reference phase's small model at W4A8KV4 per-channel,
+   W4A8KV8 g128 with the W8 lm_head, W8A8KV8 with the W8 lm_head,
+   W16A16KV8 and the small Mixtral at W4A8KV4 (routed in 128-row blocks),
+   each rank on the card and on the CPU (its CPU half over the same gloo
+   group): every rank's logits within 5% of their range at every step,
+   and the ranks' logits equal bit for bit; then the collectives alone at
+   path l's shapes. Through EngineArgs(tensor_parallel_size=2), weights
+   random_quantized_params_tp of path a's seed:
+   l. Llama-3-8B W4A8KV4 per-channel, 32 layers: path a's 8 requests, then
+      6 requests decode while a 3000-token prompt admits in mixed steps, a
+      2500-token prompt alone, a prefix_pos request over a cached
+      768-token prefix; auto-sized pages (the two ranks split their
+      fraction of free memory, then take the least count);
+   m. Mixtral-8x7B W4A8KV4 per-channel at full width, cut to 4 of its 32
+      layers (the script's time limit), the same traffic as l's second
+      part: routed K2 at the local N = 14336 / K = 7168 on steps of 1024
+      rows or more, the masked loop at decode.
+   Both ranks' streams must be equal; each rank must have launched the
+   path's kernels and no K8 or K9, and every step 2 all_reduces a layer
+   and 1 all_gather. Per rank: step ms by kind (host clock, CUDA events),
+   collective ms a step, peak allocated GiB, the backend; and how many of
+   path a's greedy streams path l reproduces (not asserted: per-shard
+   scales differ from tp = 1's by design).
+9. Refusal phase: what the port does not serve raises instead of running
+   something else: engine-level data parallelism (as in the JAX package)
+   and a VLM at tp > 1.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 and, last, {"ok": true, "device": {...}}. Exits non-zero, without those
@@ -386,7 +418,9 @@ def phase_elementwise(res, dev):
 
     g = torch.Generator(device=dev).manual_seed(1)
     E = LLAMA3_8B["hidden_size"]  # Llama-2-7B's too
-    widths = (LLAMA3_8B["intermediate_size"], LLAMA2_7B["intermediate_size"])
+    # Llama-3-8B's I, Llama-2-7B's, and Llama-3-8B's at tp = 2 (path l)
+    widths = (LLAMA3_8B["intermediate_size"], LLAMA2_7B["intermediate_size"],
+              LLAMA3_8B["intermediate_size"] // 2)
 
     def check_codes(got, want, exact):
         d = (got[0].int() - want[0].int()).abs()
@@ -424,6 +458,14 @@ def phase_elementwise(res, dev):
                           ops.quant_per_token_plain(x, True), exact=True)
         case("quant", f"T={T} K={E}", err, lambda: ops.quant_per_token(x, True),
              lambda: ops.quant_per_token_plain(x, True), T * E * 2 + T * E + 8 * T, timed)
+        if E == LLAMA3_8B["hidden_size"] and T > 1:  # o's input at tp = 2 (path l)
+            xl = x[:, :E // 2].contiguous()
+            err = check_codes(ops.quant_per_token(xl, True),
+                              ops.quant_per_token_plain(xl, True), exact=True)
+            case("quant", f"T={T} K={E // 2} (tp 2)", err,
+                 lambda: ops.quant_per_token(xl, True),
+                 lambda: ops.quant_per_token_plain(xl, True),
+                 T * E + T * E // 2 + 8 * T, timed)
 
         # rmsnorm_quant: the same kernel body, off the main paths
         err = check_codes(ops.rmsnorm_quant(x, w, 1e-5, True),
@@ -456,10 +498,13 @@ def phase_gemm(res, dev):
     from qserve_tpu_torch.quant import packing, qoq
 
     g = torch.Generator(device=dev).manual_seed(2)
-    def linears(cfg):
+    def linears(cfg, tp=1):
+        """The four linears' (K, N) on one of tp ranks: qkv and gate_up
+        split N, o and down split K."""
         E, I = cfg["hidden_size"], cfg["intermediate_size"]
         kv = E // cfg["num_attention_heads"] * cfg["num_key_value_heads"]
-        return dict(gate_up=(E, 2 * I), qkv=(E, E + 2 * kv), o=(E, E), down=(I, E))
+        return dict(gate_up=(E, 2 * I // tp), qkv=(E, (E + 2 * kv) // tp), o=(E // tp, E),
+                    down=(I // tp, E))
 
     E = LLAMA3_8B["hidden_size"]
     shapes = linears(LLAMA3_8B)
@@ -477,9 +522,11 @@ def phase_gemm(res, dev):
             f"{name} {tag}: max err {err}"
         return err
 
-    # K2 at Llama-3-8B's four linears, Qwen2-0.5B's (hidden 896: K/2 = 448
-    # is no multiple of 128) and a ragged N (N % 128 != 0)
-    k2_shapes = dict(shapes, **{f"qwen2_0.5b_{n}": s for n, s in linears(QWEN2_05B).items()},
+    # K2 at Llama-3-8B's four linears, at tp = 2 (path l's local shapes),
+    # Qwen2-0.5B's (hidden 896: K/2 = 448 is no multiple of 128) and a
+    # ragged N (N % 128 != 0)
+    k2_shapes = dict(shapes, **{f"tp2_{n}": s for n, s in linears(LLAMA3_8B, 2).items()},
+                     **{f"qwen2_0.5b_{n}": s for n, s in linears(QWEN2_05B).items()},
                      ragged_n=(4096, 1088))
     for M in (64, 2048):
         for name, (K, N) in k2_shapes.items():
@@ -602,6 +649,7 @@ def _routed_stream(dev, g, T=2048):
 def phase_gemm_routed(res, dev):
     """The routed K2, K8 and K9 against their plain versions, bit for bit,
     at Mixtral-8x7B's gate_up (K 4096, N 28672) and down (K 14336, N 4096)
+    (K2 also at tp = 2: gate_up N 14336, down K 7168)
     over a stream laid out by a real top-2 routing (uneven counts, pad rows,
     an all-pad tail), and the per-group one at the ragged K = 11008. All
     three run the dense kernels' wgmma loop on 128-row tiles, each block
@@ -648,7 +696,9 @@ def phase_gemm_routed(res, dev):
                 err, cuda_ms(routed, iters=10), cuda_ms(plain, iters=3, warmup=1),
                 nbytes, 2 * R * K * N, INT8_OPS, None, dense_ms=cuda_ms(dense, iters=10))
 
-    for tag, K, N in shapes:  # K2 routed: random bytes, as the dense phase
+    # K2 routed: random bytes, as the dense phase; also at tp = 2 (path m)
+    tp2 = [("tp2 gate_up", E, I), ("tp2 down", I // 2, E)]
+    for tag, K, N in shapes + tp2:
         a, asc, asum = stream(K)
         qw, s1 = rand_i8(n_exp, K // 2, N), torch.rand(n_exp, N, generator=g, device=dev) * 1e-3
         sz = torch.rand(n_exp, N, generator=g, device=dev) * 8e-3
@@ -686,15 +736,6 @@ def phase_gemm_routed(res, dev):
         del qw, ws, args
 
 
-def _segments(T, lens):
-    seg = np.zeros(T, np.int32)
-    t = 0
-    for i, n in enumerate(lens):
-        seg[t : t + n] = i + 1
-        t += n
-    return seg
-
-
 def phase_flash(res, dev):
     import torch
     import torch.nn.functional as F
@@ -709,6 +750,8 @@ def phase_flash(res, dev):
     cases = [(2048, 32, 8, 128, [700, 512, 436, 300], None),
              (2048, 32, LLAMA2_7B["num_key_value_heads"], 128, [700, 512, 436, 300], None),
              (2048, 6, 2, 128, [700, 512, 436, 300], None),
+             # the 8B at tp = 2 (path l: 16 query and 4 kv heads a rank)
+             (2048, 16, 4, 128, [700, 512, 436, 300], None),
              (300, 8, 2, 64, [150, 100], 37),
              # head dims 96 and 256 (off the main paths)
              (1024, 8, 2, 96, [600, 400], None),
@@ -751,19 +794,28 @@ def phase_flash(res, dev):
                     qs, ks, vs, attn_mask=mask, enable_gqa=True)))
 
 
-def _paged_case(dev, g, B, H, rep, D, ps, ctx, kv_bits=4, centred=False):
+def _tp_scales(tag):
+    """The scale dtype of a case's cache: a TP rank's cache (a tag "at tp
+    2") keeps its global cache's, bf16 at Llama-3-8B's 8 kv heads, though
+    its 4 local heads alone would pick f32; None (by H) otherwise."""
+    from qserve_tpu_torch.kernels import kv_cache as kvc
+
+    return kvc.scale_dtype_for(LLAMA3_8B["num_key_value_heads"]) if "at tp 2" in tag else None
+
+
+def _paged_case(dev, g, B, H, rep, D, ps, ctx, kv_bits=4, centred=False, scale_dtype=None):
     """One layer of a filled KV4 or KV8 cache (every byte is a valid code in
     both modes) plus the decode inputs. centred: zeros put each head's
     values around 0 (the default's around -0.8: over thousands of keys the
     output is then that offset, and one missing 64-key tile moves it by
-    less than one bf16 step)."""
+    less than one bf16 step). scale_dtype: the cache's (default: by H)."""
     import torch
 
     from qserve_tpu_torch.kernels import kv_cache as kvc
 
     pages_per = [-(-int(c) // ps) for c in ctx]
     P = sum(pages_per) + 1
-    cache = kvc.create_kv_cache(1, P, H, ps, D, kv_bits, device=dev)
+    cache = kvc.create_kv_cache(1, P, H, ps, D, kv_bits, scale_dtype=scale_dtype, device=dev)
     cache.data.copy_(torch.randint(-128, 128, cache.data.shape, generator=g,
                                    device=dev, dtype=torch.int8))
     # KV8 codes reach 255, KV4 codes 15: scales keep the values' range
@@ -800,6 +852,7 @@ def phase_paged(res, dev):
     ctx_8b = rng.integers(512, 1537, 64)
     cases = [
         ("8B", 64, 8, 4, 128, 256, ctx_8b, None, 4),
+        ("8B at tp 2", 64, 4, 4, 128, 256, ctx_8b, None, 4),
         ("f32 scales", 8, 2, 2, 64, 16, small_ctx, None, 4),
         ("f32 scales, window 50", 8, 2, 2, 64, 16, small_ctx, 50, 4),
         ("8B KV8", 64, 8, 4, 128, 256, ctx_8b, None, 8),
@@ -821,7 +874,8 @@ def phase_paged(res, dev):
     for tag, B, H, rep, D, ps, ctx, window, kv_bits in cases:
         ctx = ctx.tolist()
         cache, bt, cl, q, kc, vc = _paged_case(dev, g, B, H, rep, D, ps, ctx, kv_bits,
-                                               centred=tag.startswith("B="))
+                                               centred=tag.startswith("B="),
+                                               scale_dtype=_tp_scales(tag))
         assert cache.data.shape[-1] == H * D * kv_bits // 8
         args = (q, cache, bt, cl, 0, kc, vc, kv_bits)
         got = attention.paged_decode_attention(*args, sliding_window=window)
@@ -865,7 +919,8 @@ def phase_paged(res, dev):
                     qs, k, v, attn_mask=mask, enable_gqa=True)))
 
 
-def _append_case(dev, g, L, T, H, D, ps, P, kv_bits, extra_rows=0, unaligned=False):
+def _append_case(dev, g, L, T, H, D, ps, P, kv_bits, extra_rows=0, unaligned=False,
+                 scale_dtype=None):
     """A cache of random bytes and a batch's bf16 k/v [L, T, H, D]: views of
     [L, T + extra_rows, H, D] buffers (the mixed step's k_all[:, :T]), or
     of a buffer one element off 16-byte alignment (the scalar path)."""
@@ -873,7 +928,7 @@ def _append_case(dev, g, L, T, H, D, ps, P, kv_bits, extra_rows=0, unaligned=Fal
 
     from qserve_tpu_torch.kernels import kv_cache as kvc
 
-    cache = kvc.create_kv_cache(L, P, H, ps, D, kv_bits, device=dev)
+    cache = kvc.create_kv_cache(L, P, H, ps, D, kv_bits, scale_dtype=scale_dtype, device=dev)
     cache.data.copy_(torch.randint(-128, 128, cache.data.shape, generator=g,
                                    device=dev, dtype=torch.int8))
     kv = []
@@ -933,6 +988,8 @@ def phase_kv_append(res, dev):
     # (tag, H, D, ps, P, pages, slots, kv_bits, zero_point, extra)
     cases.append(("8B prefill", 8, 128, ps, p0 + 2, pages, slots, 4, True, {}))
     cases.append(("8B decode", 8, 128, ps, 70, d_pages, d_slots, 4, True, {}))
+    cases.append(("8B at tp 2 prefill", 4, 128, ps, p0 + 2, pages, slots, 4, True, {}))
+    cases.append(("8B at tp 2 decode", 4, 128, ps, 70, d_pages, d_slots, 4, True, {}))
     cases.append(("f32 scales", 2, 64, 16, 12, [0, 5, -1, 7, 11, 2],
                   [0, 15, 3, 9, 1, 4], 4, True, {}))
     cases.append(("8B KV8 decode", 8, 128, ps, 70, d_pages, d_slots, 8, True, {}))
@@ -949,7 +1006,8 @@ def phase_kv_append(res, dev):
                   True, dict(unaligned=True)))
     for tag, H, D, ps_, P, pg_, sl_, kv_bits, zp, extra in cases:
         T = len(pg_)
-        cache, k, v = _append_case(dev, g, L, T, H, D, ps_, P, kv_bits, **extra)
+        cache, k, v = _append_case(dev, g, L, T, H, D, ps_, P, kv_bits, **extra,
+                                   scale_dtype=_tp_scales(tag))
         k, v = k[:, :T], v[:, :T]
         pg = torch.tensor(pg_, dtype=torch.int32, device=dev)
         sl = torch.tensor(sl_, dtype=torch.int32, device=dev)
@@ -989,7 +1047,8 @@ def phase_kv_append(res, dev):
         del cache, ref, k, v
 
 
-def _prefix_case(dev, g, H, rep, D, ps, prefix_len, T, live, maxP, kv_bits=4):
+def _prefix_case(dev, g, H, rep, D, ps, prefix_len, T, live, maxP, kv_bits=4,
+                 scale_dtype=None):
     """One layer of a cache whose first prefix_len positions were written
     through the port's own append, plus one chunk's inputs."""
     import torch
@@ -997,7 +1056,7 @@ def _prefix_case(dev, g, H, rep, D, ps, prefix_len, T, live, maxP, kv_bits=4):
     from qserve_tpu_torch.kernels import kv_cache as kvc
 
     P = maxP + 3
-    cache = kvc.create_kv_cache(1, P, H, ps, D, kv_bits, device=dev)
+    cache = kvc.create_kv_cache(1, P, H, ps, D, kv_bits, scale_dtype=scale_dtype, device=dev)
     table = torch.randperm(P, generator=g, device=dev)[:maxP].to(torch.int32)
     if prefix_len:
         pk = torch.randn(1, prefix_len, H, D, generator=g, device=dev).to(torch.bfloat16)
@@ -1024,6 +1083,7 @@ def phase_prefix(res, dev):
     g = torch.Generator(device=dev).manual_seed(6)
     cases = [
         ("8B", 8, 4, 128, 256, 4096, 2048, 1900, 32, None, 4),
+        ("8B at tp 2", 4, 4, 128, 256, 4096, 2048, 1900, 32, None, 4),
         # a prompt's short last chunk over a long prefix
         ("8B short last chunk", 8, 4, 128, 256, 4096, 512, 452, 32, None, 4),
         ("rep 3 (Hq 6)", 2, 3, 128, 256, 4096, 512, 452, 32, None, 4),
@@ -1043,7 +1103,8 @@ def phase_prefix(res, dev):
     ]
     for tag, H, rep, D, ps, S, T, live, maxP, window, kv_bits in cases:
         cache, bt, q, k, v, seg, pos = _prefix_case(dev, g, H, rep, D, ps, S, T,
-                                                    live, maxP, kv_bits)
+                                                    live, maxP, kv_bits,
+                                                    scale_dtype=_tp_scales(tag))
         assert cache.data.shape[-1] == H * D * kv_bits // 8
         args = (q, k, v, seg, pos, cache, bt, S, 0, kv_bits)
         got = attention.prefix_prefill_attention(*args, sliding_window=window)
@@ -1228,10 +1289,6 @@ def phase_sampler(res, dev):
 # --------------------------------------------------------------------------
 
 
-# the small Mixtral's router probabilities, card vs CPU, on every live token
-ROUTER_ATOL = 5e-3
-
-
 class MoERecorder:
     """While active, every MoE block (models/llama.py `_moe_mlp`) first
     records the length of its token stream, then runs as it would have.
@@ -1296,132 +1353,125 @@ class MoERecorder:
         llama._moe_mlp = self.real
 
 
-def phase_reference(dev, precision="w4a8kv4", group_size=-1, lm_head_bits=16,
-                    moe=False):
-    with MoERecorder(probs=moe) as rec:
-        _reference(dev, precision, group_size, lm_head_bits, moe, rec)
+# hidden 256 / intermediate 512 keep every linear's K and N a multiple of 64
+# (the GEMM kernels' tile) and of the 128-wide group, at tp = 1 and 2
+REFERENCE_GEO = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                     num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64)
 
 
-def _reference(dev, precision, group_size, lm_head_bits, moe, rec):
-    """A small model on the card (kernels) and on the CPU (plain versions):
-    same params, same packed inputs, logits within 5% of their range, over
-    a packed prefill, four decode steps, one chunk step over a cached prefix
-    and one mixed chunk+decode step. hidden 256 / intermediate 512 keep K/2
-    a multiple of the 128-wide group at every linear. moe: a small Mixtral
-    (4 experts, top-2) whose streams of 16 rows or more take the routed
-    GEMMs in 128-row blocks (prefill, chunk, mixed) and shorter ones the
-    masked loop (decode). Each step runs on the card first; the CPU's MoE
-    blocks then give a token whose top-2 experts differ from the card's the
-    card's experts (MoERecorder), so a near-tie flipped by rounding leaves
-    every step's logits comparable, and all of them are held. The prefill
-    attention kernels round P to bf16 as the TPU kernels did, and the int8
-    activation quantizers turn that ~1e-3 into whole-code steps, so the two
-    sides' router inputs part by more than an ulp: the router probabilities
-    of every live token of every MoE call must agree within ROUTER_ATOL (the
-    H100 has read up to 4.1e-3 over the eight steps; K3's arithmetic
-    transcribed on the CPU moves them by up to 2.5e-3 in the prefill alone,
-    tests/test_torch_attention_arith.py), which also bounds the top-2 margin
-    of any token whose experts differ: at most the two edge probabilities'
-    movement, 1e-2."""
+def reference_args(precision: str, group_size: int = -1, lm_head_bits: int = 16,
+                   moe: bool = False, tp_size: int = 1):
+    """The small reference model: a dense Llama, or with moe a small
+    Mixtral (4 experts, top-2) whose streams of 16 rows or more route in
+    128-row blocks."""
+    from qserve_tpu_torch.config import QuantSpec
+    from qserve_tpu_torch.models import llama
+
+    geo = dict(REFERENCE_GEO)
+    if moe:
+        geo.update(num_experts=4, moe_top_k=2, moe_route_block=128, moe_route_min_tokens=16)
+    quant = QuantSpec.from_precision(precision, group_size, lm_head_bits=lm_head_bits)
+    return llama.LlamaArgs(quant=quant, tp_size=tp_size, **geo)
+
+
+def _segments(T: int, lens) -> np.ndarray:
+    """Segment ids [T] of prompts of `lens` packed from row 0 (1, 2, ...;
+    0 on the padding rows)."""
+    seg = np.zeros(T, np.int32)
+    o = 0
+    for i, n in enumerate(lens):
+        seg[o:o + n] = i + 1
+        o += n
+    return seg
+
+
+def _to(x, d):
+    """A tensor, None, or a (nested) tuple / NamedTuple of them, on d."""
     import torch
 
-    from qserve_tpu_torch.config import QuantSpec
-    from qserve_tpu_torch.kernels import _build, kv_cache as kvc
-    from qserve_tpu_torch.models import llama, mixtral
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.to(d)
+    items = [_to(y, d) for y in x]
+    return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
 
-    quant = QuantSpec.from_precision(precision, group_size, lm_head_bits=lm_head_bits)
-    geo = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
-               num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64)
-    if moe:
-        geo.update(num_experts=4, moe_top_k=2, moe_route_block=128,
-                   moe_route_min_tokens=16)
-    args = llama.LlamaArgs(quant=quant, **geo)
-    tag = f"{'Mixtral ' if moe else ''}{precision} group {group_size} lm_head W{lm_head_bits}"
-    before = dict(_build.LAUNCHES)
 
-    cpu = (mixtral if moe else llama).random_quantized_params(0, args, device="cpu")
-    gpu = _to(cpu, dev)
+def reference_steps(args, dev, rec: MoERecorder, rank: int = 0) -> list:
+    """The small model of `args` (rank `rank`'s share at tp_size > 1, of
+    random_quantized_params(0)) served on `dev` and on the CPU, the same
+    packed inputs on both: a packed prefill of two prompts, four decode
+    steps, the prefill of a third prompt's first two pages, a chunk over
+    that prefix and a mixed step (the rest of the prompt, not page-aligned,
+    riding with the two decoding sequences and one pad row). Each step runs
+    on `dev` first (rec.side "lead"), then on the CPU ("follow"), whose MoE
+    blocks take the lead's experts where they differ. The decode inputs
+    follow the CPU's argmax. Returns one dict a step: name, card and CPU
+    logits (f32, on the CPU), the live rows (the step's real tokens), and
+    the slices of rec's record that the step added (router probabilities of
+    each side, forced tokens, stream rows)."""
+    import torch
+
+    from qserve_tpu_torch.kernels import kv_cache as kvc
+    from qserve_tpu_torch.models import llama
+    from qserve_tpu_torch.parallel import tp as tpmod
+
+    cpu = tpmod.random_quantized_params_tp(0, args, rank, device="cpu")
+    params = {"cpu": cpu, dev: _to(cpu, dev)}
     ps, lens, T = 16, [37, 20], 64
+    caches = {d: kvc.create_kv_cache(args.num_layers, 10, args.kv_heads_local, ps,
+                                     args.head_dim, args.quant.kv_bits,
+                                     scale_dtype=kvc.scale_dtype_for(args.num_kv_heads),
+                                     device=d)
+              for d in ("cpu", dev)}
     rng = np.random.default_rng(7)
+    V = args.vocab_size
     tok = np.zeros(T, np.int32)
-    tok[:57] = rng.integers(1, 512, 57)
+    tok[:57] = rng.integers(1, V, 57)
     pos = np.concatenate([np.arange(37), np.arange(20), np.zeros(7)]).astype(np.int32)
     seg = _segments(T, lens)
     pages = np.array([i // ps for i in range(37)] + [3 + i // ps for i in range(20)]
                      + [-1] * 7, np.int32)
     slots = np.concatenate([np.arange(37) % ps, np.arange(20) % ps, np.zeros(7)]).astype(np.int32)
     last = np.array([36, 56], np.int32)
-    caches = {d: kvc.create_kv_cache(2, 10, 2, ps, 64, quant.kv_bits, device=d)
-              for d in ("cpu", dev)}
-    params = {"cpu": cpu, dev: gpu}
-    worst, flips, moved, routed = 0.0, [], [], set()
-    seen = 0
+    steps = []
+    marks = dict(lead=0, follow=0, forced=0, rows=0)
 
-    def both(fn):
-        """fn(device) on the card, then on the CPU, whose MoE blocks follow
-        the card's routing."""
+    def run(name, fn, live):
+        """fn(device) on dev, then on the CPU; record the step."""
         outs = {}
         for d, side in ((dev, "lead"), ("cpu", "follow")):
             rec.side = side
             outs[d] = fn(d)
-        return outs
+        step = dict(name=name, card=outs[dev].float().cpu(), cpu=outs["cpu"].float(),
+                    live=np.asarray(live, bool),
+                    probs_lead=rec.probs["lead"][marks["lead"]:],
+                    probs_follow=rec.probs["follow"][marks["follow"]:],
+                    forced=rec.forced[marks["forced"]:], rows=rec.rows[marks["rows"]:])
+        marks.update(lead=len(rec.probs["lead"]), follow=len(rec.probs["follow"]),
+                     forced=len(rec.forced), rows=len(rec.rows))
+        steps.append(step)
+        return step["cpu"]
 
-    def check_routing(live):
-        """The MoE calls since the last look: router probabilities within
-        ROUTER_ATOL on the live tokens, and the CPU's top-2 margin of each live
-        token that took the card's experts. Padding rows are left out: their
-        attention output differs by design (the kernels write 0, the plain
-        versions an average of V) and nothing reads them."""
-        nonlocal seen
-        pd, pc = rec.probs["lead"], rec.probs["follow"]
-        assert len(pc) == len(pd), "the two sides ran other MoE calls"
-        live = torch.from_numpy(np.asarray(live, bool))
-        k, step = args.moe_top_k, 0.0
-        for c, d, forced in zip(pc[seen:], pd[seen:], rec.forced[seen:]):
-            assert c.shape[0] == live.shape[0], (c.shape, live.shape)
-            dp = (c - d)[live].abs().max().item()
-            assert dp < ROUTER_ATOL, f"router probabilities differ by {dp:.3g}"
-            step = max(step, dp)
-            if (forced & live).any():
-                srt = c[forced & live].sort(-1, descending=True).values
-                flips.extend(round(x, 6) for x in (srt[:, k - 1] - srt[:, k]).tolist())
-        seen = len(pc)
-        moved.append(round(step, 6))
+    def on(d, *arrays):
+        return [torch.from_numpy(np.asarray(x)).to(d) for x in arrays]
 
-    def compare(outs, live):
-        """live: the step's stream rows that are real tokens."""
-        nonlocal worst
-        a, b = outs["cpu"], outs[dev].cpu()
-        assert torch.isfinite(b).all()
-        rel = (a - b).abs().max().item() / a.abs().max().item()
-        if moe:
-            routed.update(r for r in rec.rows if r >= args.moe_route_min_tokens)
-            check_routing(live)
-        worst = max(worst, rel)
-        assert rel <= 0.05, f"card vs CPU logits differ by {rel:.3g} of their range"
-        return a
-
-    inp = (tok, pos, seg, pages, slots, last)
-    outs = both(lambda d: llama.prefill(params[d], caches[d],
-                                        *(torch.from_numpy(x).to(d) for x in inp), args)[0])
-    logits = compare(outs, seg > 0)
+    logits = run("prefill", lambda d: llama.prefill(
+        params[d], caches[d], *on(d, tok, pos, seg, pages, slots, last), args)[0], seg > 0)
     bt = np.array([[0, 1, 2], [3, 4, 0]], np.int32)
-    for step in range(4):
+    for i in range(4):
         tok_d = logits.argmax(-1).to(torch.int32).numpy()
-        ctx = np.array([38 + step, 21 + step], np.int32)
-        outs = both(lambda d: llama.decode(
-            params[d], caches[d], *(torch.from_numpy(x).to(d) for x in (tok_d, bt, ctx)),
-            args)[0])
-        logits = compare(outs, ctx > 0)
-    # one chunk step: a third prompt whose first 32 tokens (two pages) are
-    # cached by a prefill, then tokens 32..52 as a chunk over that prefix
-    ids3 = rng.integers(1, 512, 53).astype(np.int32)
+        ctx = np.array([38 + i, 21 + i], np.int32)
+        logits = run(f"decode {i}", lambda d: llama.decode(
+            params[d], caches[d], *on(d, tok_d, bt, ctx), args)[0], ctx > 0)
+    # a third prompt whose first 32 tokens (two pages) a prefill caches,
+    # then tokens 32..44 as a chunk over that prefix
+    ids3 = rng.integers(1, V, 53).astype(np.int32)
 
     def packed(ids, start, T, table):
         n = len(ids)
         p = start + np.arange(n)
-        pad = T - n
-        z = np.zeros(pad, np.int32)
+        z = np.zeros(T - n, np.int32)
         return tuple(np.concatenate([a.astype(np.int32), b]) for a, b in (
             (ids, z), (p, z), (np.ones(n), z),
             (np.asarray(table)[p // ps], z - 1), (p % ps, z))) + (
@@ -1429,29 +1479,116 @@ def _reference(dev, precision, group_size, lm_head_bits, moe, rec):
 
     table3 = [5, 6, 7, 8]
     bt3 = np.array([table3], np.int32)
-    outs = both(lambda d: llama.prefill(params[d], caches[d],
-                                        *(torch.from_numpy(x).to(d)
-                                          for x in packed(ids3[:32], 0, 32, table3)), args)[0])
-    compare(outs, np.ones(32, bool))
-    outs = both(lambda d: llama.prefill_chunk(
-        params[d], caches[d],
-        *(torch.from_numpy(x).to(d) for x in packed(ids3[32:45], 32, 16, table3)),
-        torch.from_numpy(bt3).to(d), 32, args)[0])
-    compare(outs, np.arange(16) < 13)
-    # one mixed step: the rest of that prompt (prefix 45, not page-aligned)
-    # riding with the two decoding sequences and one pad row
+    run("prefill 3", lambda d: llama.prefill(
+        params[d], caches[d], *on(d, *packed(ids3[:32], 0, 32, table3)), args)[0],
+        np.ones(32, bool))
+    run("chunk", lambda d: llama.prefill_chunk(
+        params[d], caches[d], *on(d, *packed(ids3[32:45], 32, 16, table3)),
+        *on(d, bt3), 32, args)[0], np.arange(16) < 13)
     tok_d = np.concatenate([logits.argmax(-1).to(torch.int32).numpy(), [0]]).astype(np.int32)
     bt_d = np.array([[0, 1, 2, 0], [3, 4, 0, 0], [0, 0, 0, 0]], np.int32)
     ctx_d = np.array([42, 25, 0], np.int32)
-    outs = both(lambda d: llama.prefill_chunk_with_decode(
-        params[d], caches[d],
-        *(torch.from_numpy(x).to(d) for x in packed(ids3[45:], 45, 16, table3)),
-        torch.from_numpy(bt3).to(d), 45,
-        *(torch.from_numpy(x).to(d) for x in (tok_d, bt_d, ctx_d)), args)[0])
-    assert outs[dev].shape == (4, 512)
-    compare({d: o[:3] for d, o in outs.items()},  # row 3 is the pad row
-            np.concatenate([np.arange(16) < 8, ctx_d > 0]))
+    run("mixed", lambda d: llama.prefill_chunk_with_decode(
+        params[d], caches[d], *on(d, *packed(ids3[45:], 45, 16, table3)), *on(d, bt3), 45,
+        *on(d, tok_d, bt_d, ctx_d), args)[0][:3],  # row 3 is the pad row
+        np.concatenate([np.arange(16) < 8, ctx_d > 0]))
+    return steps
+
+
+def reference_rank(rank: int, world_size: int, spec: dict) -> dict:
+    """reference_steps at tp = world_size on spec["device"] against the CPU
+    (reference_args(**spec["args"])), the launches it made, and the
+    steps' data as numpy."""
+    import torch
+
+    from qserve_tpu_torch.kernels import _build
+    from qserve_tpu_torch.parallel import dryrun
+
+    tp_rank, _, dev = dryrun.setup_rank(world_size, device=spec["device"])
+    args = reference_args(tp_size=world_size, **spec["args"])
+    _build.reset_launch_counts()
+    with MoERecorder(probs=bool(args.num_experts)) as rec:
+        steps = reference_steps(args, dev, rec, tp_rank)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+    def arr(x):
+        return [t.numpy() for t in x]
+
+    return dict(tp_rank=tp_rank, launches=dict(_build.LAUNCHES), steps=[
+        dict(s, card=s["card"].numpy(), cpu=s["cpu"].numpy(),
+             probs_lead=arr(s["probs_lead"]), probs_follow=arr(s["probs_follow"]),
+             forced=arr(s["forced"])) for s in steps])
+
+
+# the small Mixtral's router probabilities, card vs CPU, on every live token
+ROUTER_ATOL = 5e-3
+
+
+def phase_reference(dev, precision="w4a8kv4", group_size=-1, lm_head_bits=16,
+                    moe=False):
+    """The small model (reference_args: hidden 256, intermediate 512,
+    2 layers; with moe a Mixtral of 4 experts, top-2, routed in 128-row
+    blocks from 16 rows up) on the card (kernels) and on the CPU (plain
+    versions), the same params and packed inputs: reference_steps'
+    packed prefill, four decode steps, a prefill, a chunk step over its
+    cached prefix and a mixed chunk+decode step, held by _hold_reference."""
+    from qserve_tpu_torch.kernels import _build
+
+    args = reference_args(precision, group_size, lm_head_bits, moe)
+    before = dict(_build.LAUNCHES)
+    with MoERecorder(probs=moe) as rec:
+        steps = reference_steps(args, dev, rec)
     ran = sorted(k for k, v in _build.LAUNCHES.items() if v > before.get(k, 0))
+    return _hold_reference(args, steps, ran)
+
+
+def _hold_reference(args, steps, ran, rank=None):
+    """Card against CPU logits, step by step: within 5% of their range. The
+    CPU's MoE blocks gave a token whose top-2 experts differ from the card's
+    the card's experts (MoERecorder), so a near-tie flipped by rounding
+    leaves every step's logits comparable, and all of them are held. The
+    prefill attention kernels round P to bf16 as the TPU kernels did, and
+    the int8 activation quantizers turn that ~1e-3 into whole-code steps, so
+    the two sides' router inputs part by more than an ulp: the router
+    probabilities of every live token of every MoE call must agree within
+    ROUTER_ATOL (the H100 has read up to 4.1e-3 over the eight steps; K3's
+    arithmetic transcribed on the CPU moves them by up to 2.5e-3 in the
+    prefill alone, tests/test_torch_attention_arith.py), which also bounds
+    the top-2 margin of any token whose experts differ: at most the two
+    edge probabilities' movement, 1e-2. Padding rows are left out of the
+    router check: their attention output differs by design (the kernels
+    write 0, the plain versions an average of V) and nothing reads them.
+    Returns the worst step's max |diff| / max |logit|."""
+    import torch
+
+    q = args.quant
+    moe = bool(args.num_experts)
+    tag = (f"{'Mixtral ' if moe else ''}{q.precision} group {q.group_size} lm_head "
+           f"W{q.lm_head_bits}" + (f" tp {args.tp_size} rank {rank}" if rank is not None else ""))
+    worst, flips, moved, routed = 0.0, [], [], set()
+    for s in steps:
+        a, b = torch.as_tensor(s["cpu"]), torch.as_tensor(s["card"])
+        assert a.shape == b.shape == (a.shape[0], args.vocab_size), (s["name"], b.shape)
+        assert torch.isfinite(b).all()
+        rel = (a - b).abs().max().item() / a.abs().max().item()
+        if moe:
+            routed.update(r for r in s["rows"] if r >= args.moe_route_min_tokens)
+            live = torch.from_numpy(np.asarray(s["live"], bool))
+            k, step = args.moe_top_k, 0.0
+            assert len(s["probs_follow"]) == len(s["probs_lead"]), "the two sides ran other MoE calls"
+            for c, d, forced in zip(s["probs_follow"], s["probs_lead"], s["forced"]):
+                c, d, forced = (torch.as_tensor(x) for x in (c, d, forced))
+                assert c.shape[0] == live.shape[0], (c.shape, live.shape)
+                dp = (c - d)[live].abs().max().item()
+                assert dp < ROUTER_ATOL, f"router probabilities differ by {dp:.3g}"
+                step = max(step, dp)
+                if (forced & live).any():
+                    srt = c[forced & live].sort(-1, descending=True).values
+                    flips.extend(round(x, 6) for x in (srt[:, k - 1] - srt[:, k]).tolist())
+            moved.append(round(step, 6))
+        worst = max(worst, rel)
+        assert rel <= 0.05, f"{tag} {s['name']}: card vs CPU logits differ by {rel:.3g} of their range"
     log(f"  reference {tag}: card vs CPU logits over prefill, 4 decode steps, a "
         f"chunk step and a mixed step, worst max|diff| / max|logit| = {worst:.3g}; "
         f"kernels: {ran}")
@@ -1460,10 +1597,11 @@ def _reference(dev, precision, group_size, lm_head_bits, moe, rec):
             f"by up to {max(moved):.3g} (by step {moved}); {len(flips)} live tokens took "
             f"the card's experts (CPU top-2 margins {flips}); all {len(moved)} steps held")
         assert routed, "no step took the routed dispatch"
-        if quant.act_bits == 8:
+        if q.act_bits == 8:
             want = {(4, -1): "w4a8_gemm_per_chn_routed", (8, -1): "w8a8_gemm_routed"}.get(
-                (quant.weight_bits, group_size), "w4a8_gemm_per_group_routed")
+                (q.weight_bits, q.group_size), "w4a8_gemm_per_group_routed")
             assert want in ran, f"{want} did not launch"
+    return worst
 
 
 def _drive(engine, want_tokens, arrivals=(), vocab=LLAMA3_8B["vocab_size"], moe=None):
@@ -1584,20 +1722,45 @@ def _release():
 PATH_A_GREEDY = [f"a{i}" for i in range(6)]  # a6 and a7 sample at temperature 0.8
 
 
-def _add_path_a(engine, prefix="a"):
-    """Path a's 8 requests (the same prompts each call); returns
-    {request id: output tokens}."""
-    from qserve_tpu_torch.sampling_params import SamplingParams
-
+def _path_a_requests(prefix="a"):
+    """Path a's 8 requests (the same prompts each call) as dicts: id,
+    prompt, sp (SamplingParams fields)."""
     V = LLAMA3_8B["vocab_size"]
     rng = np.random.default_rng(0)
     lens = rng.integers(128, 1025, 8)
-    for i, n in enumerate(lens):
-        engine.add_request(
-            f"{prefix}{i}", prompt_token_ids=rng.integers(0, V, int(n)).tolist(),
-            sampling_params=SamplingParams(
-                max_tokens=32, ignore_eos=True, temperature=0.8 if i >= 6 else 0.0))
-    return {f"{prefix}{i}": 32 for i in range(8)}, lens
+    return [dict(id=f"{prefix}{i}", prompt=rng.integers(0, V, int(n)).tolist(),
+                 sp=dict(max_tokens=32, ignore_eos=True, temperature=0.8 if i >= 6 else 0.0))
+            for i, n in enumerate(lens)]
+
+
+def _add_path_a(engine, prefix="a"):
+    """Adds path a's 8 requests; returns ({request id: output tokens},
+    prompt lengths)."""
+    from qserve_tpu_torch.sampling_params import SamplingParams
+
+    reqs = _path_a_requests(prefix)
+    for r in reqs:
+        engine.add_request(r["id"], prompt_token_ids=r["prompt"],
+                           sampling_params=SamplingParams(**r["sp"]))
+    return {r["id"]: 32 for r in reqs}, np.array([len(r["prompt"]) for r in reqs])
+
+
+def _prefill_logits(engine, n):
+    """The logits of the first n sampling calls of path a's prompts served
+    by `engine` with one greedy token each: its prefill steps, grouped as
+    path a's are (dryrun.keep_logits)."""
+    from qserve_tpu_torch.parallel import dryrun
+    from qserve_tpu_torch.sampling_params import SamplingParams
+
+    kept = dryrun.keep_logits(engine.worker.model_runner, n)
+    want = {}
+    for r in _path_a_requests("pl"):
+        want[r["id"]] = 1
+        engine.add_request(r["id"], prompt_token_ids=r["prompt"], sampling_params=SamplingParams(
+            max_tokens=1, ignore_eos=True, temperature=0.0))
+    steps = _drive(engine, want)["ms"]
+    assert set(steps) == {"prefill"} and len(steps["prefill"]) == n, steps
+    return kept
 
 
 def _path_a(engine, tag="path a"):
@@ -1765,8 +1928,12 @@ def _param_gib(params):
 
 
 def phase_engine(dev):
-    """Paths a-i. Returns ({path: launches}, {path: summary})."""
+    """Paths a-i. Returns ({path: launches}, {path: summary}, (path a's
+    streams, the logits of path a's prefill steps, path f's logits of the
+    same prompts))."""
     import torch
+
+    from qserve_tpu_torch.parallel import dryrun
 
     launches, summary = {}, {}
     common = ("elementwise", "flash_prefill_attention", "paged_decode_attention",
@@ -1775,7 +1942,9 @@ def phase_engine(dev):
     engine = _build_engine(dev, "paths a, b (Llama-3-8B w4a8kv4 per-channel)",
                            LLAMA3_8B, precision="w4a8kv4", group_size=-1,
                            max_model_len=8192, num_device_pages=160)
+    kept_a = dryrun.keep_logits(engine.worker.model_runner, 8)
     launches["a"], summary["path_a"], streams_a = _path_a(engine)
+    logits_a = kept_a[:summary["path_a"]["steps"]["prefill"]]
     log("phase checkpoint")
     t = time.perf_counter()
     ck_launches, summary["checkpoint"] = phase_checkpoint(dev, engine, streams_a)
@@ -1828,6 +1997,7 @@ def phase_engine(dev):
                            LLAMA3_8B, precision="w16a16kv8", max_model_len=8192,
                            num_device_pages=160)
     assert engine.worker.model_runner.params.layers.qkv.weight.dtype == torch.bfloat16
+    logits_f = _prefill_logits(engine, len(logits_a))  # phase tp's W16 reference
     launches["f"], summary["path_f"] = _path_mixed(
         engine, "f", LLAMA3_8B["vocab_size"], 5, ran=common[1:],
         idle=("elementwise",) + DENSE_GEMMS + ROUTED_GEMMS)
@@ -1858,24 +2028,12 @@ def phase_engine(dev):
                 moe=(rec, dense, routed))
         del engine
         _release()
-    return launches, summary
+    return launches, summary, (streams_a, logits_a, logits_f)
 
 
 # --------------------------------------------------------------------------
 # VLM phases
 # --------------------------------------------------------------------------
-
-
-def _to(x, d):
-    """A tensor, None, or a (nested) tuple / NamedTuple of them, on d."""
-    import torch
-
-    if x is None:
-        return None
-    if isinstance(x, torch.Tensor):
-        return x.to(d)
-    items = [_to(y, d) for y in x]
-    return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
 
 
 def phase_reference_vlm(dev, precision, group_size=-1):
@@ -2784,17 +2942,316 @@ def phase_checkpoint(dev, engine_a, streams_a):
 
 
 def phase_refusal(dev):
-    """What is still unported raises; nothing else runs in its place."""
+    """What the port does not serve raises; nothing else runs in its place:
+    engine-level data parallelism (the JAX package's TPModelRunner asserts
+    dp == 1) and a VLM at tp > 1 (the JAX package ignores tp there)."""
     from qserve_tpu_torch.engine.arg_utils import EngineArgs
 
-    try:
-        EngineArgs(hf_config=LLAMA3_8B, random_weights=True, device=dev,
-                   tensor_parallel_size=2).build_engine()
-    except NotImplementedError as e:
-        assert "ROADMAP" in str(e)
-        log(f"  tensor_parallel_size=2 refused: {e}")
-    else:
-        raise AssertionError("a tensor-parallel engine was built without its port")
+    for kw in (dict(data_parallel_size=2), dict(run_vlm=True, tensor_parallel_size=2)):
+        try:
+            EngineArgs(hf_config=LLAMA3_8B, random_weights=True, device=dev, **kw).build_engine()
+        except NotImplementedError as e:
+            assert "ROADMAP" in str(e)
+            log(f"  {kw} refused: {e}")
+        else:
+            raise AssertionError(f"an engine was built with {kw}")
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism: two ranks, each a process, sharing the one card
+# --------------------------------------------------------------------------
+
+TP_REFERENCE = (  # (precision, group size, lm_head bits, moe)
+    ("w4a8kv4", -1, 16, False), ("w4a8kv8", 128, 8, False), ("w8a8kv8", -1, 8, False),
+    ("w16a16kv8", -1, 16, False), ("w4a8kv4", -1, 16, True))
+# Prefill logits at tp = 2 against tp = 1's on the same prompts and float
+# weights (relative RMS gap of each row): under these, while a gather with
+# the ranks swapped reads above them (1.40-1.43). W4A8KV4 (path l against
+# path a): per-shard scales round o and down otherwise. Path l reads
+# 0.81-0.89 at full width (Llama-3-8B, 32 layers; H100 run); on the CPU at
+# hidden 1024 (head dim 128, GQA 4, 2-32 layers) scripts/tp_logit_gap.py
+# reads 0.25-0.41, under the 0.41-0.66 that W4A8 quantization itself moves
+# the logits from W16A16's. W16A16KV8 has no weight scales: only the bf16
+# rounding of the partial sums parts tp = 2 from tp = 1, 0.008-0.017 on the
+# CPU, so any sharding fault (a head block, a vocab half) shows there.
+TP_LOGIT_GAP = 1.1
+TP_LOGIT_GAP_W16 = 0.2
+# collective shapes of Llama-3-8B at tp = 2: o / down at decode B = 8 and at
+# a 2048-row prefill, the lm_head's vocab half at B = 8 and 64
+TP_COLLECTIVES = (("all_reduce", (8, 4096)), ("all_reduce", (2048, 4096)),
+                  ("all_gather", (8, 64128)), ("all_gather", (64, 64128)))
+
+
+def collectives_rank(rank: int, world_size: int, shapes: list,
+                     device: str = "cuda", reps: int = 10) -> dict:
+    """Median host ms of one bf16 all_reduce of each [T, E] shape and one f32
+    all_gather of each [B, V/tp] shape (("all_reduce" | "all_gather", shape)),
+    the device synchronised around each call, as tp.py's helpers run them."""
+    import statistics
+    import types
+
+    import torch
+
+    from qserve_tpu_torch.parallel import dryrun, tp as tpmod
+
+    _, _, dev = dryrun.setup_rank(world_size, device=device)
+    args = types.SimpleNamespace(tp_size=world_size)
+    tpmod.STATS.timed = True
+    out = []
+    for kind, shape in shapes:
+        x = torch.randn(shape, device=dev)
+        if kind == "all_reduce":
+            x = x.to(torch.bfloat16)
+        fn = tpmod.tp_all_reduce if kind == "all_reduce" else tpmod.tp_all_gather_cols
+        ms = []
+        for _ in range(reps + 2):
+            tpmod.STATS.reset()
+            fn(x, args)
+            ms.append(tpmod.STATS.ms[kind])
+        out.append(dict(kind=kind, shape=list(shape), dtype=str(x.dtype),
+                        ms=statistics.median(ms[2:])))
+    return dict(rank=rank, rows=out)
+
+
+def phase_reference_tp(dev):
+    """The reference phase's small model at tp = 2: two ranks (processes)
+    on the card over gloo, each running every step on the card (kernels)
+    and on the CPU (plain versions, the CPU's two ranks over the same
+    gloo group); every rank's logits held as phase_reference holds them,
+    and the two ranks' logits equal bit for bit, on the card and on the
+    CPU. Then the collectives alone, at path l's shapes."""
+    from qserve_tpu_torch.parallel import distributed, dryrun
+
+    jobs = [(reference_rank, (dict(device=dev, args=dict(
+        precision=p, group_size=g, lm_head_bits=b, moe=m)),)) for p, g, b, m in TP_REFERENCE]
+    jobs.append((collectives_rank, (TP_COLLECTIVES, dev)))
+    t = time.perf_counter()
+    ranks = distributed.spawn(dryrun.jobs_rank, 2, (jobs,), timeout_s=600)
+    log(f"  2 ranks ran {len(jobs)} jobs in {time.perf_counter() - t:.1f} s")
+    out = []
+    for i, (p, g, b, m) in enumerate(TP_REFERENCE):
+        args = reference_args(p, g, b, m, tp_size=2)
+        r0, r1 = ranks[0][i], ranks[1][i]
+        worst = [_hold_reference(args, r["steps"], sorted(r["launches"]), rank=k)
+                 for k, r in enumerate((r0, r1))]
+        for s0, s1 in zip(r0["steps"], r1["steps"]):
+            for side in ("card", "cpu"):
+                assert np.array_equal(s0[side], s1[side]), \
+                    f"tp 2 {p}: the ranks' {side} logits differ at {s0['name']}"
+        assert r0["launches"] == r1["launches"], (r0["launches"], r1["launches"])
+        out.append(dict(precision=p, group_size=g, lm_head_bits=b, moe=m, worst=worst,
+                        launches=r0["launches"]))
+    log("    the two ranks' logits are equal bit for bit at every step, card and CPU")
+    coll = [ranks[0][-1]["rows"], ranks[1][-1]["rows"]]
+    for r0, r1 in zip(*coll):
+        log(f"  {r0['kind']} {r0['dtype']} {r0['shape']}: rank 0 {r0['ms']:.3f} ms, "
+            f"rank 1 {r1['ms']:.3f} ms (median of 10, host clock, device synchronised "
+            f"around each; gloo, two ranks on one card)")
+    return dict(reference=out, collectives=coll)
+
+
+def _tp_requests(prefix, vocab, seed, wave=0):
+    """Path l's and m's traffic, in waves from `wave` on (dryrun._drive):
+    6 requests decode (one of them computes a 768-token prefix that a later
+    request shares through prefix_pos) and 4 steps in a 3000-token prompt
+    admits beside them in mixed steps; then a 2500-token prompt runs alone
+    (a prefill and a chunk step); then the prefix-sharing request (a chunk
+    over the cached prefix)."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, 768).tolist()
+
+    def sp(n, filtered=False):
+        if filtered:
+            return dict(max_tokens=n, ignore_eos=True, temperature=0.8, top_p=0.9, top_k=50)
+        return dict(max_tokens=n, ignore_eos=True, temperature=0.0)
+
+    reqs = []
+    for i, n in enumerate(rng.integers(128, 1025, 6)):
+        ids = rng.integers(0, vocab, int(n)).tolist()
+        reqs.append(dict(id=f"{prefix}{i}", prompt=shared + ids[:100] if i == 0 else ids,
+                         sp=sp(24, filtered=i == 5), prefix_pos=768 if i == 0 else None,
+                         wave=wave))
+    return reqs + [
+        dict(id=f"{prefix}long", prompt=rng.integers(0, vocab, 3000).tolist(), sp=sp(8),
+             wave=wave, after=4),
+        dict(id=f"{prefix}alone", prompt=rng.integers(0, vocab, 2500).tolist(), sp=sp(4),
+             wave=wave + 1),
+        dict(id=f"{prefix}skip", prompt=shared + rng.integers(0, vocab, 200).tolist(),
+             sp=sp(4), prefix_pos=768, wave=wave + 2)]
+
+
+def _tp_report(tag, ranks):
+    """Both ranks' streams equal; per rank: step ms by kind (host clock and
+    CUDA events), peak GiB, collective calls and ms a step, backend."""
+    r0, r1 = ranks
+    assert r0["streams"] == r1["streams"], f"{tag}: the ranks' token streams differ"
+    assert r0["num_pages"] == r1["num_pages"], (r0["num_pages"], r1["num_pages"])
+    out = dict(pages=r0["num_pages"], backend=r0["backend"], ranks=[])
+    for k, r in enumerate(ranks):
+        log(f"  {tag} rank {k} on {r['device']} ({r['backend']}): engine built in "
+            f"{r['build_s']:.1f} s, {r['allocated_gib']:.2f} GiB allocated, "
+            f"{r['num_pages']} KV pages, cache {r['cache_shape']}")
+        kinds = {}
+        for st in r["log"]:
+            kinds.setdefault(st["kind"], []).append(st)
+        summ = {}
+        for kind, sts in kinds.items():
+            med = lambda key: statistics.median(x[key] for x in sts)  # noqa: E731
+            coll = statistics.median(sum(x["collective_ms"].values()) for x in sts)
+            calls = sts[0]["collectives"]
+            log(f"    {len(sts)} {kind} steps: median {med('ms'):.2f} ms host, "
+                f"{med('dev_ms'):.2f} ms CUDA events; collectives {coll:.2f} ms a step "
+                f"({calls['all_reduce']} all_reduce, {calls['all_gather']} all_gather); "
+                f"peak allocated {max(x['peak_gib'] for x in sts):.3f} GiB")
+            summ[kind] = dict(steps=len(sts), ms=med("ms"), dev_ms=med("dev_ms"),
+                              collective_ms=coll, calls=calls,
+                              peak_gib=max(x["peak_gib"] for x in sts))
+        log(f"    launches: {r['launches']}")
+        out["ranks"].append(summ)
+    return out
+
+
+def _hold_tp_logits(tag, logits_l, logits_a, V, limit):
+    """Prefill logits at tp = 2 (l) against tp = 1's (a) on the same prompts
+    and float weights: per live row, the relative RMS gap ||l - a|| / ||a||
+    must stay under `limit`, and l's logits with the two vocab halves in
+    swapped rank order (a gather in the wrong order) must read above it.
+    Also reads the relative max gap, the RMS of l - a beside a's top-2
+    margins (an argmax flips where the gap outweighs the margin)."""
+    assert len(logits_l) == len(logits_a) > 0, (len(logits_l), len(logits_a))
+    gap, ctl, rel_max, rms, margin, std, same = [], [], [], [], [], [], 0
+    for l, a in zip(logits_l, logits_a):
+        assert l.shape == a.shape and l.shape[1] == V, (l.shape, a.shape)
+        assert np.isfinite(l).all()
+        swapped = np.concatenate([l[:, V // 2:], l[:, :V // 2]], 1)
+        norm = np.linalg.norm(a, axis=1)
+        gap += (np.linalg.norm(l - a, axis=1) / norm).tolist()
+        ctl += (np.linalg.norm(swapped - a, axis=1) / norm).tolist()
+        rel_max += (np.abs(l - a).max(1) / np.abs(a).max(1)).tolist()
+        rms += np.sqrt(((l - a) ** 2).mean(1)).tolist()
+        top = np.sort(a, 1)
+        margin += (top[:, -1] - top[:, -2]).tolist()
+        std += a.std(1).tolist()
+        same += int((l.argmax(1) == a.argmax(1)).sum())
+    log(f"    {tag}, {len(gap)} rows of "
+        f"{len(logits_l)} steps: relative RMS gap {min(gap):.4f}-{max(gap):.4f} (limit "
+        f"{limit}); the ranks swapped in the vocab gather {min(ctl):.4f}-"
+        f"{max(ctl):.4f}; relative max gap {min(rel_max):.4f}-{max(rel_max):.4f}; "
+        f"argmax equal on {same} rows; RMS of l - a {min(rms):.4f}-{max(rms):.4f} "
+        f"against tp = 1's top-2 margins {min(margin):.4f}-{max(margin):.4f} (logit "
+        f"std {min(std):.3f}-{max(std):.3f})")
+    assert max(gap) < limit, f"{tag}: {max(gap):.4f} off"
+    assert min(ctl) > limit, f"{tag}: a swapped gather reads {min(ctl):.4f}: no teeth"
+    return dict(rows=len(gap), gap=[min(gap), max(gap)], swapped=[min(ctl), max(ctl)],
+                rel_max=[min(rel_max), max(rel_max)], diff_rms=[min(rms), max(rms)],
+                argmax_equal=same,
+                top2_margin=[min(margin), max(margin)], logit_std=[min(std), max(std)])
+
+
+def _moe_serve_rank(rank: int, world_size: int, spec: dict) -> dict:
+    """dryrun.serve_rank with every MoE block's stream rows recorded."""
+    from qserve_tpu_torch.parallel import dryrun
+
+    with MoERecorder() as rec:
+        return dryrun.serve_rank(rank, world_size, spec, moe=rec)
+
+
+def phase_tp(dev, streams_a, logits_a, logits_f):
+    """Paths l and m: EngineArgs(tensor_parallel_size=2) in two spawned
+    ranks that share the card over gloo (NCCL refuses two ranks on one
+    device), each at full width with random_quantized_params_tp of path a's
+    seed. l: Llama-3-8B W4A8KV4 per-channel, 32 layers, path a's 8 requests
+    and then _tp_requests' traffic. m: Mixtral-8x7B W4A8KV4 per-channel cut
+    to 4 layers (the script's time limit), _tp_requests' traffic: steps of
+    1024 rows or more take the routed K2 at the local N = 14336 / K = 7168,
+    decode the masked loop. Every step's collectives are timed (the device
+    synchronised around each). The ranks' streams must be equal, and each
+    rank must have launched the path's kernels and no K8 or K9. Path l's
+    prefill logits for path a's prompts must stay within TP_LOGIT_GAP of
+    path a's, and at W16A16KV8 (two more ranks, those prompts only) within
+    TP_LOGIT_GAP_W16 of path f's (_hold_tp_logits)."""
+    from qserve_tpu_torch.parallel import distributed, dryrun
+
+    launches, summary = {}, {}
+    common = dict(random_weights=True, seed=0, precision="w4a8kv4", group_size=-1,
+                  block_size=256, max_num_batched_tokens=2048, max_num_seqs=64,
+                  max_model_len=8192)
+    V = LLAMA3_8B["vocab_size"]
+    spec = dict(device=dev, engine_args=dict(common, hf_config=LLAMA3_8B),
+                requests=_path_a_requests("la") + _tp_requests("l", V, 7, wave=1),
+                time_collectives=True, keep_logits=len(logits_a))
+    t = time.perf_counter()
+    ranks = distributed.spawn(dryrun.serve_rank, 2, (spec,), timeout_s=900)
+    log(f"  path l (Llama-3-8B w4a8kv4 per-channel, tp 2, 32 layers): 2 ranks in "
+        f"{time.perf_counter() - t:.1f} s")
+    summary["path_l"] = _tp_report("path l", ranks)
+    idle = ("w4a8_gemm_per_group", "w8a8_gemm") + ROUTED_GEMMS
+    for k, r in enumerate(ranks):
+        _require(f"path l rank {k}", r["launches"], [x for x in ROUTES if x not in idle], idle)
+        kinds = {st["kind"] for st in r["log"]}
+        assert {"prefill", "mixed", "chunk", "decode"} <= kinds, kinds
+        for st in r["log"]:
+            assert st["collectives"] == {"all_reduce": 64, "all_gather": 1}, st["collectives"]
+    common_len = []  # tokens path l's greedy streams share with path a's from the start
+    for rid in PATH_A_GREEDY:
+        got, want = ranks[0]["streams"]["l" + rid][0], streams_a[rid]
+        common_len.append(next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                               min(len(got), len(want))))
+    same = sum(n == len(streams_a[rid]) for n, rid in zip(common_len, PATH_A_GREEDY))
+    log(f"    path l reproduces {same} of path a's {len(PATH_A_GREEDY)} greedy streams; "
+        f"common prefixes {common_len} tokens (per-shard scales differ from tp = 1's by "
+        "design: not asserted)")
+    summary["path_l"]["path_a_greedy_reproduced"] = same
+    for a, b in zip(ranks[0]["logits"], ranks[1]["logits"]):
+        assert np.array_equal(a, b), "the ranks' gathered logits differ"
+    summary["path_l"]["logits_vs_tp1"] = _hold_tp_logits(
+        "path l's prefill logits against path a's (tp = 1)", ranks[0]["logits"], logits_a, V,
+        TP_LOGIT_GAP)
+    # the same prompts at W16A16KV8, tp = 2 against path f (tp = 1): no weight
+    # scales, so only the bf16 rounding of the partial sums parts them
+    w4_w16 = [float(np.linalg.norm(a - f) / np.linalg.norm(f))
+              for la, lf in zip(logits_a, logits_f) for a, f in zip(la, lf)]
+    log(f"    W4A8KV4 against W16A16KV8 at tp = 1 (path a against path f, the same "
+        f"float weights): relative RMS gap {min(w4_w16):.4f}-{max(w4_w16):.4f}")
+    spec = dict(device=dev, engine_args=dict(common, hf_config=LLAMA3_8B, precision="w16a16kv8"),
+                requests=[dict(r, sp=dict(max_tokens=1, ignore_eos=True, temperature=0.0))
+                          for r in _path_a_requests("l16_")],
+                keep_logits=len(logits_f))
+    t = time.perf_counter()
+    r16 = distributed.spawn(dryrun.serve_rank, 2, (spec,), timeout_s=600)
+    log(f"  path l at W16A16KV8 (path a's prompts, one token each): 2 ranks in "
+        f"{time.perf_counter() - t:.1f} s")
+    assert r16[0]["streams"] == r16[1]["streams"]
+    for a, b in zip(r16[0]["logits"], r16[1]["logits"]):
+        assert np.array_equal(a, b), "the ranks' gathered logits differ"
+    summary["path_l"]["w16_logits_vs_tp1"] = dict(_hold_tp_logits(
+        "W16A16KV8 prefill logits at tp = 2 against path f's (tp = 1)", r16[0]["logits"],
+        logits_f, V, TP_LOGIT_GAP_W16), w4_vs_w16_tp1=[min(w4_w16), max(w4_w16)])
+    del r16
+    launches["l"] = ranks[0]["launches"]
+
+    cfg = dict(MIXTRAL_8X7B, num_hidden_layers=4)
+    spec = dict(device=dev, engine_args=dict(common, hf_config=cfg),
+                requests=_tp_requests("m", MIXTRAL_8X7B["vocab_size"], 6),
+                time_collectives=True)
+    t = time.perf_counter()
+    ranks = distributed.spawn(_moe_serve_rank, 2, (spec,), timeout_s=900)
+    log(f"  path m (Mixtral-8x7B w4a8kv4 per-channel, tp 2, 4 of 32 layers): 2 ranks in "
+        f"{time.perf_counter() - t:.1f} s")
+    summary["path_m"] = _tp_report("path m", ranks)
+    idle = tuple(x for x in DENSE_GEMMS + ROUTED_GEMMS
+                 if x not in ("w4a8_gemm_per_chn", "w4a8_gemm_per_chn_routed"))
+    for k, r in enumerate(ranks):
+        _require(f"path m rank {k}", r["launches"], [x for x in ROUTES if x not in idle], idle)
+        steps = [(st["kind"], st["rows"][0], len(st["rows"]), st["ms"], st["launches"])
+                 for st in r["log"]]
+        assert all(len(set(st["rows"])) == 1 for st in r["log"])
+        summary["path_m"][f"moe_steps_rank{k}"] = _check_moe_steps(
+            f"m rank {k}", steps, "w4a8_gemm_per_chn", "w4a8_gemm_per_chn_routed")
+        for st in r["log"]:
+            assert st["collectives"] == {"all_reduce": 8, "all_gather": 1}, st["collectives"]
+    launches["m"] = ranks[0]["launches"]
+    return launches, summary
 
 
 def build_report():
@@ -2893,7 +3350,7 @@ def main() -> int:
     log(f"  phase towers ok in {time.perf_counter() - t:.1f} s")
     log("phase engine")
     t = time.perf_counter()
-    launches, summary = phase_engine(dev)
+    launches, summary, tp_refs = phase_engine(dev)
     log(f"  phase engine ok in {time.perf_counter() - t:.1f} s")
     log("phase vlm")
     t = time.perf_counter()
@@ -2906,6 +3363,16 @@ def main() -> int:
     ep_launches, summary["vlm_entry_points"] = phase_vlm_entry_points(dev)
     launches.update(ep_launches)
     log(f"  phase vlm_entry_points ok in {time.perf_counter() - t:.1f} s")
+    _release()  # the ranks below share the card with this process
+    log("phase reference_tp")
+    t = time.perf_counter()
+    summary["reference_tp"] = phase_reference_tp(dev)
+    log(f"  phase reference_tp ok in {time.perf_counter() - t:.1f} s")
+    log("phase tp")
+    t = time.perf_counter()
+    tp_launches, summary["tp"] = phase_tp(dev, *tp_refs)
+    launches.update(tp_launches)
+    log(f"  phase tp ok in {time.perf_counter() - t:.1f} s")
     log("phase refusal")
     phase_refusal(dev)
     log(f"kernel rows: {json.dumps(res.all)}")

@@ -7,7 +7,9 @@ neither JAX nor the JAX package; bf16 leaves (numpy's ml_dtypes bfloat16)
 cross as their raw 16-bit patterns. `vila_params_from_numpy` does the same
 for a VILA model (tower, projector, LLM) and `vila_args_from_jax` rebuilds
 the JAX package's VilaArgs as the port's, its compute dtypes mapped by
-`torch_dtype`.
+`torch_dtype`. `tp_shard_from_jax` cuts the global arrays of the JAX
+package's quantize_params_tp into one rank's params by their
+PartitionSpecs.
 """
 
 from __future__ import annotations
@@ -130,3 +132,34 @@ def vila_params_from_numpy(tree, device="cuda") -> vila.VilaParams:
         weights=tuple(t(w) for w in p.weights), biases=tuple(t(b) for b in p.biases))
     return vila.VilaParams(vision=vision, projector=projector,
                            llm=params_from_numpy(tree.llm, device))
+
+
+def _is_spec(s) -> bool:
+    """A jax.sharding.PartitionSpec (a tuple of axis names or None), told by
+    its class name."""
+    return type(s).__name__ == "PartitionSpec"
+
+
+def tp_shard_from_jax(global_params, specs, rank: int, tp: int,
+                      device="cuda") -> llama.LlamaParams:
+    """The JAX package's quantize_params_tp output (global arrays, numpy
+    leaves, stacked layers) and its PartitionSpec tree -> rank `rank`'s
+    LlamaParams of the port: every axis whose spec names the mesh axis "tp"
+    is cut into tp equal blocks and block `rank` kept, as the mesh's
+    shard_map hands it to device `rank` of the tp axis."""
+
+    def cut(x, spec):
+        x = np.asarray(x)
+        for i, name in enumerate(tuple(spec)):
+            if name == "tp":
+                n = x.shape[i] // tp
+                x = np.take(x, np.arange(rank * n, (rank + 1) * n), axis=i)
+        return x
+
+    def walk(x, spec):
+        if _is_spec(spec):
+            return cut(x, spec)
+        items = [walk(a, b) for a, b in zip(x, spec)]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+
+    return params_from_numpy(walk(global_params, specs), device)

@@ -25,7 +25,16 @@ quantized LLM): from a VILA or LLaVA directory (models/loader.py
 `mlp_downsample` projector (144 tokens an image) over the LLM of the
 config (`QSERVE_TPU_VISION_PRESET=tiny`: a 64-wide, 2-layer tower on
 32-pixel images). Mixed chunk+decode steps are off for a VLM: its chunks
-run alone. TP/DP raise NotImplementedError naming their ROADMAP item.
+run alone.
+
+With `tensor_parallel_size` N > 1 the engine is one rank of N processes
+(parallel/distributed.py): launch it under `torchrun --nproc-per-node N`,
+whose environment `build_engine` joins, or call init_distributed in each
+rank first. Every rank runs the same scheduler on the same requests over
+its own shard (Worker.create_tp): random weights, or a float HF checkpoint
+that each rank quantizes per shard (`quant_path` is ignored, as in the JAX
+package). Engine-level data parallelism (`data_parallel_size` > 1) and a
+VLM at tp > 1 raise NotImplementedError naming ROADMAP.
 
 The CLI takes every flag of qserve_tpu's, so its command lines parse here.
 Flags with no meaning in the port (--no-ifb-mode, --no-scan-layers, the
@@ -166,9 +175,16 @@ class EngineArgs:
         return cache_config, scheduler_config
 
     def _refuse_unported(self) -> None:
-        if self.tensor_parallel_size > 1 or self.data_parallel_size > 1:
+        if self.data_parallel_size > 1:
+            # the JAX engine refuses it too: its TPModelRunner asserts dp == 1
             raise NotImplementedError(
-                "tensor/data parallelism is not ported yet (ROADMAP queue 1, TP)"
+                "engine-level data parallelism is not served: run one engine per "
+                "replica (ROADMAP queue 3, standing divergences)"
+            )
+        if self.run_vlm and self.tensor_parallel_size > 1:
+            raise NotImplementedError(
+                "a VLM at tensor_parallel_size > 1 is not served (qserve_tpu builds the "
+                "single-device VLM and ignores tp; ROADMAP, standing divergences)"
             )
         if self.omit_vision_tower:
             raise NotImplementedError(
@@ -208,16 +224,11 @@ class EngineArgs:
             # VLM prompts chunk through vila.vlm_prefill_chunk; the fused
             # chunk+decode step is the dense model's: VLM chunks run alone
             scheduler_config.mixed_chunk_decode = False
+        elif self.tensor_parallel_size > 1:
+            return self._build_tp_engine(quant, cache_config, scheduler_config)
         elif self.random_weights:
-            cfg = self.model_config_dict()
-            # an MoE config builds MoE layers (the JAX package's single-device
-            # random-weight path read it as a dense model of the same widths)
-            if cfg.get("num_local_experts"):
-                args = mixtral.args_from_config_dict(cfg, quant)
-                build = mixtral.random_quantized_params
-            else:
-                args = llama.LlamaArgs.from_config_dict(cfg, quant)
-                build = llama.random_quantized_params
+            args = self._random_args(quant)
+            build = (mixtral if args.num_experts else llama).random_quantized_params
             params = build(self.seed, args, self.device)
         else:
             if self.hf_config is not None:
@@ -245,6 +256,93 @@ class EngineArgs:
                 args, cache_config, scheduler_config, params=params,
                 seed=self.seed, device=self.device, benchmarking=self.benchmarking,
             )
+        return LLMEngine(
+            worker, scheduler_config, cache_config, tokenizer=self.load_tokenizer(),
+            log_stats=not self.disable_log_stats,
+        )
+
+    def _random_args(self, quant: QuantSpec):
+        """LlamaArgs of the random-weight model of the config. An MoE config
+        builds MoE layers (the JAX package's single-device random-weight
+        path read it as a dense model of the same widths)."""
+        from qserve_tpu_torch.models import llama, mixtral
+
+        cfg = self.model_config_dict()
+        if cfg.get("num_local_experts"):
+            return mixtral.args_from_config_dict(cfg, quant)
+        return llama.LlamaArgs.from_config_dict(cfg, quant)
+
+    def _tp_device(self):
+        """This rank's device once it is in a TP group of tensor_parallel_size
+        ranks: the group that exists, else one joined from torchrun's
+        environment."""
+        import torch.distributed as dist
+
+        from qserve_tpu_torch.parallel import distributed, tp as tpmod
+
+        tp = self.tensor_parallel_size
+        if dist.is_initialized():
+            dev = distributed.rank_device(self.device)
+        elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            _, _, dev = distributed.init_distributed(tp, device=self.device)
+        else:
+            raise RuntimeError(
+                f"tensor_parallel_size={tp} runs one process per rank: launch with "
+                f"`torchrun --standalone --nproc-per-node {tp} -m "
+                f"qserve_tpu_torch.entrypoints.benchmark -tp {tp} ...`, or call "
+                "qserve_tpu_torch.parallel.distributed.init_distributed(tp_size) in "
+                "each rank before build_engine")
+        if tpmod.tp_world() != tp:
+            raise RuntimeError(
+                f"the TP group has {tpmod.tp_world()} ranks; tensor_parallel_size is {tp}")
+        return dev
+
+    def _build_tp_engine(self, quant, cache_config, scheduler_config):
+        """This rank's engine at tensor_parallel_size > 1: random weights
+        (random_quantized_params_tp of `seed`) or a float HF checkpoint, each
+        rank quantizing its own shards; the page count is the least any rank
+        can hold, so every rank's block manager is sized alike."""
+        import dataclasses as dc
+
+        from qserve_tpu_torch.engine.llm_engine import LLMEngine
+        from qserve_tpu_torch.models import llama, loader, mixtral
+        from qserve_tpu_torch.parallel import tp as tpmod
+        from qserve_tpu_torch.worker.worker import Worker
+
+        device = self._tp_device()
+        tp = self.tensor_parallel_size
+        if self.random_weights:
+            args = dc.replace(self._random_args(quant), tp_size=tp)
+            params = tpmod.random_quantized_params_tp(self.seed, args, tpmod.tp_rank(), device)
+        else:
+            if self.hf_config is not None:
+                raise ValueError(
+                    "hf_config serves random weights only: a checkpoint needs "
+                    "`model` to be its directory")
+            if self.quant_path:
+                logger.warning("quant_path is ignored at tensor_parallel_size > 1: each "
+                               "rank quantizes its shards of the float checkpoint")
+            cfg = loader.load_hf_config_dict(self.model)
+            if set(cfg.get("architectures", [])) & loader.MIXTRAL_ARCHS:
+                args = mixtral.args_from_config_dict(cfg, quant)
+                fp = mixtral.load_float_params_from_hf(self.model, args)
+            else:
+                args = llama.LlamaArgs.from_config_dict(cfg, quant)
+                fp = loader.load_float_params_from_hf(self.model, args)
+            args = dc.replace(args, tp_size=tp)
+            params = tpmod.quantize_params_tp(fp, args, tpmod.tp_rank(), device)
+            del fp
+        if args.sliding_window is not None:
+            cache_config.sliding_window = args.sliding_window
+        if cache_config.num_device_pages is None:
+            cache_config.num_device_pages = auto_num_pages(
+                args, cache_config, self.gpu_memory_utilization, device)
+        cache_config.num_device_pages = tpmod.group_min(cache_config.num_device_pages, device)
+        logger.info("TP rank %d/%d: %d KV pages", tpmod.tp_rank(), tp,
+                    cache_config.num_device_pages)
+        worker = Worker.create_tp(
+            None, args, cache_config, scheduler_config, tp_size=tp,
+            dp_size=self.data_parallel_size, seed=self.seed, device=device, params=params)
         return LLMEngine(
             worker, scheduler_config, cache_config, tokenizer=self.load_tokenizer(),
             log_stats=not self.disable_log_stats,
@@ -291,19 +389,24 @@ class EngineArgs:
 
 def auto_num_pages(model_args, cache_config: CacheConfig, mem_fraction: float,
                    device) -> int:
-    """Size the page pool from free device memory."""
+    """Size the page pool from free device memory. A TP rank's pages hold
+    its own kv heads, and ranks that share a card split its fraction of the
+    free memory (the caller then takes the group's least count)."""
     import torch
 
+    from qserve_tpu_torch.parallel import distributed
     from qserve_tpu_torch.worker.cache_engine import CacheEngine
 
     page_bytes = CacheEngine.page_bytes(
-        model_args.num_layers, model_args.num_kv_heads, model_args.head_dim,
-        cache_config,
+        model_args.num_layers, model_args.num_kv_heads // model_args.tp_size,
+        model_args.head_dim, cache_config,
     )
     if torch.device(device).type == "cuda":
-        free, _ = torch.cuda.mem_get_info()
+        free, _ = torch.cuda.mem_get_info(device)
     else:
         free = 8 << 30
+    if model_args.tp_size > 1:
+        mem_fraction /= distributed.ranks_per_device(device)
     return max(16, int(free * mem_fraction) // page_bytes)
 
 

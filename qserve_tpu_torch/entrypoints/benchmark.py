@@ -12,8 +12,16 @@ token ids, run for N rounds; prints and appends output tok/s to a CSV.
 `--quant-path` a packed one, in place of `--random-weights`. With
 `--benchmarking` a stable decode batch feeds its sampled ids back on the
 device (worker/model_runner.py) and the engine sees placeholder ids. Each
-CSV row names the precision, the W4 group size, the lm_head bits and
-whether the decode was device-fed.
+CSV row names the precision, the W4 group size, the lm_head bits, the
+tensor-parallel size and whether the decode was device-fed.
+
+Tensor parallelism runs one process per rank:
+
+  torchrun --standalone --nproc-per-node 2 -m qserve_tpu_torch.entrypoints.benchmark \
+      -tp 2 --model <dir> --random-weights ...
+
+Every rank serves the same requests; rank 0 alone prints and writes the
+CSV. The device feed is off under TP (its `device_feed` column reads False).
 """
 
 from __future__ import annotations
@@ -78,10 +86,14 @@ def run(engine, vocab_size, batch, prompt_len, gen_len, rounds, csv_path,
         profile_dir=None):
     import contextlib
 
+    from qserve_tpu_torch.parallel.distributed import is_rank0
     from qserve_tpu_torch.sampling_params import SamplingParams
 
+    rank0 = is_rank0()
+    say = print if rank0 else (lambda *a, **k: None)
     rng = np.random.default_rng(0)
-    quant = engine.worker.model_runner.model_args.quant
+    model_args = engine.worker.model_runner.model_args
+    quant = model_args.quant
     rows = []
     for rnd in range(rounds):
         prof = None
@@ -122,7 +134,7 @@ def run(engine, vocab_size, batch, prompt_len, gen_len, rounds, csv_path,
                     step_ms[kind].append((time.perf_counter() - ts) * 1e3)
             _sync(engine)
         dt = time.perf_counter() - t0
-        if prof is not None:
+        if prof is not None and rank0:
             summary = device_time_summary(prof, dt)
             print(summary)
             os.makedirs(profile_dir, exist_ok=True)
@@ -132,13 +144,13 @@ def run(engine, vocab_size, batch, prompt_len, gen_len, rounds, csv_path,
         pre = float(np.mean(step_ms["prefill"])) if step_ms["prefill"] else 0.0
         mix = float(np.mean(step_ms["mixed"])) if step_ms["mixed"] else 0.0
         dec = float(np.median(step_ms["decode"])) if step_ms["decode"] else 0.0
-        print(f"round {rnd}: {finished} seqs, {gen_tokens} tokens, "
+        say(f"round {rnd}: {finished} seqs, {gen_tokens} tokens, "
               f"{dt:.2f}s, {tput:.1f} tok/s; {len(step_ms['prefill'])} prefill "
               f"steps, mean {pre:.2f} ms; {len(step_ms['mixed'])} mixed steps, "
               f"mean {mix:.2f} ms; {len(step_ms['decode'])} decode steps, "
               f"median {dec:.2f} ms")
         rows.append(dict(precision=quant.precision, group_size=quant.group_size,
-                         lm_head_bits=quant.lm_head_bits,
+                         lm_head_bits=quant.lm_head_bits, tp=model_args.tp_size,
                          device_feed=engine.worker.model_runner.benchmarking,
                          round=rnd, batch=batch, prompt_len=prompt_len,
                          generation_len=gen_len, seconds=dt, tokens_per_s=tput,
@@ -149,7 +161,7 @@ def run(engine, vocab_size, batch, prompt_len, gen_len, rounds, csv_path,
         # the mixed column pair appears only when the run had such steps
         for r in rows:
             del r["mixed_steps"], r["mixed_step_ms_mean"]
-    if csv_path:
+    if csv_path and rank0:
         exists = os.path.exists(csv_path)
         with open(csv_path, "a", newline="") as f:
             w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
@@ -164,11 +176,14 @@ def main():
     args = parser.parse_args()
     from qserve_tpu_torch.engine.arg_utils import EngineArgs
 
+    from qserve_tpu_torch.parallel.distributed import shutdown
+
     engine = EngineArgs.from_cli_args(args).build_engine()
     vocab = engine.worker.model_runner.model_args.vocab_size
     run(engine, vocab, args.global_batch_size, args.prompt_len,
         args.generation_len, args.rounds, args.results_csv,
         profile_dir=args.profile_dir)
+    shutdown()
 
 
 if __name__ == "__main__":

@@ -7,6 +7,11 @@ sampling (temperature 0.7, top-p 0.9) runs the filtered sampler.
   python -m qserve_tpu_torch.entrypoints.e2e_generation --model <hf dir> \
       [--quant-path <packed dir>] --precision w4a8kv4 \
       [--prompts-file f.txt | --prompt "..."] [--device cpu]
+
+At tensor-parallel size N, one process per rank:
+  torchrun --standalone --nproc-per-node N -m qserve_tpu_torch.entrypoints.e2e_generation \
+      -tp N --model <hf dir> ...
+Every rank serves the same prompts; rank 0 alone prints.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ DEFAULT_PROMPTS = [
 def main():
     from qserve_tpu_torch.conversation import get_conv_template, get_conv_template_name
     from qserve_tpu_torch.engine.arg_utils import EngineArgs
+    from qserve_tpu_torch.parallel.distributed import is_rank0, shutdown
     from qserve_tpu_torch.sampling_params import SamplingParams
 
     parser = EngineArgs.add_cli_args(argparse.ArgumentParser())
@@ -61,16 +67,18 @@ def main():
             ),
         )
 
+    say = print if is_rank0() else (lambda *a, **k: None)
     finished = 0
     while engine.has_unfinished_requests():
         for out in engine.step():
             if out.finished:
                 finished += 1
-                print(f"\n=== request {out.request_id} ===")
-                print(f"[prompt] {prompts[int(out.request_id)]}")
-                print(f"[output] {out.outputs[0]['text']}")
+                say(f"\n=== request {out.request_id} ===")
+                say(f"[prompt] {prompts[int(out.request_id)]}")
+                say(f"[output] {out.outputs[0]['text']}")
     assert finished == len(prompts), f"{finished} != {len(prompts)}"
-    print(f"\nfinished {finished} requests; stats: {engine.stats()}")
+    say(f"\nfinished {finished} requests; stats: {engine.stats()}")
+    shutdown()
 
 
 if __name__ == "__main__":

@@ -50,6 +50,12 @@ class KVCache(NamedTuple):
         return KVCache(self.data[i], self.scales[i])
 
 
+def scale_dtype_for(num_kv_heads: int) -> torch.dtype:
+    """bf16 scales when 2 * num_kv_heads % 16 == 0, else f32 (the JAX
+    package's rule, kv_cache.py:89-91; a TP shard keeps its global cache's)."""
+    return torch.bfloat16 if (2 * num_kv_heads) % 16 == 0 else torch.float32
+
+
 def create_kv_cache(
     num_layers: int,
     num_pages: int,
@@ -66,9 +72,7 @@ def create_kv_cache(
     assert head_dim % 2 == 0
     dc = head_dim // 2 if kv_bits == 4 else head_dim
     if scale_dtype is None:
-        scale_dtype = (
-            torch.bfloat16 if (2 * num_kv_heads) % 16 == 0 else torch.float32
-        )
+        scale_dtype = scale_dtype_for(num_kv_heads)
     return KVCache(
         data=torch.zeros(
             (num_layers, num_pages, 2, page_size, num_kv_heads * dc),

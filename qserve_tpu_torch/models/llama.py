@@ -38,6 +38,7 @@ from qserve_tpu_torch.config import QuantSpec
 from qserve_tpu_torch.kernels import attention, kv_cache as kvc, ops
 from qserve_tpu_torch.layers import linear as lin
 from qserve_tpu_torch.layers import rope
+from qserve_tpu_torch.parallel import tp as tpmod
 from qserve_tpu_torch.utils.utils import resolve_device
 
 
@@ -66,6 +67,10 @@ class LlamaArgs:
     moe_route_min_tokens: int = 1024
     # rows of one block of the routed stream (each block runs one expert)
     moe_route_block: int = 256
+    # tensor parallelism: with tp_size > 1 this rank's weights hold 1/tp of
+    # the heads, MLP channels and vocab columns (parallel/tp.py), and the
+    # layer reduces o and down over the TP group
+    tp_size: int = 1
 
     @property
     def q_size(self) -> int:
@@ -78,6 +83,46 @@ class LlamaArgs:
     @property
     def qkv_out(self) -> int:
         return self.q_size + 2 * self.kv_size
+
+    # ---- this rank's (TP-local) sizes; the global ones at tp = 1 ----
+    @property
+    def heads_local(self) -> int:
+        assert self.num_heads % self.tp_size == 0
+        return self.num_heads // self.tp_size
+
+    @property
+    def kv_heads_local(self) -> int:
+        assert self.num_kv_heads % self.tp_size == 0
+        return self.num_kv_heads // self.tp_size
+
+    @property
+    def q_size_local(self) -> int:
+        return self.heads_local * self.head_dim
+
+    @property
+    def kv_size_local(self) -> int:
+        return self.kv_heads_local * self.head_dim
+
+    @property
+    def intermediate_local(self) -> int:
+        assert self.intermediate_size % self.tp_size == 0
+        return self.intermediate_size // self.tp_size
+
+    @property
+    def vocab_local(self) -> int:
+        assert self.vocab_size % self.tp_size == 0, (self.vocab_size, self.tp_size)
+        return self.vocab_size // self.tp_size
+
+    def linear_shapes(self) -> dict:
+        """{name: (full [K, N], this rank's [K, N])} of a layer's linears."""
+        E, I = self.hidden_size, self.intermediate_size
+        il, ql = self.intermediate_local, self.q_size_local
+        return dict(
+            qkv=((E, self.qkv_out), (E, ql + 2 * self.kv_size_local)),
+            o=((self.q_size, E), (ql, E)),
+            gate_up=((E, 2 * I), (E, 2 * il)),
+            down=((I, E), (il, E)),
+        )
 
     @staticmethod
     def from_config_dict(cfg: dict, quant: QuantSpec) -> "LlamaArgs":
@@ -188,17 +233,19 @@ def empty_linear(lead: tuple, K, N, device, quant: QuantSpec) -> lin.LinearParam
     )
 
 
-def _stacked_layers(args: LlamaArgs, device, weight_of) -> LlamaLayerParams:
+def _stacked_layers(args: LlamaArgs, device, weight_of, rank: int = 0) -> LlamaLayerParams:
     """Quantize layer by layer into preallocated stacked tensors, so the
-    float model never exists whole. weight_of(li, name, shape) -> [K, N]."""
-    E, I, L = args.hidden_size, args.intermediate_size, args.num_layers
-    shapes = dict(
-        qkv=(E, args.qkv_out), o=(args.q_size, E), gate_up=(E, 2 * I), down=(I, E)
-    )
-    lins = {n: empty_linear((L,), *s, device, args.quant) for n, s in shapes.items()}
+    float model never exists whole. weight_of(li, name, shape) -> the full
+    float [K, N]; each is cut to rank `rank`'s shard (parallel/tp.py) and
+    quantized on its own."""
+    E, L = args.hidden_size, args.num_layers
+    shapes = args.linear_shapes()
+    lins = {n: empty_linear((L,), *local, device, args.quant)
+            for n, (_, local) in shapes.items()}
     for li in range(L):
-        for name, shape in shapes.items():
-            quantize_into(lins[name], li, weight_of(li, name, shape), args.quant)
+        for name, (full, _) in shapes.items():
+            w = tpmod.shard_weight(weight_of(li, name, full), name, args, rank)
+            quantize_into(lins[name], li, w, args.quant)
     return LlamaLayerParams(
         input_ln=torch.ones((L, E), dtype=torch.float32, device=device),
         post_ln=torch.ones((L, E), dtype=torch.float32, device=device),
@@ -215,10 +262,11 @@ def quantize_into(dst: lin.LinearParams, index, w: torch.Tensor,
 
 
 def random_quantized_params(
-    seed: int, args: LlamaArgs, device="cuda", scale: float = 0.02
+    seed: int, args: LlamaArgs, device="cuda", scale: float = 0.02, rank: int = 0
 ) -> LlamaParams:
     """Random weights from a seeded torch.Generator, quantized layer by layer
-    on the device."""
+    on the device. At tp_size > 1, rank `rank`'s shard of the same weights
+    (parallel/tp.py random_quantized_params_tp)."""
     _check_dense(args)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -226,14 +274,15 @@ def random_quantized_params(
     def weight_of(li, name, shape):
         return torch.randn(shape, generator=gen, device=device) * scale
 
-    layers = _stacked_layers(args, device, weight_of)
+    layers = _stacked_layers(args, device, weight_of, rank)
     E, V = args.hidden_size, args.vocab_size
     embed = torch.randn(
         (V, E), generator=gen, device=device, dtype=torch.bfloat16
     ) * scale
     lm_head = make_lm_head(
-        torch.randn((E, V), generator=gen, device=device, dtype=torch.bfloat16)
-        * scale,
+        tpmod.shard_vocab(
+            torch.randn((E, V), generator=gen, device=device, dtype=torch.bfloat16)
+            * scale, args, rank),
         args.quant,
     )
     return LlamaParams(
@@ -243,9 +292,44 @@ def random_quantized_params(
     )
 
 
-def quantize_params(float_params: dict, args: LlamaArgs, device="cuda") -> LlamaParams:
+def random_float_params(seed: int, args: LlamaArgs, device="cpu",
+                        scale: float = 0.02) -> dict:
+    """Random float weights in the JAX package's random_float_params layout
+    (per layer input_ln, qkv, o, post_ln, gate_up, down as f32 [K, N];
+    embed [V, E], final_ln, lm_head [E, V], all f32), drawn in
+    random_quantized_params's order from the same seeded generator: its
+    quantize_params (any rank's quantize_params_tp) is
+    random_quantized_params(seed, args) (that rank's share). The embedding
+    and lm_head are drawn in bf16 there, so their f32 values here are bf16
+    values. JAX's PRNG bits cannot be reproduced: tests carry the JAX
+    package's own float weights across as numpy."""
+    _check_dense(args)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    E, V = args.hidden_size, args.vocab_size
+
+    def randn(shape, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=device, dtype=dtype)
+                * scale).to(torch.float32)
+
+    def ones():
+        return torch.ones((E,), dtype=torch.float32, device=device)
+
+    full = {n: f for n, (f, _) in args.linear_shapes().items()}
+    layers = [dict(input_ln=ones(), qkv=randn(full["qkv"]), o=randn(full["o"]),
+                   post_ln=ones(), gate_up=randn(full["gate_up"]),
+                   down=randn(full["down"]))
+              for _ in range(args.num_layers)]
+    embed = randn((V, E), torch.bfloat16)
+    return dict(embed=embed, layers=layers, final_ln=ones(),
+                lm_head=randn((E, V), torch.bfloat16))
+
+
+def quantize_params(float_params: dict, args: LlamaArgs, device="cuda",
+                    rank: int = 0) -> LlamaParams:
     """Quantize float weights (dict of [K, N] arrays per layer, the JAX
-    package's random_float_params layout) into the serving format."""
+    package's random_float_params layout) into the serving format; at
+    tp_size > 1, rank `rank`'s shards (parallel/tp.py quantize_params_tp)."""
     _check_dense(args)
     device = resolve_device(device)
 
@@ -255,7 +339,7 @@ def quantize_params(float_params: dict, args: LlamaArgs, device="cuda") -> Llama
         return x.to(device=device, dtype=dtype)
 
     fl = float_params["layers"]
-    layers = _stacked_layers(args, device, lambda li, name, _: t(fl[li][name]))
+    layers = _stacked_layers(args, device, lambda li, name, _: t(fl[li][name]), rank)
     layers = layers._replace(
         input_ln=torch.stack([t(x["input_ln"]) for x in fl]),
         post_ln=torch.stack([t(x["post_ln"]) for x in fl]),
@@ -264,7 +348,8 @@ def quantize_params(float_params: dict, args: LlamaArgs, device="cuda") -> Llama
         embed=t(float_params["embed"], torch.bfloat16),
         layers=layers,
         final_ln=t(float_params["final_ln"]),
-        lm_head=make_lm_head(t(float_params["lm_head"]), args.quant),
+        lm_head=make_lm_head(
+            tpmod.shard_vocab(t(float_params["lm_head"]), args, rank), args.quant),
     )
 
 
@@ -285,7 +370,9 @@ def _layer_forward(
 ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decoder layer. Returns (h, delta_out, (k, v)); the KV-cache
     append is the caller's, batched across layers. The MLP is the layers'
-    type's: dense SwiGLU, or the sparse MoE block (_moe_mlp)."""
+    type's: dense SwiGLU, or the sparse MoE block (_moe_mlp). At
+    tp_size > 1 the rank's heads and channels are the local ones, and o and
+    down (or the expert sum) are reduced over the TP group."""
     T = h.shape[0]
     eps = args.rms_eps
     int8_act = args.quant.act_bits == 8
@@ -301,12 +388,13 @@ def _layer_forward(
     else:
         h = h + delta.to(h.dtype)
         qkv = lin.apply_linear(qkv_p, ops.rmsnorm(h, layers.input_ln[li], eps), gs)
-    q, k, v = qkv.split([args.q_size, args.kv_size, args.kv_size], dim=-1)
-    q = rope.apply_rope(q.reshape(T, args.num_heads, args.head_dim), cos, sin)
-    k = rope.apply_rope(k.reshape(T, args.num_kv_heads, args.head_dim), cos, sin)
-    v = v.reshape(T, args.num_kv_heads, args.head_dim)
+    q, k, v = qkv.split(
+        [args.q_size_local, args.kv_size_local, args.kv_size_local], dim=-1)
+    q = rope.apply_rope(q.reshape(T, args.heads_local, args.head_dim), cos, sin)
+    k = rope.apply_rope(k.reshape(T, args.kv_heads_local, args.head_dim), cos, sin)
+    v = v.reshape(T, args.kv_heads_local, args.head_dim)
 
-    attn = attend(q, k, v, li).reshape(T, args.q_size)
+    attn = attend(q, k, v, li).reshape(T, args.q_size_local)
     if int8_act:
         o = lin.apply_linear(
             o_p, lin.QuantAct(*ops.quant_per_token(attn, lin.needs_act_sum(o_p))),
@@ -314,6 +402,7 @@ def _layer_forward(
         )
     else:
         o = lin.apply_linear(o_p, attn, gs)
+    o = tpmod.tp_all_reduce(o, args)
     if isinstance(layers, MoELayerParams):
         # a plain add and a plain RMSNorm, as the JAX package's MoE branch
         h = h + o.to(h.dtype)
@@ -330,6 +419,7 @@ def _layer_forward(
         h = h + o.to(h.dtype)
         gu = lin.apply_linear(gu_p, ops.rmsnorm(h, layers.post_ln[li], eps), gs)
         d = lin.apply_linear(down_p, ops.silu_mul(gu), gs)
+    d = tpmod.tp_all_reduce(d, args)
     return h, d.to(h.dtype), (k.to(torch.bfloat16), v.to(torch.bfloat16))
 
 
@@ -463,9 +553,9 @@ def route_layout(topi: torch.Tensor, n_exp: int, bblk: int):
 
 
 def _run_layers(params: LlamaParams, h, cos, sin, args: LlamaArgs, attend):
-    """All layers; returns (h, (k_all, v_all) bf16 [L, T, Hkv, D])."""
+    """All layers; returns (h, (k_all, v_all) bf16 [L, T, Hkv_local, D])."""
     T = h.shape[0]
-    shape = (args.num_layers, T, args.num_kv_heads, args.head_dim)
+    shape = (args.num_layers, T, args.kv_heads_local, args.head_dim)
     k_all = torch.empty(shape, dtype=torch.bfloat16, device=h.device)
     v_all = torch.empty(shape, dtype=torch.bfloat16, device=h.device)
     delta = torch.zeros_like(h)
@@ -479,7 +569,9 @@ def _run_layers(params: LlamaParams, h, cos, sin, args: LlamaArgs, attend):
 
 
 def _lm_head(h: torch.Tensor, params: LlamaParams, args: LlamaArgs) -> torch.Tensor:
-    return lm_head_matmul(h, params.lm_head, args.logit_dtype)
+    """Logits [B, V]: the rank's vocab columns, gathered across TP."""
+    return tpmod.tp_all_gather_cols(
+        lm_head_matmul(h, params.lm_head, args.logit_dtype), args)
 
 
 # ---------------------------------------------------------------------------

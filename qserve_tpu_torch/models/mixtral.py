@@ -17,6 +17,7 @@ import torch
 
 from qserve_tpu_torch.config import QuantSpec
 from qserve_tpu_torch.models import llama
+from qserve_tpu_torch.parallel import tp as tpmod
 from qserve_tpu_torch.utils.utils import resolve_device
 
 
@@ -40,25 +41,33 @@ def args_from_config_dict(cfg: dict, quant: QuantSpec) -> llama.LlamaArgs:
     )
 
 
-def _stacked_moe_layers(args: llama.LlamaArgs, device, weight_of, router_of):
+def _stacked_moe_layers(args: llama.LlamaArgs, device, weight_of, router_of,
+                        rank: int = 0):
     """Quantize layer by layer, expert by expert, into preallocated stacked
-    tensors. weight_of(li, name, shape, e) -> float [K, N] (e is None for
-    qkv and o); router_of(li) -> f32 [E, NE]."""
-    E, I, L, NE = args.hidden_size, args.intermediate_size, args.num_layers, args.num_experts
+    tensors. weight_of(li, name, shape, e) -> the full float [K, N] (e is
+    None for qkv and o), cut to rank `rank`'s shard (parallel/tp.py: each
+    expert's gate_up column-, its down row-parallel) and quantized on its
+    own; router_of(li) -> f32 [E, NE], replicated."""
+    E, L, NE = args.hidden_size, args.num_layers, args.num_experts
     q = args.quant
-    attn = dict(qkv=(E, args.qkv_out), o=(args.q_size, E))
-    experts = dict(gate_up=(E, 2 * I), down=(I, E))
-    lins = {n: llama.empty_linear((L,), *s, device, q) for n, s in attn.items()}
-    lins.update({n: llama.empty_linear((L, NE), *s, device, q)
-                 for n, s in experts.items()})
+    shapes = args.linear_shapes()
+    attn = {n: shapes[n] for n in ("qkv", "o")}
+    experts = {n: shapes[n] for n in ("gate_up", "down")}
+    lins = {n: llama.empty_linear((L,), *local, device, q) for n, (_, local) in attn.items()}
+    lins.update({n: llama.empty_linear((L, NE), *local, device, q)
+                 for n, (_, local) in experts.items()})
     router = torch.empty((L, E, NE), dtype=torch.float32, device=device)
+
+    def shard(li, name, full, e):
+        return tpmod.shard_weight(weight_of(li, name, full, e), name, args, rank)
+
     for li in range(L):
-        for name, shape in attn.items():
-            llama.quantize_into(lins[name], li, weight_of(li, name, shape, None), q)
+        for name, (full, _) in attn.items():
+            llama.quantize_into(lins[name], li, shard(li, name, full, None), q)
         router[li] = router_of(li)
         for e in range(NE):
-            for name, shape in experts.items():
-                llama.quantize_into(lins[name], (li, e), weight_of(li, name, shape, e), q)
+            for name, (full, _) in experts.items():
+                llama.quantize_into(lins[name], (li, e), shard(li, name, full, e), q)
     return llama.MoELayerParams(
         input_ln=torch.ones((L, E), dtype=torch.float32, device=device),
         post_ln=torch.ones((L, E), dtype=torch.float32, device=device),
@@ -68,10 +77,12 @@ def _stacked_moe_layers(args: llama.LlamaArgs, device, weight_of, router_of):
 
 
 def random_quantized_params(
-    seed: int, args: llama.LlamaArgs, device="cuda", scale: float = 0.02
+    seed: int, args: llama.LlamaArgs, device="cuda", scale: float = 0.02,
+    rank: int = 0,
 ) -> llama.LlamaParams:
     """Random MoE weights from a seeded torch.Generator, quantized expert by
-    expert on the device."""
+    expert on the device. At tp_size > 1, rank `rank`'s shard of the same
+    weights (parallel/tp.py random_quantized_params_tp)."""
     assert args.num_experts > 0, "Mixtral params are MoE layers (num_experts > 0)"
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -82,21 +93,58 @@ def random_quantized_params(
 
     layers = _stacked_moe_layers(
         args, device, lambda li, name, shape, e: randn(shape),
-        lambda li: randn((E, NE)),
+        lambda li: randn((E, NE)), rank,
     )
     return llama.LlamaParams(
         embed=randn((V, E), torch.bfloat16),
         layers=layers,
         final_ln=torch.ones((E,), dtype=torch.float32, device=device),
-        lm_head=llama.make_lm_head(randn((E, V), torch.bfloat16), args.quant),
+        lm_head=llama.make_lm_head(
+            tpmod.shard_vocab(randn((E, V), torch.bfloat16), args, rank), args.quant),
     )
 
 
+def random_float_params(seed: int, args: llama.LlamaArgs, device="cpu",
+                        scale: float = 0.02) -> dict:
+    """Random float MoE weights in the JAX package's mixtral
+    random_float_params layout (per layer input_ln, qkv, o, post_ln, router
+    and the lists experts_gate_up, experts_down; all f32), drawn in
+    random_quantized_params's order from the same seeded generator, so that
+    quantize_params of them is random_quantized_params(seed, args) (the
+    embedding and lm_head are bf16 values, drawn in bf16 there)."""
+    assert args.num_experts > 0, "Mixtral params are MoE layers (num_experts > 0)"
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    E, V, NE = args.hidden_size, args.vocab_size, args.num_experts
+    full = {n: f for n, (f, _) in args.linear_shapes().items()}
+
+    def randn(shape, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=device, dtype=dtype)
+                * scale).to(torch.float32)
+
+    def ones():
+        return torch.ones((E,), dtype=torch.float32, device=device)
+
+    layers = []
+    for _ in range(args.num_layers):
+        layer = dict(input_ln=ones(), qkv=randn(full["qkv"]), o=randn(full["o"]),
+                     post_ln=ones(), router=randn((E, NE)),
+                     experts_gate_up=[], experts_down=[])
+        for _ in range(NE):
+            layer["experts_gate_up"].append(randn(full["gate_up"]))
+            layer["experts_down"].append(randn(full["down"]))
+        layers.append(layer)
+    embed = randn((V, E), torch.bfloat16)
+    return dict(embed=embed, layers=layers, final_ln=ones(),
+                lm_head=randn((E, V), torch.bfloat16))
+
+
 def quantize_params(float_params: dict, args: llama.LlamaArgs,
-                    device="cuda") -> llama.LlamaParams:
+                    device="cuda", rank: int = 0) -> llama.LlamaParams:
     """Quantize float weights (the JAX package's mixtral.random_float_params
     dict: per layer qkv, o, router and the lists experts_gate_up,
-    experts_down of [K, N] arrays) into the serving format."""
+    experts_down of [K, N] arrays) into the serving format; at
+    tp_size > 1, rank `rank`'s shards."""
     device = resolve_device(device)
 
     def t(x, dtype=torch.float32):
@@ -111,7 +159,8 @@ def quantize_params(float_params: dict, args: llama.LlamaArgs,
             return t(fl[li][name])
         return t(fl[li][f"experts_{name}"][e])
 
-    layers = _stacked_moe_layers(args, device, weight_of, lambda li: t(fl[li]["router"]))
+    layers = _stacked_moe_layers(args, device, weight_of,
+                                 lambda li: t(fl[li]["router"]), rank)
     layers = layers._replace(
         input_ln=torch.stack([t(x["input_ln"]) for x in fl]),
         post_ln=torch.stack([t(x["post_ln"]) for x in fl]),
@@ -120,7 +169,8 @@ def quantize_params(float_params: dict, args: llama.LlamaArgs,
         embed=t(float_params["embed"], torch.bfloat16),
         layers=layers,
         final_ln=t(float_params["final_ln"]),
-        lm_head=llama.make_lm_head(t(float_params["lm_head"]), args.quant),
+        lm_head=llama.make_lm_head(
+            tpmod.shard_vocab(t(float_params["lm_head"]), args, rank), args.quant),
     )
 
 

@@ -1,6 +1,11 @@
 """Device KV page pool: allocation, copy-on-write page copies, CPU swap
 (qserve_tpu/worker/cache_engine.py). Copies and swaps update the cache
-tensors in place."""
+tensors in place.
+
+Under tensor parallelism each rank's cache holds its own num_kv_heads /
+tp_size heads: shard r of the JAX package's kv-head-sharded cache, in its
+shard-local row order (scales rows [scales ++ zeros] of the rank's heads),
+with the scale dtype the JAX package picks for the global head count."""
 
 from __future__ import annotations
 
@@ -23,7 +28,11 @@ class CacheEngine:
         head_dim: int,
         cache_config: CacheConfig,
         device="cuda",
+        tp_size: int = 1,
     ) -> None:
+        """num_kv_heads is the model's; the cache holds num_kv_heads //
+        tp_size of them."""
+        assert num_kv_heads % tp_size == 0, (num_kv_heads, tp_size)
         self.cache_config = cache_config
         self.block_size = cache_config.block_size
         self.num_pages = cache_config.num_device_pages
@@ -31,8 +40,9 @@ class CacheEngine:
         self.kv_bits = cache_config.quant.kv_bits
         self.device = resolve_device(device)
         self.cache = kvc.create_kv_cache(
-            num_layers, self.num_pages, num_kv_heads, self.block_size, head_dim,
-            kv_bits=self.kv_bits, device=self.device,
+            num_layers, self.num_pages, num_kv_heads // tp_size, self.block_size,
+            head_dim, kv_bits=self.kv_bits, device=self.device,
+            scale_dtype=kvc.scale_dtype_for(num_kv_heads),
         )
         self.cpu_pool: Dict[int, List[torch.Tensor]] = {}  # cpu page -> arrays
 

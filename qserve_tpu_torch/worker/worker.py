@@ -50,6 +50,48 @@ class Worker:
         return cls(runner, cache_engine)
 
     @classmethod
+    def create_tp(
+        cls,
+        float_params,
+        model_args: llama.LlamaArgs,
+        cache_config: CacheConfig,
+        scheduler_config: SchedulerConfig,
+        tp_size: int,
+        dp_size: int = 1,
+        seed: int = 0,
+        device="cuda",
+        params=None,
+    ) -> "Worker":
+        """Tensor-parallel worker of this rank (qserve_tpu/worker/worker.py
+        create_tp): its shards of `float_params` (or its ready `params`,
+        with float_params None) and a cache of its kv heads. The TP group
+        must exist (parallel/distributed.py)."""
+        from qserve_tpu_torch.worker.tp_runner import TPModelRunner
+
+        kw = dict(
+            max_model_len=scheduler_config.max_model_len,
+            block_size=cache_config.block_size,
+            max_num_batched_tokens=scheduler_config.max_num_batched_tokens,
+            max_num_seqs=scheduler_config.max_num_seqs,
+            dp_size=dp_size,
+            device=device,
+        )
+        if params is not None:
+            runner = TPModelRunner(params, model_args, tp_size=tp_size, rng_seed=seed, **kw)
+        else:
+            runner = TPModelRunner.from_float_tp(
+                float_params, model_args, tp_size=tp_size, rng_seed=seed, **kw)
+        cache_engine = CacheEngine(
+            num_layers=model_args.num_layers,
+            num_kv_heads=model_args.num_kv_heads,
+            head_dim=model_args.head_dim,
+            cache_config=cache_config,
+            device=device,
+            tp_size=tp_size,
+        )
+        return cls(runner, cache_engine)
+
+    @classmethod
     def create_vlm(
         cls,
         vila_args,

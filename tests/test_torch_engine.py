@@ -4,7 +4,8 @@ with whole-prompt prefill and with chunked prefill, mixed chunk+decode
 steps and prefix compute-skip, at W4A8KV4 per-channel and at the other
 precisions (per-group W4, the W8 lm_head, W8A8, W16A16, KV8). Also that
 EngineArgs serves every precision string, and the port's refusals: what the port does
-not carry yet raises NotImplementedError naming its ROADMAP item."""
+not serve (engine-level data parallelism, a VLM at tp > 1, omit_vision_tower)
+raises NotImplementedError naming ROADMAP."""
 
 import numpy as np
 import pytest
@@ -357,9 +358,9 @@ def test_benchmark_labels_steps_by_what_the_scheduler_emitted(pair, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(tensor_parallel_size=2),
     dict(data_parallel_size=2),
     dict(run_vlm=True, omit_vision_tower=True),
+    dict(run_vlm=True, tensor_parallel_size=2),
 ])
 def test_engine_args_refuse_unported(kw):
     args = dict(hf_config=_hf_config(), random_weights=True, device="cpu",

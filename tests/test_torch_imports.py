@@ -109,3 +109,14 @@ def test_scan_pattern():
     assert not TOP_LEVEL_TRANSFORMERS.search("    from transformers import AutoTokenizer")
     assert TOP_LEVEL_TRANSFORMERS.search("from PIL import Image")
     assert not TOP_LEVEL_TRANSFORMERS.search("    from PIL import Image")
+
+
+def test_tensor_parallel_modules_are_scanned():
+    """The TP modules are among the modules imported without JAX above and
+    the sources scanned (qserve_tpu/parallel and worker/tp_runner.py have
+    their counterparts here)."""
+    mods = _port_modules()
+    for m in ("qserve_tpu_torch.parallel.distributed", "qserve_tpu_torch.parallel.tp",
+              "qserve_tpu_torch.parallel.dryrun", "qserve_tpu_torch.worker.tp_runner"):
+        assert m in mods
+        assert os.path.join(ROOT, *m.split(".")) + ".py" in _sources()
