@@ -79,6 +79,34 @@
       - a float HF directory at Llama-3-8B widths cut to 2 layers (bf16,
         two safetensors shards, ~3 GB) quantized at load on the card: equal
         bit for bit to quantize_params on the CPU, then 4 requests served;
+   offline phase, after the checkpoint phase, path a's engine alive:
+      - evaluate_ppl over 4 windows of 2048 seeded random ids at full width
+        and depth: path a's params, random_quantized_params of its seed at
+        W4A8KV4 g128, W8A8KV8 and W16A16KV8, and path a's once more with
+        the KV round trip simulated; ms a window, tokens/s, launches a
+        window (K1 by mode: add_rmsnorm_quant 64, quant 32, silu_mul_quant
+        32; the GEMM 128; K3 32; no K4 or K5), peak allocated memory; every
+        window scores 2047 tokens and the ppl is finite (random weights:
+        it means nothing else);
+      - a fresh 2-layer HF directory at Llama-3-8B widths:
+        teacher_forced_nll on the card against the CPU on one 512-row
+        window with a padded tail, at W4A8KV4 and W16A16KV8, within
+        NLL_CARD_CPU_RTOL, which the card without layer 0 must fail;
+        entrypoints/eval_ppl --baseline --max-windows 2 over the repo's
+        *.md text with a word tokenizer (where transformers and tokenizers
+        are installed);
+      - scale optimization over a byte corpus of the repo's *.md and *.py
+        files: calibrate on the card against the CPU, clip_weight's ratios
+        card against CPU, the folds float-exact (reference_forward_float,
+        f32), and, on the model with 5% of its embedding columns boosted
+        30x, the optimized W4A8KV4 nearer the W16A16 model's NLL than RTN;
+        convert_hf_checkpoint(calib_corpus) packed and served (4 requests);
+      - scripts/deepcompressor_roundtrip_torch.py's artifact at
+        per-channel, g128 and W8: converted, its codes equal to RTN's, 4
+        requests served from each;
+      - the native batch marshal loaded in path a's engine, pack_decode at
+        B = 64 and pack_prefill at 2048 tokens equal bit for bit to the
+        numpy versions and timed beside them, interleaved;
    b. the same engine, chunked prefill: 7 short requests are decoding when a
       ~6000-token prompt arrives and admits in three chunks that ride with
       the decode batch; two more requests share a page-aligned prefix with
@@ -1950,6 +1978,12 @@ def phase_engine(dev):
     ck_launches, summary["checkpoint"] = phase_checkpoint(dev, engine, streams_a)
     launches.update(ck_launches)
     log(f"  phase checkpoint ok in {time.perf_counter() - t:.1f} s")
+    log("phase offline")
+    t = time.perf_counter()
+    off_launches, summary["offline"] = phase_offline(
+        dev, engine, summary["path_a"]["step_ms_median"]["decode"])
+    launches.update(off_launches)
+    log(f"  phase offline ok in {time.perf_counter() - t:.1f} s")
     launches["b"], summary["path_b"] = _path_b(engine)
     del engine
     _release()
@@ -2755,6 +2789,51 @@ def _text_on_card(model_dir, vocab):
     return launches, dict(requests=len(blocks), outputs=outputs)
 
 
+def _hf_dir(dev, tag, hf_cfg, args, dirs, seed=7, embed_scale=None):
+    """An HF directory of random bf16 weights at hf_cfg's widths and depth
+    (norm weights around 1) in two safetensors shards, drawn on the card
+    from `seed` (the embedding's columns times embed_scale [E], if given),
+    in a checkpoint directory appended to `dirs`. Returns (its path, its
+    bytes, the seconds of writing)."""
+    import os
+
+    import torch
+
+    from qserve_tpu_torch.utils.weight_utils import write_safetensors
+
+    E, I, V = args.hidden_size, args.intermediate_size, args.vocab_size
+    shapes = {"self_attn.q_proj": (args.q_size, E), "self_attn.k_proj": (args.kv_size, E),
+              "self_attn.v_proj": (args.kv_size, E), "self_attn.o_proj": (E, args.q_size),
+              "mlp.gate_proj": (I, E), "mlp.up_proj": (I, E), "mlp.down_proj": (E, I)}
+    L = args.num_layers
+    hf_bytes = 2 * (2 * V * E + L * sum(a * b for a, b in shapes.values()))
+    h = _ckpt_dir(tag, hf_bytes)
+    dirs.append(h)
+    _write_config(h, hf_cfg)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=0.02, base=0.0):
+        return (base + scale * torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+
+    t0 = time.perf_counter()
+    tops = (("model.embed_tokens.weight",), ("lm_head.weight", "model.norm.weight"))
+    for si, names in enumerate(tops):
+        shard = {}
+        for n in names:
+            shard[n] = rnd(E, scale=0.1, base=1.0) if n == "model.norm.weight" else rnd(V, E)
+        if si == 0 and embed_scale is not None:
+            shard[names[0]] = (shard[names[0]].float() * embed_scale.to(dev)).to(torch.bfloat16)
+        for li in range(si * L // 2, (si + 1) * L // 2):
+            p = f"model.layers.{li}"
+            shard[f"{p}.input_layernorm.weight"] = rnd(E, scale=0.1, base=1.0)
+            shard[f"{p}.post_attention_layernorm.weight"] = rnd(E, scale=0.1, base=1.0)
+            for n, shape in shapes.items():
+                shard[f"{p}.{n}.weight"] = rnd(*shape)
+        write_safetensors(shard, os.path.join(h, f"model-0000{si + 1}-of-00002.safetensors"))
+        del shard
+    return h, hf_bytes, time.perf_counter() - t0
+
+
 def phase_checkpoint(dev, engine_a, streams_a):
     """Checkpoints on the card, after path a:
     1. path a's params (Llama-3-8B w4a8kv4 per-channel, bf16 head, 32
@@ -2772,7 +2851,6 @@ def phase_checkpoint(dev, engine_a, streams_a):
        where transformers and tokenizers are installed, e2e_generation's
        main() then serves text from it with a tokenizer built here.
     Returns ({path: launches}, summary)."""
-    import os
     import shutil
 
     import torch
@@ -2781,7 +2859,6 @@ def phase_checkpoint(dev, engine_a, streams_a):
     from qserve_tpu_torch.kernels import _build
     from qserve_tpu_torch.models import llama, loader
     from qserve_tpu_torch.sampling_params import SamplingParams
-    from qserve_tpu_torch.utils.weight_utils import write_safetensors
 
     launches, summary, dirs = {}, {}, []
     runner_a = engine_a.worker.model_runner
@@ -2877,32 +2954,8 @@ def phase_checkpoint(dev, engine_a, streams_a):
         # 3. HF directory, self-quantized on the card
         hf_cfg = dict(LLAMA3_8B, num_hidden_layers=2)
         args = loader.args_from_config_dict(hf_cfg, args_a.quant)
-        E, I, V = args.hidden_size, args.intermediate_size, args.vocab_size
-        shapes = {"self_attn.q_proj": (args.q_size, E), "self_attn.k_proj": (args.kv_size, E),
-                  "self_attn.v_proj": (args.kv_size, E), "self_attn.o_proj": (E, args.q_size),
-                  "mlp.gate_proj": (I, E), "mlp.up_proj": (I, E), "mlp.down_proj": (E, I)}
-        hf_bytes = 2 * (2 * V * E + 2 * sum(a * b for a, b in shapes.values()))
-        h = _ckpt_dir("hf", hf_bytes)
-        dirs.append(h)
-        _write_config(h, hf_cfg)
-        g = torch.Generator(device=dev).manual_seed(7)
-
-        def rnd(*shape, scale=0.02, base=0.0):
-            return (base + scale * torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
-
-        t0 = time.perf_counter()
-        for li, names in ((0, ("model.embed_tokens.weight",)), (1, ("lm_head.weight", "model.norm.weight"))):
-            shard = {}
-            for n in names:
-                shard[n] = rnd(E, scale=0.1, base=1.0) if n == "model.norm.weight" else rnd(V, E)
-            p = f"model.layers.{li}"
-            shard[f"{p}.input_layernorm.weight"] = rnd(E, scale=0.1, base=1.0)
-            shard[f"{p}.post_attention_layernorm.weight"] = rnd(E, scale=0.1, base=1.0)
-            for n, shape in shapes.items():
-                shard[f"{p}.{n}.weight"] = rnd(*shape)
-            write_safetensors(shard, os.path.join(h, f"model-0000{li + 1}-of-00002.safetensors"))
-            del shard
-        write_s = time.perf_counter() - t0
+        V = args.vocab_size
+        h, hf_bytes, write_s = _hf_dir(dev, "hf", hf_cfg, args, dirs)
         engine, hf_s = _ckpt_engine(dev, h)
         log(f"  hf: {hf_bytes / 1e9:.3f} GB of bf16 in two shards written in {write_s:.2f} s; "
             f"engine built (read, quantized on the card) in {hf_s:.2f} s")
@@ -2938,6 +2991,510 @@ def phase_checkpoint(dev, engine_a, streams_a):
     finally:
         for d in dirs:
             shutil.rmtree(d, ignore_errors=True)
+    return launches, summary
+
+
+# --------------------------------------------------------------------------
+# offline tooling phase (after phase checkpoint, beside path a's engine)
+# --------------------------------------------------------------------------
+
+OFFLINE_PRECISIONS = (("w4a8kv4", -1), ("w4a8kv4", 128), ("w8a8kv8", -1), ("w16a16kv8", -1))
+OFFLINE_GEMM = {("w4a8kv4", -1): "w4a8_gemm_per_chn", ("w4a8kv4", 128): "w4a8_gemm_per_group",
+                ("w8a8kv8", -1): "w8a8_gemm"}
+# the card's teacher-forced NLL sum against the CPU's on one window of the
+# 2-layer full-width model, relative. Set from the phase's first reading
+# (H100 700 W): W4A8KV4 2.5e-4, W16A16KV8 2.35e-5; the card without layer
+# 0 read 1.25e-2 and 1.37e-2
+NLL_CARD_CPU_RTOL = 2e-3
+# reference_forward_float's logits before and after smooth_layer (no clip),
+# relative RMS gap: f32 end to end, so only f32 rounding may move them
+FOLD_RMS_LIMIT = 1e-4
+# calibrate's stats on the card against the CPU: max |gap| / max |CPU| per
+# statistic (bf16 products on both, neighbour flips; the JAX parity test's
+# limit; the first reading on the card: 1.16e-2)
+CALIB_STATS_RTOL = 3e-2
+# clip ratios equal on this share of the (group, column) pairs (ties flip)
+CLIP_AGREE_SHARE = 0.99
+
+
+class _ModeCounter:
+    """Counts the elementwise kernel's launches by mode (K1's
+    add_rmsnorm_quant, quant, silu_mul_quant; the LAUNCHES counter has one
+    name for all) while it is entered."""
+
+    NAMES = {0: "quant", 1: "rmsnorm_quant", 2: "add_rmsnorm_quant", 3: "silu_mul_quant"}
+
+    def __enter__(self):
+        from qserve_tpu_torch.kernels import elementwise as ew
+
+        self.ew, self.real, self.counts = ew, ew.launch, {}
+
+        def launch(mode, *a, **kw):
+            name = self.NAMES[mode]
+            self.counts[name] = self.counts.get(name, 0) + 1
+            return self.real(mode, *a, **kw)
+
+        ew.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.ew.launch = self.real
+
+
+class _NLLRecorder:
+    """Records the count of every teacher_forced_nll call while entered."""
+
+    def __enter__(self):
+        from qserve_tpu_torch.models import llama
+
+        self.llama, self.real, self.counts = llama, llama.teacher_forced_nll, []
+
+        def nll(*a, **kw):
+            out = self.real(*a, **kw)
+            self.counts.append(out[1])
+            return out
+
+        llama.teacher_forced_nll = nll
+        return self
+
+    def __exit__(self, *exc):
+        self.llama.teacher_forced_nll = self.real
+
+
+def _offline_eval(tag, params, args, ids, seqlen, kv_sim=False):
+    """evaluate_ppl over len(ids) // seqlen windows on the card, after one
+    untimed window: ms a window, tokens/s, launches a window (K1 by mode),
+    peak allocated GiB."""
+    import math
+
+    import torch
+
+    from qserve_tpu_torch.eval.ppl import evaluate_ppl
+    from qserve_tpu_torch.kernels import _build
+
+    n = len(ids) // seqlen
+    evaluate_ppl(params, args, ids, seqlen, max_windows=1, simulate_kv_quant=kv_sim)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with _ModeCounter() as modes, _NLLRecorder() as rec:
+        t0 = time.perf_counter()
+        ppl = evaluate_ppl(params, args, ids, seqlen, simulate_kv_quant=kv_sim)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    per = {k: v / n for k, v in launches.items()}
+    per_mode = {k: v / n for k, v in modes.counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert rec.counts == [seqlen - 1] * n, rec.counts
+    assert math.isfinite(ppl), ppl
+    log(f"  eval {tag}: {n} windows of {seqlen}: {dt / n * 1e3:.2f} ms a window, "
+        f"{n * seqlen / dt:.0f} tokens/s; ppl {ppl:.4g} (random weights: a number, not "
+        f"an accuracy); launches a window {per}, K1 by mode {per_mode}; peak allocated "
+        f"{peak:.3f} GiB")
+    return dict(ms_per_window=dt / n * 1e3, tokens_per_s=n * seqlen / dt, ppl=ppl,
+                windows=n, launches_per_window=per, k1_modes_per_window=per_mode,
+                peak_gib=peak), launches
+
+
+def _require_window(tag, ev, args, gemm):
+    """A window's launches: per layer K1 4 times (add_rmsnorm_quant twice,
+    quant and silu_mul_quant once), the precision's GEMM 4 times and K3
+    once; at W16A16 K3 alone. No KV append, no decode attention."""
+    L = args.num_layers
+    per = ev["launches_per_window"]
+    if args.quant.act_bits == 8:
+        assert per == {"elementwise": 4 * L, gemm: 4 * L, "flash_prefill_attention": L}, \
+            f"{tag}: {per}"
+        assert ev["k1_modes_per_window"] == {
+            "add_rmsnorm_quant": 2 * L, "quant": L, "silu_mul_quant": L}, f"{tag}: {ev}"
+    else:
+        assert per == {"flash_prefill_attention": L}, f"{tag}: {per}"
+
+
+def _drop_first_layer(params, args):
+    """The params and args without layer 0 (the card-vs-CPU control)."""
+    import dataclasses
+
+    def cut(x):
+        return x[1:] if hasattr(x, "shape") else type(x)(*map(cut, x))
+
+    return params._replace(layers=cut(params.layers)), dataclasses.replace(
+        args, num_layers=args.num_layers - 1)
+
+
+def _serve4(dev, tag, model, quant_path, ran, vocab, seed, **engine_kw):
+    """4 greedy requests through EngineArgs(model, quant_path, **engine_kw);
+    returns the run's launches."""
+    from qserve_tpu_torch.kernels import _build
+    from qserve_tpu_torch.sampling_params import SamplingParams
+
+    engine, build_s = _ckpt_engine(dev, model, quant_path=quant_path, **engine_kw)
+    rng = np.random.default_rng(seed)
+    want = {}
+    for i in range(4):
+        want[f"{tag}{i}"] = 8
+        engine.add_request(f"{tag}{i}", prompt_token_ids=rng.integers(0, vocab, 100 + 40 * i).tolist(),
+                           sampling_params=SamplingParams(max_tokens=8, ignore_eos=True,
+                                                          temperature=0.0))
+    _build.reset_launch_counts()
+    r = _drive(engine, want, vocab=vocab)
+    launches = dict(_build.LAUNCHES)
+    _require(tag, launches, ran=ran)
+    log(f"  {tag}: engine from {quant_path} built in {build_s:.2f} s; {r['finished']} requests, "
+        f"{r['tokens_out']} tokens; launches {launches}")
+    del engine
+    _release()
+    return launches
+
+
+REPO_TEXT_DIRS = ("benchmarks", "docs", "qserve_tpu", "qserve_tpu_torch", "scripts", "tests")
+
+
+def _repo_text(exts=(".md",)):
+    """The repo's own text files of the given extensions, at its root and
+    under its source directories (REPO_TEXT_DIRS), in sorted order."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = [os.path.join(root, f) for f in sorted(os.listdir(root))]
+    for top in REPO_TEXT_DIRS:
+        for dirpath, dirnames, files in os.walk(os.path.join(root, top)):
+            dirnames[:] = sorted(d for d in dirnames if not d.startswith((".", "__")))
+            paths += [os.path.join(dirpath, f) for f in sorted(files)]
+    out = []
+    for path in paths:
+        if path.endswith(exts) and os.path.isfile(path):
+            with open(path, "rb") as fh:
+                out.append(fh.read())
+    return b"\n".join(out)
+
+
+def _rel_rms(a, b):
+    return (((a - b) ** 2).mean() / (b**2).mean()).sqrt().item()
+
+
+def phase_offline(dev, engine_a, decode_ms, cfg=LLAMA3_8B, seqlen=2048, short=512):
+    """The offline tooling on the card (after phase checkpoint, path a's
+    engine alive):
+    1. evaluate_ppl over 4 windows of `seqlen` seeded random ids at full
+       width and depth (path a's params, and random_quantized_params of its
+       seed at g128, W8A8 and W16A16), once more at W4A8KV4 with the KV
+       round trip simulated: ms a window, tokens/s, launches a window;
+    2. a 2-layer HF directory at full width: teacher_forced_nll on the card
+       against the CPU on one `short`-row window with a padded tail, at
+       W4A8KV4 and W16A16KV8, relative; the card without layer 0 must fail
+       that limit;
+    3. entrypoints/eval_ppl --baseline --max-windows 2 on that directory
+       over the repo's *.md text with a word tokenizer (where transformers
+       and tokenizers are installed);
+    4. scale optimization: calibrate card vs CPU, clip ratios card vs CPU,
+       the folds float-exact (reference_forward_float, f32), optimized W4A8KV4
+       nearer the W16A16 model's NLL than RTN on the model with 5% of its
+       embedding columns boosted 30x; convert_hf_checkpoint(calib_corpus)
+       packed and served;
+    5. the DeepCompressor round trip at per-channel, g128 and W8: each
+       artifact converted, its codes equal to RTN's, served;
+    6. the native marshal inside path a's engine, timed against numpy.
+    Returns ({path: launches}, summary)."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import re
+    import shutil
+
+    import torch
+
+    from qserve_tpu_torch import native
+    from qserve_tpu_torch.config import QuantSpec
+    from qserve_tpu_torch.convert import checkpoint_converter as cc
+    from qserve_tpu_torch.models import llama, loader
+    from qserve_tpu_torch.quant import optimize
+    from qserve_tpu_torch.sampling_params import SamplingParams
+
+    launches, summary, dirs = {}, {}, []
+    runner_a = engine_a.worker.model_runner
+    V = cfg["vocab_size"]
+
+    # 1. eval at full width and depth
+    ids = np.random.default_rng(11).integers(0, V, 4 * seqlen).astype(np.int32)
+    ev = summary["eval"] = {}
+    for precision, gs in OFFLINE_PRECISIONS:
+        tag = f"{precision} g{gs}"
+        args = loader.args_from_config_dict(cfg, QuantSpec.from_precision(precision, gs))
+        if (precision, gs) == ("w4a8kv4", -1):
+            params = runner_a.params
+            assert runner_a.model_args.quant == args.quant
+        else:
+            params = llama.random_quantized_params(0, args, dev)
+        ev[tag], launches[f"eval {tag}"] = _offline_eval(tag, params, args, ids, seqlen)
+        _require_window(tag, ev[tag], args, OFFLINE_GEMM.get((precision, gs)))
+        if (precision, gs) == ("w4a8kv4", -1):
+            ev[f"{tag} kv-sim"], launches["eval kv-sim"] = _offline_eval(
+                f"{tag} kv simulated", params, args, ids, seqlen, kv_sim=True)
+        del params
+        _release()
+
+    try:
+        # 2. card against CPU, 2 layers at full width
+        hf_cfg = dict(cfg, num_hidden_layers=2)
+        a4 = loader.args_from_config_dict(hf_cfg, QuantSpec.from_precision("w4a8kv4", -1))
+        h, _, write_s = _hf_dir(dev, "offline", hf_cfg, a4, dirs, seed=8)
+        fp = loader.load_float_params_from_hf(h, a4)
+        tok = np.random.default_rng(12).integers(0, V, short).astype(np.int32)
+        length = short - 12  # a padded tail
+        cmp = summary["card_vs_cpu"] = {}
+        for precision in ("w4a8kv4", "w16a16kv8"):
+            args = loader.args_from_config_dict(hf_cfg, QuantSpec.from_precision(precision, -1))
+            p_card = llama.quantize_params(fp, args, device=dev)
+            t0 = time.perf_counter()
+            p_cpu = llama.quantize_params(fp, args, device="cpu")
+            cpu_nll, cnt = llama.teacher_forced_nll(p_cpu, torch.from_numpy(tok), length, args)
+            cpu_s = time.perf_counter() - t0
+            del p_cpu
+            card_nll, cnt_card = llama.teacher_forced_nll(
+                p_card, torch.from_numpy(tok).to(dev), length, args)
+            p_skip, a_skip = _drop_first_layer(p_card, args)
+            skip_nll, _ = llama.teacher_forced_nll(p_skip, torch.from_numpy(tok).to(dev),
+                                                   length, a_skip)
+            want = float(cpu_nll)
+            gap = abs(float(card_nll) - want) / abs(want)
+            gap_skip = abs(float(skip_nll) - want) / abs(want)
+            log(f"  card vs CPU, {precision}, 2 layers, {length} of {short} rows: NLL sum "
+                f"card {float(card_nll):.6g}, CPU {want:.6g} ({cpu_s:.1f} s there, quantize "
+                f"included): relative gap {gap:.3g} against {NLL_CARD_CPU_RTOL:g}; layer 0 "
+                f"skipped on the card: {gap_skip:.3g}")
+            assert cnt == cnt_card == length - 1
+            assert gap <= NLL_CARD_CPU_RTOL, f"{precision}: card vs CPU NLL gap {gap}"
+            assert gap_skip > NLL_CARD_CPU_RTOL, \
+                f"{precision}: the NLL limit passes a skipped layer ({gap_skip})"
+            cmp[precision] = dict(card=float(card_nll), cpu=want, gap=gap, gap_skip=gap_skip,
+                                  cpu_s=cpu_s)
+            del p_card, p_skip
+        _release()
+
+        # text: the repo's own, as a corpus (eval_ppl) and as bytes (calibration)
+        text = _repo_text().decode("utf-8", errors="replace")
+        raw = _repo_text((".md", ".py"))
+        corpus = os.path.join(h, "corpus")
+        os.makedirs(corpus)
+        cut = len(raw) * 9 // 10
+        np.frombuffer(raw[:cut], np.uint8).tofile(os.path.join(corpus, "train.bin"))
+        np.frombuffer(raw[cut:], np.uint8).tofile(os.path.join(corpus, "val.bin"))
+
+        # 3. the eval_ppl entry point
+        if _has("transformers") and _has("tokenizers"):
+            from qserve_tpu_torch.entrypoints import eval_ppl
+
+            words = sorted(set(re.findall(r"\w+|[^\w\s]+", text)))[: V - 3]
+            _save_word_tokenizer(h, words, V)
+            txt = os.path.join(h, "corpus.txt")
+            with open(txt, "w", encoding="utf-8") as f:
+                f.write(text)
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                res = eval_ppl.main(["--model", h, "--data", txt, "--baseline",
+                                     "--max-windows", "2", "--device", dev])
+            lines = out.getvalue().strip().splitlines()
+            log(f"  eval_ppl --baseline --max-windows 2 in {time.perf_counter() - t0:.1f} s: "
+                f"{lines[0]}; {lines[-1]}")
+            assert json.loads(lines[-1]) == res and np.isfinite(res["ppl"]) \
+                and np.isfinite(res["ppl_fp16"])
+            assert int(lines[0].split()[1]) >= 2 * 2048, lines[0]
+            summary["eval_ppl"] = res
+        else:
+            log("  eval_ppl: not run on the card: transformers or tokenizers is not installed "
+                "here (tests/test_torch_ppl.py holds the eval path on the CPU)")
+
+        # 4. scale optimization on the card
+        calib = optimize.load_calib_windows(corpus, n_windows=32, seqlen=512)
+        t0 = time.perf_counter()
+        st_card = optimize.calibrate(fp, a4, calib[:2], device=dev)
+        st_cpu = optimize.calibrate(fp, a4, calib[:2], device="cpu")
+        cpu_s = time.perf_counter() - t0
+        gaps = {name: ((c.cpu() - w).abs().max() / w.abs().max()).item()
+                for s_c, s_w in zip(st_card, st_cpu)
+                for name, c, w in zip(s_c._fields, s_c, s_w)}
+        worst = max(gaps, key=gaps.get)
+        log(f"  calibrate, 2 windows of 512, card vs CPU ({cpu_s:.1f} s): worst statistic "
+            f"{worst} at {gaps[worst]:.3g} of its max against {CALIB_STATS_RTOL:g}")
+        assert gaps[worst] <= CALIB_STATS_RTOL, gaps
+        opt = summary["optimize"] = dict(calib_stats_gap=gaps[worst])
+
+        # the model with 5% of its embedding columns boosted 30x, as a
+        # directory of its own (the same draw otherwise)
+        boost = torch.where(torch.rand(a4.hidden_size, generator=torch.Generator().manual_seed(99))
+                            < 0.05, 30.0, 1.0)
+        hb, _, _ = _hf_dir(dev, "offline_boosted", hf_cfg, a4, dirs, seed=8, embed_scale=boost)
+        fp_b = loader.load_float_params_from_hf(hb, a4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = optimize.calibrate(fp_b, a4, calib, device=dev)
+        torch.cuda.synchronize()
+        t_cal = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        smoothed = [optimize.smooth_layer(fl, st, a4) for fl, st in zip(fp_b["layers"], stats)]
+        torch.cuda.synchronize()
+        t_smooth = time.perf_counter() - t0
+        # clip ratios, card vs CPU: layer 0's qkv after its fold
+        nl0, sc0 = smoothed[0]
+        ms0 = stats[0].qkv_in_ms / sc0["qkv"] ** 2
+        c_card = optimize.clip_weight(nl0["qkv"], ms0).cpu()
+        c_cpu = optimize.clip_weight(nl0["qkv"].cpu(), ms0.cpu())
+        agree = (c_card == c_cpu).all(dim=0).double().mean().item()
+        log(f"  clip_weight on layer 0's qkv {tuple(c_cpu.shape)}: card and CPU pick the same "
+            f"ratio on {agree:.5f} of the columns (against {CLIP_AGREE_SHARE:g})")
+        assert agree >= CLIP_AGREE_SHARE, agree
+        # the folds are float no-ops: f32 forward before and after (no clip)
+        vids = np.fromfile(os.path.join(corpus, "val.bin"), np.uint8).astype(np.int32)
+        vtok = torch.from_numpy(vids[:short]).to(dev)
+        ref = llama.reference_forward_float(fp_b, a4, vtok)
+        folded = llama.reference_forward_float(
+            dict(fp_b, layers=[nl for nl, _ in smoothed]), a4, vtok)
+        fold_gap = _rel_rms(folded, ref)
+        del ref, folded
+        log(f"  folds: reference_forward_float logits (f32, {short} rows) after smooth_layer "
+            f"against before: relative RMS gap {fold_gap:.3g} (limit {FOLD_RMS_LIMIT:g})")
+        assert fold_gap < FOLD_RMS_LIMIT, fold_gap
+        t0 = time.perf_counter()
+        layers = []
+        for (nl, scales), st in zip(smoothed, stats):
+            for name, ms in (("qkv", st.qkv_in_ms), ("o", st.o_in_ms),
+                             ("gate_up", st.gate_up_in_ms), ("down", st.down_in_ms)):
+                nl[name] = optimize.clip_weight(nl[name], ms / scales[name] ** 2)
+            layers.append(nl)
+        torch.cuda.synchronize()
+        t_clip = time.perf_counter() - t0
+        del smoothed
+        t0 = time.perf_counter()
+        p_opt = llama.quantize_params(dict(fp_b, layers=layers), a4, device=dev)
+        packed_opt = os.path.join(hb, "packed_opt")
+        cc.save_packed_checkpoint(p_opt, a4, packed_opt)
+        t_pack = time.perf_counter() - t0
+        del layers
+        log(f"  optimize, boosted model: seconds calibrate {t_cal:.2f} (32 x 512), smooth "
+            f"{t_smooth:.2f}, clip {t_clip:.2f}, quantize + pack {t_pack:.2f}")
+        # the converter's calibrated branch on both directories: on the
+        # boosted one it writes the staged pipeline's bytes
+        path_ran = ("elementwise", "w4a8_gemm_per_chn", "flash_prefill_attention",
+                    "paged_decode_attention", "kv_append")
+        conv_s = {}
+        for tag, d in (("as written", h), ("boosted", hb)):
+            t0 = time.perf_counter()
+            cc.convert_hf_checkpoint(d, os.path.join(d, "packed_cal"), "w4a8kv4", -1,
+                                     calib_corpus=corpus, device=dev)
+            conv_s[tag] = time.perf_counter() - t0
+        same = _same_bits("calibrated", cc.load_packed_checkpoint(
+            os.path.join(hb, "packed_cal"), a4, dev), p_opt)
+        log(f"  convert_hf_checkpoint(calib_corpus) in {conv_s} s; the boosted one equals the "
+            f"staged pipeline's {same / 1e9:.3f} GB bit for bit")
+        # fidelity: teacher-forced NLL on sequences the float model sampled
+        # (the gap to its own NLL estimates the KL divergence, > 0), and on
+        # the repo's held-out bytes (unrelated to a random model: the gap
+        # there reads how the logits' spread moved, of either sign)
+        a16 = loader.args_from_config_dict(hf_cfg, QuantSpec.from_precision("w16a16kv8", -1))
+        engine, _ = _ckpt_engine(dev, hb, precision="w16a16kv8")
+        rng = np.random.default_rng(16)
+        want, prompts = {}, {}
+        for i in range(8):
+            prompts[f"s{i}"] = [int(rng.integers(0, 256))]
+            want[f"s{i}"] = short - 1
+            engine.add_request(f"s{i}", prompt_token_ids=prompts[f"s{i}"], sampling_params=
+                               SamplingParams(max_tokens=short - 1, ignore_eos=True,
+                                              temperature=1.0))
+        streams = _drive(engine, want)["streams"]
+        p16 = engine.worker.model_runner.params
+        seqs = [torch.tensor(prompts[r] + streams[r], dtype=torch.int32, device=dev)
+                for r in sorted(streams)]
+        bwin = [torch.from_numpy(vids[i * seqlen:(i + 1) * seqlen]).to(dev) for i in range(4)]
+
+        def nll_sum(p, args, wins):
+            return sum(float(llama.teacher_forced_nll(p, w, len(w), args)[0]) for w in wins)
+
+        p_rtn = llama.quantize_params(fp_b, a4, device=dev)
+        fid = {}
+        for name, wins in (("float-model samples", seqs), ("held-out bytes", bwin)):
+            n16 = nll_sum(p16, a16, wins)
+            fid[name] = dict(w16=n16, rtn=nll_sum(p_rtn, a4, wins) - n16,
+                             opt=nll_sum(p_opt, a4, wins) - n16)
+            log(f"  boosted model, {name} ({len(wins)} x {len(wins[0])} tokens): NLL W16A16 "
+                f"{n16:.6g}; W4A8KV4 gap RTN {fid[name]['rtn']:+.5g}, optimized "
+                f"{fid[name]['opt']:+.5g}")
+        del engine, p16, p_rtn, p_opt
+        _release()
+        kl = fid["float-model samples"]
+        assert abs(kl["opt"]) < abs(kl["rtn"]), "optimized W4A8KV4 is no nearer than RTN"
+        opt.update(clip_agree=agree, fold_rms_gap=fold_gap, fidelity=fid, calibrate_s=t_cal,
+                   smooth_s=t_smooth, clip_s=t_clip, pack_s=t_pack, convert_calibrated_s=conv_s)
+        for tag, d in (("calibrated", h), ("calibrated boosted", hb)):
+            launches[tag] = _serve4(dev, tag, d, os.path.join(d, "packed_cal"), path_ran, V, 13)
+            shutil.rmtree(os.path.join(d, "packed_cal"))
+        shutil.rmtree(packed_opt)
+        del fp_b
+
+        # 5. the DeepCompressor round trip
+        spec = importlib.util.spec_from_file_location("deepcompressor_roundtrip_torch", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "scripts", "deepcompressor_roundtrip_torch.py"))
+        dcr = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(dcr)
+        dc = summary["deepcompressor"] = {}
+        for kind, (precision, gs) in dcr.KINDS.items():
+            art, packed = os.path.join(h, f"dc_{kind}"), os.path.join(h, f"packed_{kind}")
+            os.makedirs(art)
+            t0 = time.perf_counter()
+            dcr.make_artifact(h, art, kind, device=dev)
+            t_art = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cc.convert_deepcompressor_checkpoint(h, art, packed, precision, gs)
+            t_conv = time.perf_counter() - t0
+            shutil.rmtree(art)
+            args = cc.load_packed_config(packed)
+            share = dcr.codes_equal_share(
+                cc.load_packed_checkpoint(packed, args, dev),
+                llama.quantize_params(fp, args, device=dev))
+            log(f"  deepcompressor {kind}: artifact in {t_art:.1f} s, converted in {t_conv:.1f} s; "
+                f"codes equal to RTN's: {share:.6f}")
+            assert share == 1.0, f"{kind}: the import did not recover RTN's lattice"
+            gemm = OFFLINE_GEMM[(precision, gs)]
+            launches[f"dc {kind}"] = _serve4(dev, f"dc {kind}", h, packed, path_ran[:1] + (
+                gemm,) + path_ran[2:], V, 14, precision=precision, group_size=gs)
+            dc[kind] = dict(artifact_s=t_art, convert_s=t_conv, codes_equal=share)
+            shutil.rmtree(packed)
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+
+    # 6. the native marshal, inside path a's engine
+    assert native._lib is not None and native.get_lib() is native._lib, "native marshal not loaded"
+    rng = np.random.default_rng(15)
+    B, maxP = 64, 8
+    tables = [rng.integers(0, 160, int(rng.integers(1, maxP + 1))).tolist() for _ in range(B)]
+    dec = ([int(x) for x in rng.integers(0, V, B)], [int(x) for x in rng.integers(1, 2048, B)],
+           tables, B, maxP)
+    prompts = [rng.integers(0, V, 256).tolist() for _ in range(8)]
+    pre = (prompts, [[i] for i in range(8)], 256, 2048, 8)
+    timing = {}
+    for name, fast, plain, arg in (("pack_decode B=64", native.pack_decode,
+                                    native.pack_decode_plain, dec),
+                                   ("pack_prefill 2048 tokens", native.pack_prefill,
+                                    native.pack_prefill_plain, pre)):
+        a, b = fast(*arg), plain(*arg)
+        assert all(np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y
+                   for x, y in zip(a, b)), name
+        ts = {"native": [], "numpy": []}
+        for i in range(60):
+            order = (("native", fast), ("numpy", plain))
+            for key, fn in order if i % 2 == 0 else order[::-1]:
+                t0 = time.perf_counter()
+                fn(*arg)
+                ts[key].append((time.perf_counter() - t0) * 1e6)
+        timing[name] = {k: statistics.median(v) for k, v in ts.items()}
+        log(f"  marshal {name}: native {timing[name]['native']:.1f} us, numpy "
+            f"{timing[name]['numpy']:.1f} us a call (median of 60, interleaved; equal bit for "
+            f"bit); path a's decode step {decode_ms:.2f} ms")
+    summary["marshal_us"] = timing
     return launches, summary
 
 

@@ -14,6 +14,13 @@ the other bit for bit:
 The format has no router, so it holds dense Llama models only (Mixtral
 loads from its Hugging Face weights). A W8 lm_head is not packed: the JAX
 package's own save of one fails, so neither package can read one.
+
+Two sources convert into it, as in the JAX package:
+  * a float HF checkpoint, quantized with RTN QoQ math on the card
+    (convert_hf_checkpoint), optionally after activation-aware scale
+    optimization over a calibration corpus (quant/optimize.py);
+  * DeepCompressor fake-quant output, model.pt + scale.pt, whose optimized
+    scales are kept (convert_deepcompressor_checkpoint, on the host).
 """
 
 from __future__ import annotations
@@ -23,12 +30,14 @@ import json
 import os
 from typing import Dict
 
+import numpy as np
 import torch
 
 from qserve_tpu_torch.config import QuantSpec
 from qserve_tpu_torch.layers import linear as lin
 from qserve_tpu_torch.logger import init_logger
 from qserve_tpu_torch.models import llama
+from qserve_tpu_torch.quant import packing
 from qserve_tpu_torch.utils.utils import resolve_device
 from qserve_tpu_torch.utils.weight_utils import read_safetensors, write_safetensors
 
@@ -195,17 +204,170 @@ def convert_hf_checkpoint(
     calib_windows: int = 32, calib_seqlen: int = 512, alpha: float = 0.5,
     device="cuda",
 ) -> None:
-    """Quantize a local HF float checkpoint on `device` and pack it."""
+    """Quantize a local HF float checkpoint on `device` and pack it.
+
+    With calib_corpus set (a directory holding train.bin), activation-aware
+    scale optimization (quant/optimize.py: SmoothQuant / SmoothAttention
+    folds and the clip search, the in-framework stand-in for the
+    reference's DeepCompressor pipeline) runs on the float weights, on
+    `device`, before RTN."""
     from qserve_tpu_torch.models import loader
 
-    if calib_corpus is not None:
-        raise NotImplementedError(
-            "calibrated conversion is not ported yet (ROADMAP queue 1, "
-            "offline tooling: quant/optimize.py)"
-        )
     quant = QuantSpec.from_precision(precision, group_size, kv_zp)
     cfg = loader.load_hf_config_dict(model_dir)
     args = loader.args_from_config_dict(cfg, quant)
     fp = loader.load_float_params_from_hf(model_dir, args)
+    if calib_corpus is not None:
+        from qserve_tpu_torch.quant import optimize
+
+        calib = optimize.load_calib_windows(
+            calib_corpus, n_windows=calib_windows, seqlen=calib_seqlen
+        )
+        fp = optimize.optimize_float_params(
+            fp, args, calib, alpha=alpha, alpha_attn=alpha, device=device
+        )
     params = llama.quantize_params(fp, args, device=device)
     save_packed_checkpoint(params, args, out_dir)
+
+
+def convert_deepcompressor_checkpoint(
+    model_dir: str,
+    quant_ckpt_dir: str,
+    out_dir: str,
+    precision: str = "w4a8kv4",
+    group_size: int = -1,
+    kv_zp: bool = True,
+) -> None:
+    """Convert DeepCompressor fake-quant output (model.pt + scale.pt), on
+    the host.
+
+    model.pt holds the fake-quantized (already rounded) float weights;
+    scale.pt holds s1 (and per-group s2) scales plus zeros. Reference
+    semantics (checkpoint_converter.py:81-134): integer lattice values are
+    recovered by dividing the fake-quant weights by the scales and adding
+    the zero point (+8 folds signed int4 into unsigned). The lattice math
+    is the JAX package's, in numpy f32, so both packages write the same
+    bytes; two of its behaviours are kept as they are there:
+      * per group, 8 is added to every code of a tensor when any code is
+        negative, and z2 is left as stored;
+      * s2 is clipped to [1, 255] and stored as its uint8 bit pattern in
+        the int8 carrier (200 is stored as -56 and read as 200)."""
+    from qserve_tpu_torch.models import loader
+
+    quant = QuantSpec.from_precision(precision, group_size, kv_zp)
+    cfg = loader.load_hf_config_dict(model_dir)
+    args = loader.args_from_config_dict(cfg, quant)
+
+    state = torch.load(os.path.join(quant_ckpt_dir, "model.pt"), map_location="cpu",
+                       weights_only=True)
+    scales = torch.load(os.path.join(quant_ckpt_dir, "scale.pt"), map_location="cpu",
+                        weights_only=True)
+
+    def to_np(t):
+        return t.float().numpy()
+
+    def t(x, dtype=None):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+        return x if dtype is None else x.to(dtype)
+
+    def build_linear(prefix: str) -> lin.LinearParams:
+        # fake-quant weight [OC, IC] -> our [K, N] = transpose (a torch copy,
+        # multithreaded, so numpy's elementwise work runs on rows)
+        w = state[f"{prefix}.weight"].float().T.contiguous().numpy()  # [K, N]
+        K, N = w.shape
+        s1_key = f"{prefix}.weight.scale"
+        zero_key = f"{prefix}.weight.zero"
+        if quant.weight_bits == 8:
+            s1 = to_np(scales[s1_key]).reshape(N)
+            q = np.clip(np.rint(w / s1[None, :]), -128, 127).astype(np.int8)
+            return lin.W8Linear(t(q), t(s1.astype(np.float32)))
+        if group_size == -1:
+            s1 = to_np(scales[s1_key]).reshape(N)
+            zero = to_np(scales[zero_key]).reshape(N) if zero_key in scales else (
+                np.zeros(N, np.float32)
+            )
+            # reference folds +8: stored zero is for the signed lattice
+            zero_u = zero + 8.0
+            q = np.clip(np.rint(w / s1[None, :] + zero_u[None, :]), 0, 15)
+            return lin.W4ChnLinear(
+                qweight=packing.pack_w4(t(q, torch.int8)),
+                s1_scale=t(s1.astype(np.float32)),
+                s1_szero=t((s1 * zero_u).astype(np.float32)),
+            )
+        # per-group: level-1 float scale + level-2 integer scale/zero
+        s1 = to_np(scales[s1_key]).reshape(N)  # [N]
+        s2 = to_np(scales[f"{prefix}.weight.scale2"]).reshape(K // group_size, N)
+        z2 = to_np(scales[zero_key]).reshape(K // group_size, N)
+        w8 = w / s1[None, :]
+        G = K // group_size
+        wg = w8.reshape(G, group_size, N)
+        q = np.rint((wg - z2[:, None, :]) / np.maximum(s2[:, None, :], 1e-8))
+        q = np.clip(q + 8.0 if q.min() < 0 else q, 0, 15).astype(np.int8)
+        return lin.W4GrpLinear(
+            qweight=packing.pack_w4(t(q.reshape(K, N))),
+            s2_scale=t(np.clip(s2, 1, 255).astype(np.int16).astype(np.int8)),
+            s2_zero=t(np.clip(z2, -128, 127).astype(np.int8)),
+            s1_scale=t(s1.astype(np.float32)),
+        )
+
+    layers = []
+    for li in range(args.num_layers):
+        pre = f"model.layers.{li}"
+        layers.append(llama.LlamaLayerParams(
+            input_ln=t(to_np(state[f"{pre}.input_layernorm.weight"])),
+            qkv=_concat_cols(
+                build_linear(f"{pre}.self_attn.q_proj"),
+                build_linear(f"{pre}.self_attn.k_proj"),
+                build_linear(f"{pre}.self_attn.v_proj"),
+            ),
+            o=build_linear(f"{pre}.self_attn.o_proj"),
+            post_ln=t(to_np(state[f"{pre}.post_attention_layernorm.weight"])),
+            gate_up=_concat_cols(
+                build_linear(f"{pre}.mlp.gate_proj"),
+                build_linear(f"{pre}.mlp.up_proj"),
+            ),
+            down=build_linear(f"{pre}.mlp.down_proj"),
+        ))
+    def stack(*xs):  # per-layer NamedTuples of tensors -> stacked [L, ...]
+        if isinstance(xs[0], tuple):
+            return type(xs[0])(*map(stack, *xs))
+        return torch.stack(xs)
+
+    stacked = stack(*layers)
+    def bf16(name):  # rounded as the JAX package rounds f32 (RNE), in torch
+        return state[name].float().to(torch.bfloat16)
+
+    embed = bf16("model.embed_tokens.weight")
+    # transposed after rounding: a bf16 copy, multithreaded
+    lm_head = (bf16("lm_head.weight") if "lm_head.weight" in state else embed).T.contiguous()
+    params = llama.LlamaParams(
+        embed=embed, layers=stacked,
+        final_ln=t(to_np(state["model.norm.weight"])), lm_head=lm_head,
+    )
+    save_packed_checkpoint(params, args, out_dir)
+
+
+def _concat_cols(*parts: lin.LinearParams) -> lin.LinearParams:
+    """Column-concat linears of the same kind (qkv / gate_up fusion)."""
+    kind = type(parts[0])
+    if kind is lin.W16Linear:
+        return lin.W16Linear(torch.cat([p.weight for p in parts], dim=1))
+    if kind is lin.W8Linear:
+        return lin.W8Linear(
+            qweight=torch.cat([p.qweight for p in parts], dim=1),
+            scale=torch.cat([p.scale for p in parts], dim=0),
+        )
+    if kind is lin.W4ChnLinear:
+        return lin.W4ChnLinear(
+            qweight=torch.cat([p.qweight for p in parts], dim=1),
+            s1_scale=torch.cat([p.s1_scale for p in parts], dim=0),
+            s1_szero=torch.cat([p.s1_szero for p in parts], dim=0),
+        )
+    if kind is lin.W4GrpLinear:
+        return lin.W4GrpLinear(
+            qweight=torch.cat([p.qweight for p in parts], dim=1),
+            s2_scale=torch.cat([p.s2_scale for p in parts], dim=1),
+            s2_zero=torch.cat([p.s2_zero for p in parts], dim=1),
+            s1_scale=torch.cat([p.s1_scale for p in parts], dim=0),
+        )
+    raise TypeError(kind)

@@ -784,3 +784,134 @@ def decode(
     )
     h = ops.rmsnorm(h, params.final_ln, args.rms_eps)
     return _lm_head(h, params, args), kv
+
+
+# ---------------------------------------------------------------------------
+# Teacher-forced scoring (perplexity evaluation)
+# ---------------------------------------------------------------------------
+
+
+def teacher_forced_nll(
+    params: LlamaParams,
+    token_ids: torch.Tensor,  # [T] int32, one sequence (0-padded tail)
+    length: int,  # number of valid tokens
+    args: LlamaArgs,
+    row_chunk: int = 256,
+    simulate_kv_quant: bool = False,
+) -> Tuple[torch.Tensor, int]:
+    """Sum of -log p(token[t+1] | tokens[:t+1]) for t+1 < length.
+
+    Runs the serving forward (the prefill's kernels) without touching a KV
+    cache, then folds the lm_head and the cross-entropy over row_chunk rows,
+    so the [T, V] f32 logits never exist at once. Returns (nll_sum, count):
+    an f32 0-d tensor on the params' device and a host int, so a window
+    costs one read-back.
+
+    simulate_kv_quant=True also round-trips every K/V through the serving
+    KV quantizer (per token and head, args.quant.kv_bits) before attention,
+    so the measured loss covers the KV4/KV8 cache too."""
+    T = token_ids.shape[0]
+    assert T % row_chunk == 0, f"T={T} not a multiple of row_chunk={row_chunk}"
+    length = int(length)
+    dev = token_ids.device
+    positions = torch.arange(T, dtype=torch.int32, device=dev)
+    segment_ids = (positions < length).to(torch.int32)
+
+    h = params.embed[token_ids.long()].to(torch.bfloat16)
+    cos, sin = rope.rope_cos_sin(positions, args.head_dim, args.rope_theta)
+
+    def kv_roundtrip(x):
+        from qserve_tpu_torch.quant import qoq
+
+        q, scale, zero = qoq.quantize_kv(
+            x.to(torch.float32), bits=args.quant.kv_bits,
+            asymmetric=args.quant.kv_zero_point,
+        )
+        return qoq.dequantize_kv(q, scale, zero).to(x.dtype)
+
+    def attend(q, k, v, _li):
+        if simulate_kv_quant:
+            k, v = kv_roundtrip(k), kv_roundtrip(v)
+        return attention.prefill_attention(
+            q, k, v, segment_ids, sliding_window=args.sliding_window
+        )
+
+    h, _ = _run_layers(params, h, cos, sin, args, attend)
+    h = ops.rmsnorm(h, params.final_ln, args.rms_eps)
+
+    targets = torch.roll(token_ids, -1).long()  # target[t] = token[t+1]
+    pred_mask = (positions + 1 < length).to(torch.float32)
+    nll = torch.zeros((), dtype=torch.float32, device=dev)
+    for r0 in range(0, T, row_chunk):
+        rows = slice(r0, r0 + row_chunk)
+        logits = tpmod.tp_all_gather_cols(
+            lm_head_matmul(h[rows], params.lm_head, torch.float32), args)
+        lse = torch.logsumexp(logits, dim=-1)
+        tl = logits.gather(1, targets[rows, None])[:, 0]
+        nll = nll + ((lse - tl) * pred_mask[rows]).sum()
+    return nll, max(length - 1, 0)
+
+
+# ---------------------------------------------------------------------------
+# Float reference forward (an oracle; no cache, full logits)
+# ---------------------------------------------------------------------------
+
+
+def reference_forward_float(
+    float_params: dict, args: LlamaArgs, token_ids: torch.Tensor
+) -> torch.Tensor:
+    """Plain f32 forward of the same architecture on one sequence [T] ->
+    logits f32 [T, V], on the device of token_ids.
+
+    An oracle, not a serving path: every product is f32, and attention is
+    attention.prefill_attention_plain, called by name on every device,
+    because the prefill kernel (K3) takes bf16 operands only. Nothing is
+    cast to bf16."""
+    T = token_ids.shape[0]
+    dev = token_ids.device
+
+    def f32(x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.array(x))
+        return x.to(device=dev, dtype=torch.float32)
+
+    h = f32(float_params["embed"])[token_ids.long()]
+    positions = torch.arange(T, dtype=torch.int32, device=dev)
+    cos, sin = rope.rope_cos_sin(positions, args.head_dim, args.rope_theta)
+    seg = torch.ones((T,), dtype=torch.int32, device=dev)
+
+    def rms(x, w):
+        v = (x * x).mean(dim=-1, keepdim=True)
+        return x * torch.rsqrt(v + args.rms_eps) * f32(w)
+
+    def swiglu(x, gate_up, down):
+        g, u = (x @ f32(gate_up)).chunk(2, dim=-1)
+        return (torch.nn.functional.silu(g) * u) @ f32(down)
+
+    def moe_mlp(x, fl):
+        probs = torch.softmax(x @ f32(fl["router"]), dim=-1)
+        topv, topi = torch.topk(probs, args.moe_top_k, dim=-1)
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+        out = torch.zeros_like(x)
+        for e in range(args.num_experts):
+            d = swiglu(x, fl["experts_gate_up"][e], fl["experts_down"][e])
+            w = torch.where(topi == e, topv, torch.zeros_like(topv)).sum(dim=-1)
+            out = out + w[:, None] * d
+        return out
+
+    for fl in float_params["layers"]:
+        x = rms(h, fl["input_ln"])
+        q, k, v = (x @ f32(fl["qkv"])).split(
+            [args.q_size, args.kv_size, args.kv_size], dim=-1)
+        q = rope.apply_rope(q.reshape(T, args.num_heads, args.head_dim), cos, sin)
+        k = rope.apply_rope(k.reshape(T, args.num_kv_heads, args.head_dim), cos, sin)
+        v = v.reshape(T, args.num_kv_heads, args.head_dim)
+        attn = attention.prefill_attention_plain(q, k, v, seg)
+        h = h + attn.reshape(T, -1) @ f32(fl["o"])
+        x = rms(h, fl["post_ln"])
+        if args.num_experts > 0:
+            h = h + moe_mlp(x, fl)
+        else:
+            h = h + swiglu(x, fl["gate_up"], fl["down"])
+    h = rms(h, float_params["final_ln"])
+    return h @ f32(float_params["lm_head"])

@@ -96,6 +96,9 @@ class ModelRunner:
         self.benchmarking = benchmarking
         self._prev_order: Optional[tuple] = None
         self._prev_toks: Optional[torch.Tensor] = None
+        # the batch marshal: built (or found built) here, so a failed g++
+        # build raises at construction and no step pays for the compile
+        native.get_lib()
 
     @classmethod
     def from_random(

@@ -434,9 +434,25 @@ def test_convert_hf_checkpoint(hf_dir, tmp_path):
     _, jparams = jloader.load_model(hf_dir, jargs.quant)
     _assert_bit_equal(tcc.load_packed_checkpoint(out, tcc.load_packed_config(out), "cpu"),
                       jparams)
-    with pytest.raises(NotImplementedError, match="offline tooling"):
-        tcc.convert_hf_checkpoint(hf_dir, out, "w4a8kv4", calib_corpus="c.txt",
-                                  device="cpu")
+    # calibrated: a byte corpus (BOS 256) over a 384-id model writes a
+    # packed checkpoint of other codes than RTN's
+    bytes_cfg = dict(CFG, vocab_size=384)
+    model = _write_hf(tmp_path / "bytes", bytes_cfg, _hf_state(bytes_cfg, np.random.default_rng(1)))
+    (tmp_path / "corpus").mkdir()
+    np.random.default_rng(0).integers(0, 256, 4096).astype(np.uint8).tofile(
+        tmp_path / "corpus" / "train.bin")
+    rtn, cal = str(tmp_path / "rtn"), str(tmp_path / "cal")
+    tcc.convert_hf_checkpoint(model, rtn, "w4a8kv4", 128, device="cpu")
+    tcc.convert_hf_checkpoint(model, cal, "w4a8kv4", 128, calib_corpus=str(tmp_path / "corpus"),
+                              calib_windows=2, calib_seqlen=32, device="cpu")
+    got = tcc.load_packed_checkpoint(cal, tcc.load_packed_config(cal), "cpu")
+    want = tcc.load_packed_checkpoint(rtn, tcc.load_packed_config(rtn), "cpu")
+    assert got.layers.qkv.qweight.shape == want.layers.qkv.qweight.shape
+    assert not torch.equal(got.layers.qkv.qweight, want.layers.qkv.qweight)
+    # a corpus whose BOS lies past the vocabulary is refused
+    with pytest.raises(ValueError, match="past the vocabulary"):
+        tcc.convert_hf_checkpoint(hf_dir, out, "w4a8kv4", calib_corpus=str(tmp_path / "corpus"),
+                                  calib_windows=2, calib_seqlen=32, device="cpu")
 
 
 # ---------------------------------------------------------------------------

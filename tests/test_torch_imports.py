@@ -6,7 +6,9 @@ C++ built by nvcc) or safetensors (the port reads and writes the format
 itself); transformers and PIL are imported only inside a function
 (utils/tokenizer.py's get_tokenizer, utils/image_processing.py), and
 transformers never by chip_smoke.py: the port needs neither library to
-serve token ids or pixel values."""
+serve token ids or pixel values. The port's scripts (scripts/*_torch.py)
+are held to the same rules, and `datasets` (entrypoints/eval_ppl.py's
+load_corpus_text) is imported only inside a function too."""
 
 import os
 import re
@@ -23,11 +25,14 @@ FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|triton\b|safetensors\b|qserve_tpu(?!_torch)\b)",
     re.M,
 )
-# transformers and PIL: inside a function only (an indented import)
-TOP_LEVEL_TRANSFORMERS = re.compile(r"^(?:import|from)\s+(?:transformers|PIL)\b", re.M)
+# transformers, datasets and PIL: inside a function only (an indented import)
+TOP_LEVEL_TRANSFORMERS = re.compile(r"^(?:import|from)\s+(?:transformers|datasets|PIL)\b",
+                                    re.M)
 ANY_TRANSFORMERS = re.compile(r"^\s*(?:import|from)\s+transformers\b", re.M)
 NOT_IMPORTED = ('jax', 'jaxlib', 'qserve_tpu', 'triton', 'safetensors', 'transformers',
-                'PIL')
+                'datasets', 'PIL')
+SCRIPTS = ("convert_checkpoint_torch", "eval_tiny_ppl_torch", "deepcompressor_roundtrip_torch",
+           "optimize_fidelity")
 
 
 def _port_modules():
@@ -61,6 +66,7 @@ def test_import_leaves_jax_out():
 
 def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py")]
+    files += [os.path.join(ROOT, "scripts", f"{n}.py") for n in SCRIPTS]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -120,3 +126,38 @@ def test_tensor_parallel_modules_are_scanned():
               "qserve_tpu_torch.parallel.dryrun", "qserve_tpu_torch.worker.tp_runner"):
         assert m in mods
         assert os.path.join(ROOT, *m.split(".")) + ".py" in _sources()
+
+
+def test_scripts_import_without_jax():
+    """The port's scripts import (as modules, main() not run) without JAX,
+    the JAX package, triton, safetensors, transformers or datasets."""
+    code = (
+        "import importlib.util, sys\n"
+        f"for n in {SCRIPTS!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(n, f'scripts/{n}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{NOT_IMPORTED!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_offline_modules_are_scanned():
+    """The offline tooling and the native marshal are among the modules
+    imported without JAX and the sources scanned."""
+    mods = _port_modules()
+    for m in ("qserve_tpu_torch.eval", "qserve_tpu_torch.eval.ppl",
+              "qserve_tpu_torch.entrypoints.eval_ppl", "qserve_tpu_torch.quant.optimize",
+              "qserve_tpu_torch.native"):
+        assert m in mods, m
+    srcs = _sources()
+    for n in SCRIPTS:
+        assert os.path.join(ROOT, "scripts", f"{n}.py") in srcs
+    assert TOP_LEVEL_TRANSFORMERS.search("from datasets import load_dataset")
+    assert not TOP_LEVEL_TRANSFORMERS.search("    from datasets import load_dataset")
