@@ -147,7 +147,7 @@ def main(argv=None):
     base = results["FP16 (baseline)"]
     for label, ppl in results.items():
         if label != "FP16 (baseline)":
-            print(f"Δppl {label:<26} {ppl - base:+.4f}")
+            print(f"Δppl {label:<26} {ppl - base:+.4f}  (relative {ppl / base - 1:+.2%})")
     return results
 
 

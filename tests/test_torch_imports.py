@@ -8,7 +8,9 @@ itself); transformers and PIL are imported only inside a function
 transformers never by chip_smoke.py: the port needs neither library to
 serve token ids or pixel values. The port's scripts (scripts/*_torch.py)
 are held to the same rules, and `datasets` (entrypoints/eval_ppl.py's
-load_corpus_text) is imported only inside a function too."""
+load_corpus_text) is imported only inside a function too. Nothing of the
+port imports optax: the trainer's optimizer is torch's AdamW under its own
+copy of optax's schedule and clip."""
 
 import os
 import re
@@ -22,17 +24,17 @@ PKG = os.path.join(ROOT, "qserve_tpu_torch")
 
 # `qserve_tpu_torch` starts with `qserve_tpu`: match the JAX package only
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|triton\b|safetensors\b|qserve_tpu(?!_torch)\b)",
+    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|optax\b|triton\b|safetensors\b|qserve_tpu(?!_torch)\b)",
     re.M,
 )
 # transformers, datasets and PIL: inside a function only (an indented import)
 TOP_LEVEL_TRANSFORMERS = re.compile(r"^(?:import|from)\s+(?:transformers|datasets|PIL)\b",
                                     re.M)
 ANY_TRANSFORMERS = re.compile(r"^\s*(?:import|from)\s+transformers\b", re.M)
-NOT_IMPORTED = ('jax', 'jaxlib', 'qserve_tpu', 'triton', 'safetensors', 'transformers',
+NOT_IMPORTED = ('jax', 'jaxlib', 'optax', 'qserve_tpu', 'triton', 'safetensors', 'transformers',
                 'datasets', 'PIL')
 SCRIPTS = ("convert_checkpoint_torch", "eval_tiny_ppl_torch", "deepcompressor_roundtrip_torch",
-           "optimize_fidelity")
+           "optimize_fidelity", "train_tiny_lm_torch", "generate_wds_meta_torch")
 
 
 def _port_modules():
@@ -111,6 +113,7 @@ def test_scan_pattern():
     assert FORBIDDEN.search("    import triton.language as tl")
     assert not FORBIDDEN.search("from qserve_tpu_torch.kernels import ops")
     assert FORBIDDEN.search("    from safetensors.numpy import load_file")
+    assert FORBIDDEN.search("    import optax")
     assert TOP_LEVEL_TRANSFORMERS.search("from transformers import AutoTokenizer")
     assert not TOP_LEVEL_TRANSFORMERS.search("    from transformers import AutoTokenizer")
     assert TOP_LEVEL_TRANSFORMERS.search("from PIL import Image")
