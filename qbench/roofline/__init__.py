@@ -1,0 +1,3 @@
+"""Operation and byte counts of the program's kernels, one file per kernel
+family, and the card's peaks. They belong to the yardstick: a later change
+to the program does not move them."""
