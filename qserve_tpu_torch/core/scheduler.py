@@ -23,6 +23,7 @@ from qserve_tpu_torch.sequence import (
     SequenceGroupMetadata,
     SequenceStatus,
 )
+from qserve_tpu_torch.utils import tracing
 
 logger = init_logger(__name__)
 
@@ -101,6 +102,7 @@ class Scheduler:
         from qserve_tpu_torch.core.prefix import PrefixPool
 
         self.prefix_pool = PrefixPool(cache_config.block_size)
+        self.counters = tracing.Counters()
 
     # ---- request lifecycle ----
     def add_seq_group(self, seq_group: SequenceGroup) -> None:
@@ -199,10 +201,11 @@ class Scheduler:
             # when recompute-preempted groups were appendleft'ed ahead of it,
             # or the queue head can deadlock waiting for the pages it is
             # sitting on (at most one group is in that state at a time; page
-            # ownership — not prefill progress — is the deadlock condition)
+            # ownership — not prefill progress — is the deadlock condition).
+            # It takes its place under max_num_seqs as a running group does.
             for i, g in enumerate(self.waiting):
-                ws = g.get_seqs(SequenceStatus.WAITING)
-                if ws and self.block_manager.has_seq(ws[0]):
+                if self._holds_pages(g):
+                    num_running_seqs += g.get_max_num_running_seqs()
                     if i > 0:
                         del self.waiting[i]
                         self.waiting.appendleft(g)
@@ -284,6 +287,11 @@ class Scheduler:
                 prompt_chunks[seq.seq_id] = (start, end)
                 num_batched_tokens += end - start
                 scheduled.append(group)
+                if start > 0 or end < prompt_len:
+                    self.counters.chunk_prompt_tokens += end - start
+                if group.queued_ns is not None:
+                    self.counters.admit(group, time.perf_counter_ns())
+                    group.queued_ns = None
                 if end == prompt_len:
                     self.waiting.popleft()
                     seq.status = SequenceStatus.RUNNING
@@ -351,9 +359,12 @@ class Scheduler:
 
         # Phase 3: try to swap preempted groups back in.
         self.swapped = deque(self.policy.sort_by_priority(now, self.swapped))
-        if not preempted:
+        if not preempted and self.swapped:
             num_running_seqs = sum(
                 g.get_max_num_running_seqs() for g in self.running
+            ) + sum(
+                g.get_max_num_running_seqs()
+                for g in self.waiting if self._holds_pages(g)
             )
             while self.swapped:
                 group = self.swapped[0]
@@ -365,6 +376,7 @@ class Scheduler:
                 self.swapped.popleft()
                 mapping = self.block_manager.swap_in(group)
                 blocks_to_swap_in.update(mapping)
+                self.counters.pages_swapped_in += len(mapping)
                 for seq in group.get_seqs(SequenceStatus.SWAPPED):
                     seq.status = SequenceStatus.RUNNING
                 self._append_slots(group, blocks_to_copy)
@@ -385,6 +397,12 @@ class Scheduler:
         )
 
     # ---- helpers ----
+    def _holds_pages(self, group: SequenceGroup) -> bool:
+        """A waiting prompt that already holds its pages: mid-chunk, or
+        allocated and deferred past a step's token budget."""
+        ws = group.get_seqs(SequenceStatus.WAITING)
+        return bool(ws) and self.block_manager.has_seq(ws[0])
+
     def _schedule_running(
         self,
         now: float,
@@ -428,8 +446,9 @@ class Scheduler:
         if prefix is None or not (prefix.allocated and prefix.computed):
             return
         bs = self.cache_config.block_size
-        skip = min(prefix.length, ((seq.get_len() - 1) // bs) * bs)
-        seq.data.computed_tokens = max(skip, 0)
+        skip = max(min(prefix.length, ((seq.get_len() - 1) // bs) * bs), 0)
+        seq.data.computed_tokens = skip
+        self.counters.prefix_skipped_tokens += skip
 
     def _append_slots(
         self, group: SequenceGroup, blocks_to_copy: Dict[int, List[int]]
@@ -464,6 +483,7 @@ class Scheduler:
                 )
             mode = PreemptionMode.RECOMPUTE
         if mode == PreemptionMode.RECOMPUTE:
+            self.counters.preempted_recompute += 1
             for seq in group.get_seqs(SequenceStatus.RUNNING):
                 seq.status = SequenceStatus.WAITING
                 self.block_manager.free(seq)
@@ -473,6 +493,8 @@ class Scheduler:
         else:
             mapping = self.block_manager.swap_out(group)
             blocks_to_swap_out.update(mapping)
+            self.counters.preempted_swap += 1
+            self.counters.pages_swapped_out += len(mapping)
             for seq in group.get_seqs(SequenceStatus.RUNNING):
                 seq.status = SequenceStatus.SWAPPED
             self.swapped.append(group)

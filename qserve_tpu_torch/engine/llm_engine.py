@@ -19,6 +19,7 @@ from qserve_tpu_torch.sequence import (
     SequenceGroup,
     SequenceStatus,
 )
+from qserve_tpu_torch.utils import tracing
 from qserve_tpu_torch.utils.utils import Counter
 from qserve_tpu_torch.worker.worker import Worker
 
@@ -57,6 +58,9 @@ class LLMEngine:
         self.cache_config = cache_config
         self.seq_counter = Counter()
         self.log_stats = log_stats
+        if log_stats:
+            tracing.enable()  # the log line reads the decode steps' spans
+        self._step_no = 0
         # seq_id -> (group, seq) for O(1) result routing
         self._seq_index: Dict[int, Tuple[SequenceGroup, Sequence]] = {}
         self._num_generated = 0
@@ -68,6 +72,8 @@ class LLMEngine:
         self._last_stats_time = time.time()
         self._last_stats_generated = 0
         self._last_stats_prompt = 0
+        self._last_stats_span = -1
+        self._last_stats_counters = self.scheduler.counters.as_dict()
 
     # ------------------------------------------------------------------
     @classmethod
@@ -157,14 +163,37 @@ class LLMEngine:
 
     # ------------------------------------------------------------------
     def step(self) -> List[RequestOutput]:
-        metadata, sched = self.scheduler.schedule()
+        self._step_no += 1
+        if not tracing.begin_step(self._step_no):
+            outputs = self._step()
+        else:
+            with tracing.span("engine.step") as root:
+                try:
+                    outputs = self._step()
+                finally:
+                    root.kind = self.last_step_kind
+        if self.log_stats:
+            self._maybe_log_stats()
+        return outputs
+
+    def _step(self) -> List[RequestOutput]:
+        with tracing.span("engine.schedule"):
+            metadata, sched = self.scheduler.schedule()
         self.last_step_kind = step_kind(metadata, sched)
         if not metadata and not sched.ignored_seq_groups:
             if not sched.is_empty():
-                self.worker.execute_model([], sched)  # swaps only
+                with tracing.span("engine.execute"):
+                    self.worker.execute_model([], sched)  # swaps only
             return []
 
-        results = self.worker.execute_model(metadata, sched)
+        with tracing.span("engine.execute"):
+            results = self.worker.execute_model(metadata, sched)
+        with tracing.span("engine.post"):
+            return self._post(metadata, sched, results)
+
+    def _post(self, metadata, sched, results) -> List[RequestOutput]:
+        """The step's outputs: prompt-token counts, appended tokens, forks,
+        stop checks, freed sequences, RequestOutputs."""
         if sched.prompt_run:
             for md in metadata:
                 if not md.is_prompt:
@@ -214,8 +243,6 @@ class LLMEngine:
             touched_groups.append(group)
 
         self.scheduler.free_finished_seq_groups()
-        if self.log_stats:
-            self._maybe_log_stats()
         seen = set()
         for group in touched_groups:
             if id(group) in seen:
@@ -333,11 +360,33 @@ class LLMEngine:
             len(self.scheduler.waiting), len(self.scheduler.swapped),
             100.0 * (total - free) / max(total, 1),
         )
+        # the interval's decode steps by host phase (spans), and its
+        # scheduler events (counters)
+        recent = tracing.spans(since=self._last_stats_span)
+        steps, ms = tracing.step_means(recent, tracing.DECODE_PHASES)
+        counters = self.scheduler.counters.as_dict()
+        d = {k: v - self._last_stats_counters[k] for k, v in counters.items()}
+        waits = [s.duration_ns for s in recent if s.name == "request.queue"]
+        logger.info(
+            "decode step host ms (%d steps): schedule %.2f, cache ops %.2f, "
+            "pack %.2f, forward %.2f, sample %.2f, read-back %.2f, post %.2f | "
+            "preempted %d by recompute, %d by swap | pages swapped out %d, "
+            "in %d | queue wait mean %.1f ms, max %.1f ms (%d admitted)",
+            steps, *(ms[n] for n in tracing.DECODE_PHASES),
+            d["preempted_recompute"], d["preempted_swap"],
+            d["pages_swapped_out"], d["pages_swapped_in"],
+            d["queue_wait_ns_sum"] / 1e6 / max(d["admitted"], 1),
+            max(waits, default=0) / 1e6, d["admitted"],
+        )
         self._last_stats_time = now
         self._last_stats_generated = self._num_generated
         self._last_stats_prompt = self._num_prompt_tokens
+        self._last_stats_span = max((s.id for s in recent), default=self._last_stats_span)
+        self._last_stats_counters = counters
 
     def stats(self) -> dict:
+        """The engine's totals and queues, and the scheduler's event
+        counters (utils/tracing.Counters)."""
         return dict(
             generated_tokens=self._num_generated,
             prompt_tokens=self._num_prompt_tokens,
@@ -345,4 +394,5 @@ class LLMEngine:
             waiting=len(self.scheduler.waiting),
             running=len(self.scheduler.running),
             swapped=len(self.scheduler.swapped),
+            **self.scheduler.counters.as_dict(),
         )

@@ -39,6 +39,7 @@ from qserve_tpu_torch.kernels import attention, kv_cache as kvc, ops
 from qserve_tpu_torch.layers import linear as lin
 from qserve_tpu_torch.layers import rope
 from qserve_tpu_torch.parallel import tp as tpmod
+from qserve_tpu_torch.utils import tracing
 from qserve_tpu_torch.utils.utils import resolve_device
 
 
@@ -407,7 +408,8 @@ def _layer_forward(
         # a plain add and a plain RMSNorm, as the JAX package's MoE branch
         h = h + o.to(h.dtype)
         x = ops.rmsnorm(h, layers.post_ln[li], eps)
-        d = _moe_mlp(layers.router[li], gu_p, down_p, x, args, int8_act, gs)
+        with tracing.span("model.moe"):
+            d = _moe_mlp(layers.router[li], gu_p, down_p, x, args, int8_act, gs)
     elif int8_act:
         h, g8, gsc, gsum = ops.add_rmsnorm_quant(
             h, o, layers.post_ln[li], eps, lin.needs_act_sum(gu_p)

@@ -163,6 +163,9 @@ class SequenceGroup:
         self.arrival_time = arrival_time if arrival_time is not None else time.time()
         self.multi_modal_data = multi_modal_data or {}
         self.prefix = prefix
+        # when the request was queued, on time.perf_counter_ns(); None once
+        # the scheduler first scheduled its prompt (its queue wait counted)
+        self.queued_ns: Optional[int] = time.perf_counter_ns()
 
     @property
     def prompt(self) -> Optional[str]:

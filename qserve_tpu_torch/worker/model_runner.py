@@ -9,6 +9,12 @@ kernel as a scalar argument, never through a device read. Host inputs
 reach the card from pinned staging copies (utils.to_device), so no copy
 waits for the card's queue.
 
+Every step path times its host phases (utils/tracing.py): `runner.pack`
+(the metadata walk, the native pack and the staging copies),
+`runner.forward` (the model call: the host issuing the layers and the
+lm_head), `runner.sample` and `runner.readback` (the host blocked on the
+sampled ids).
+
 With `benchmarking` (the JAX package's device-feed mode), a decode step
 whose batch has the same sequences in the same order and width as the
 decode step before takes that step's sampled ids, still on the device, as
@@ -28,6 +34,7 @@ from qserve_tpu_torch import native
 from qserve_tpu_torch.layers import sampler as sampler_mod
 from qserve_tpu_torch.models import llama
 from qserve_tpu_torch.sequence import SequenceGroupMetadata
+from qserve_tpu_torch.utils import tracing
 from qserve_tpu_torch.utils.utils import bucket, resolve_device, to_device
 
 _SAMPLING_EPS = 1e-5
@@ -131,11 +138,26 @@ class ModelRunner:
         return torch.from_numpy(temp), torch.from_numpy(topp), torch.from_numpy(topk)
 
     def _sample(self, logits, sp_list, pad_to) -> torch.Tensor:
-        temp, topp, topk = self._sampling_arrays(sp_list, pad_to)
-        return sampler_mod.sample(
-            logits, temp, topp, topk, self.generator,
-            seed_generator=self.seed_generator,
-        )
+        with tracing.span("runner.sample"):
+            temp, topp, topk = self._sampling_arrays(sp_list, pad_to)
+            return sampler_mod.sample(
+                logits, temp, topp, topk, self.generator,
+                seed_generator=self.seed_generator,
+            )
+
+    def _read_back(self, toks, seq_order, logits=None, sp_list=None,
+                   completes=None) -> List[Tuple[int, int]]:
+        """[(seq_id, sampled id)] of the step's rows; given the logits, the
+        extra best_of candidates of each prompt the step completes
+        (`last_extra_samples`) are drawn from their read-back rows."""
+        with tracing.span("runner.readback"):
+            self.last_extra_samples = {}
+            if logits is not None:
+                for i, (sid, sp) in enumerate(zip(seq_order, sp_list)):
+                    if sp.best_of > 1 and completes[i]:
+                        self.last_extra_samples[sid] = self._extra_samples(logits[i], sp)
+            out = toks.cpu().numpy()
+        return [(sid, int(out[i])) for i, sid in enumerate(seq_order)]
 
     def _extra_samples(self, logits_row, sp) -> List[int]:
         """best_of - 1 more first tokens of a completed prompt, host-sampled
@@ -143,6 +165,35 @@ class ModelRunner:
         return sample_host(
             logits_row.float().cpu().numpy(), sp, self._host_rng, sp.best_of - 1
         )
+
+    def _pack_prefill(self, metadata: List[SequenceGroupMetadata]):
+        """(seq ids, their sampling params, whether this step completes each
+        prompt, device (tok, pos, seg, pages, slots, last_idx), padded batch
+        B) of a batch of whole prompts or a long prompt's first chunk."""
+        prompts: List[List[int]] = []
+        tables: List[List[int]] = []
+        seq_order: List[int] = []
+        sp_list = []
+        completes: List[bool] = []  # this step finishes the prompt
+        for md in metadata:
+            for seq_id, data in md.seq_data.items():
+                ids = data.get_token_ids()
+                if md.chunk is not None:  # first chunk of a long prompt
+                    ids = ids[md.chunk[0] : md.chunk[1]]
+                completes.append(md.chunk is None or md.chunk[1] >= data.get_len())
+                prompts.append(ids)
+                tables.append(md.block_tables[seq_id])
+                seq_order.append(seq_id)
+                sp_list.append(md.sampling_params)
+
+        total = sum(len(p) for p in prompts)
+        T = bucket(total, 16, self.max_num_batched_tokens * 2)
+        B = bucket(len(seq_order), 1, self.max_num_seqs)
+        tok, pos, sg, pg, sl, _, li, _ = native.pack_prefill(
+            prompts, tables, self.block_size, T, B
+        )
+        packed = tuple(map(self._dev, (tok, pos, sg, pg, sl, li)))
+        return seq_order, sp_list, completes, packed, B
 
     def _pack_chunk(self, md: SequenceGroupMetadata):
         """Device inputs of one chunk [start, end) of one prompt:
@@ -174,58 +225,30 @@ class ModelRunner:
             assert len(metadata) == 1
             return self._execute_prefill_chunk(metadata[0], cache_engine)
 
-        prompts: List[List[int]] = []
-        tables: List[List[int]] = []
-        seq_order: List[int] = []
-        sp_list = []
-        completes: List[bool] = []  # this step finishes the prompt
-        for md in metadata:
-            for seq_id, data in md.seq_data.items():
-                ids = data.get_token_ids()
-                if md.chunk is not None:  # first chunk of a long prompt
-                    ids = ids[md.chunk[0] : md.chunk[1]]
-                completes.append(md.chunk is None or md.chunk[1] >= data.get_len())
-                prompts.append(ids)
-                tables.append(md.block_tables[seq_id])
-                seq_order.append(seq_id)
-                sp_list.append(md.sampling_params)
-
-        total = sum(len(p) for p in prompts)
-        T = bucket(total, 16, self.max_num_batched_tokens * 2)
-        B = bucket(len(seq_order), 1, self.max_num_seqs)
-        tok, pos, sg, pg, sl, _, li, _ = native.pack_prefill(
-            prompts, tables, self.block_size, T, B
-        )
-        logits, cache_engine.cache = llama.prefill(
-            self.params, cache_engine.cache,
-            *map(self._dev, (tok, pos, sg, pg, sl, li)),
-            self.model_args,
-        )
+        with tracing.span("runner.pack"):
+            seq_order, sp_list, completes, packed, B = self._pack_prefill(metadata)
+        with tracing.span("runner.forward"):
+            logits, cache_engine.cache = llama.prefill(
+                self.params, cache_engine.cache, *packed, self.model_args,
+            )
         toks = self._sample(logits, sp_list, B)
-
-        self.last_extra_samples = {}
-        for i, (sid, sp) in enumerate(zip(seq_order, sp_list)):
-            if sp.best_of > 1 and completes[i]:
-                self.last_extra_samples[sid] = self._extra_samples(logits[i], sp)
-        out = toks.cpu().numpy()
-        return [(sid, int(out[i])) for i, sid in enumerate(seq_order)]
+        return self._read_back(toks, seq_order, logits, sp_list, completes)
 
     # ------------------------------------------------------------------
     def _execute_prefill_chunk(
         self, md: SequenceGroupMetadata, cache_engine
     ) -> List[Tuple[int, int]]:
         """One chunk of one prompt whose prefix KV is already cached."""
-        seq_id, start, end, prompt_len, packed, bt = self._pack_chunk(md)
-        logits, cache_engine.cache = llama.prefill_chunk(
-            self.params, cache_engine.cache, *packed, bt, start, self.model_args
-        )
+        with tracing.span("runner.pack"):
+            seq_id, start, end, prompt_len, packed, bt = self._pack_chunk(md)
+        with tracing.span("runner.forward"):
+            logits, cache_engine.cache = llama.prefill_chunk(
+                self.params, cache_engine.cache, *packed, bt, start, self.model_args
+            )
         sp = md.sampling_params
         toks = self._sample(logits, [sp], 1)
-        self.last_extra_samples = {}
-        if sp.best_of > 1 and end == prompt_len:
-            # final chunk of an n>1 prompt: host-sample the extra candidates
-            self.last_extra_samples[seq_id] = self._extra_samples(logits[0], sp)
-        return [(seq_id, int(toks.cpu().numpy()[0]))]
+        # the final chunk of an n>1 prompt host-samples the extra candidates
+        return self._read_back(toks, [seq_id], logits, [sp], [end == prompt_len])
 
     # ------------------------------------------------------------------
     def execute_chunk_with_decode(
@@ -237,19 +260,17 @@ class ModelRunner:
         """Mixed step: one prefill chunk + the running decode batch in a
         single [T+B] forward, so running sequences keep generating while a
         long prompt admits."""
-        seq_id, start, _, _, packed, bt = self._pack_chunk(chunk_md)
-        d_order, d_sps, d_packed, B = self._pack_decode(decode_mds)
-        logits, cache_engine.cache = llama.prefill_chunk_with_decode(
-            self.params, cache_engine.cache, *packed, bt, start, *d_packed,
-            self.model_args,
-        )
+        with tracing.span("runner.pack"):
+            seq_id, start, _, _, packed, bt = self._pack_chunk(chunk_md)
+            d_order, d_sps, d_packed, B = self._pack_decode(decode_mds)
+        with tracing.span("runner.forward"):
+            logits, cache_engine.cache = llama.prefill_chunk_with_decode(
+                self.params, cache_engine.cache, *packed, bt, start, *d_packed,
+                self.model_args,
+            )
         toks = self._sample(logits, [chunk_md.sampling_params] + d_sps, 1 + B)
-        self.last_extra_samples = {}
         self._prev_order = None  # the decode rows advanced outside execute_decode
-        out = toks.cpu().numpy()
-        return [(seq_id, int(out[0]))] + [
-            (sid, int(out[1 + i])) for i, sid in enumerate(d_order)
-        ]
+        return self._read_back(toks, [seq_id] + d_order)
 
     # ------------------------------------------------------------------
     def _pack_decode(self, metadata: List[SequenceGroupMetadata]):
@@ -280,19 +301,20 @@ class ModelRunner:
         metadata: List[SequenceGroupMetadata],
         cache_engine,
     ) -> List[Tuple[int, int]]:
-        seq_order, sp_list, packed, B = self._pack_decode(metadata)
-        order = tuple(seq_order)
-        if (self.benchmarking and self._prev_order == order
-                and self._prev_toks is not None and self._prev_toks.shape[0] == B):
-            packed = (self._prev_toks,) + packed[1:]
-        logits, cache_engine.cache = llama.decode(
-            self.params, cache_engine.cache, *packed, self.model_args
-        )
+        with tracing.span("runner.pack"):
+            seq_order, sp_list, packed, B = self._pack_decode(metadata)
+            order = tuple(seq_order)
+            if (self.benchmarking and self._prev_order == order
+                    and self._prev_toks is not None and self._prev_toks.shape[0] == B):
+                packed = (self._prev_toks,) + packed[1:]
+        with tracing.span("runner.forward"):
+            logits, cache_engine.cache = llama.decode(
+                self.params, cache_engine.cache, *packed, self.model_args
+            )
         toks = self._sample(logits, sp_list, B)
-        self.last_extra_samples = {}
         if self.benchmarking:
+            self.last_extra_samples = {}
             self._prev_order, self._prev_toks = order, toks
             # placeholder ids: benchmark mode never reads the values back
             return [(sid, 0) for sid in seq_order]
-        out = toks.cpu().numpy()
-        return [(sid, int(out[i])) for i, sid in enumerate(seq_order)]
+        return self._read_back(toks, seq_order)

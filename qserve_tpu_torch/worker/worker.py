@@ -8,6 +8,7 @@ from qserve_tpu_torch.config import CacheConfig, SchedulerConfig
 from qserve_tpu_torch.core.scheduler import SchedulerOutputs
 from qserve_tpu_torch.models import llama
 from qserve_tpu_torch.sequence import SequenceGroupMetadata
+from qserve_tpu_torch.utils import tracing
 from qserve_tpu_torch.worker.cache_engine import CacheEngine
 from qserve_tpu_torch.worker.model_runner import ModelRunner
 
@@ -131,9 +132,12 @@ class Worker:
         scheduler_outputs: SchedulerOutputs,
     ) -> List[Tuple[int, int]]:
         # cache maintenance first (CoW copies, swaps), then the model step
-        self.cache_engine.swap_out(scheduler_outputs.blocks_to_swap_out)
-        self.cache_engine.swap_in(scheduler_outputs.blocks_to_swap_in)
-        self.cache_engine.copy(scheduler_outputs.blocks_to_copy)
+        out = scheduler_outputs
+        if out.blocks_to_swap_out or out.blocks_to_swap_in or out.blocks_to_copy:
+            with tracing.span("worker.cache_ops"):
+                self.cache_engine.swap_out(out.blocks_to_swap_out)
+                self.cache_engine.swap_in(out.blocks_to_swap_in)
+                self.cache_engine.copy(out.blocks_to_copy)
         if not seq_group_metadata_list:
             return []
         if scheduler_outputs.prompt_run:

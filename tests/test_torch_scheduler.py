@@ -67,3 +67,40 @@ def test_same_decisions_on_scripted_trace(chunked, pages):
     got = _trace(tconfig, tsched, tsp, tseq, chunked, pages)
     assert len(want) > 10
     assert got == want
+
+
+def test_admission_counts_a_deferred_prompt_that_holds_pages():
+    """A prompt allocated and then deferred past the step's token budget
+    holds pages: it counts against max_num_seqs at the next step, so a
+    third prompt waits (the JAX package admits it and runs three)."""
+    sc = tconfig.SchedulerConfig(max_num_batched_tokens=64, max_num_seqs=2, max_model_len=256)
+    cc = tconfig.CacheConfig(block_size=BS, num_device_pages=64,
+                             quant=tconfig.QuantSpec.from_precision("w4a8kv4"))
+    s = tsched.Scheduler(sc, cc)
+    seqs = []
+    for i, n in enumerate((64, 10, 10)):
+        seq = tseq.Sequence(i, "p", list(range(1, n + 1)), BS)
+        seqs.append(seq)
+        s.add_seq_group(tseq.SequenceGroup(f"r{i}", [seq], tsp.SamplingParams(max_tokens=4)))
+    admitted = []
+    for _ in range(20):
+        md, out = s.schedule()
+        assert len(s.running) <= 2
+        assert sum(len(m.seq_data) for m in md) <= 2
+        if out.prompt_run:
+            admitted.append(sorted(m.request_id for m in md))
+        for m in md:
+            for sid in m.seq_data:
+                seq = seqs[sid]
+                if seq.status != tseq.SequenceStatus.RUNNING:
+                    continue
+                seq.append_token_id(7)
+                if seq.get_output_len() >= 4:
+                    seq.status = tseq.SequenceStatus.FINISHED_LENGTH_CAPPED
+                    s.free_seq(seq)
+        s.free_finished_seq_groups()
+        if not s.has_unfinished_seqs():
+            break
+    assert not s.has_unfinished_seqs()
+    assert admitted[:2] == [["r0"], ["r1"]] and ["r2"] in admitted
+    assert s.counters.admitted == 3
