@@ -38,8 +38,8 @@ def readings(cell, seed, requests, device) -> dict:
     if not picked:
         return out
     t = time.perf_counter()
-    gaps = check.token_gaps(cell.config, seed, picked, device, int(spec["scored_tokens"]),
-                            control=True)
+    gaps = check.token_gaps(cell.family, cell.config, seed, picked, device,
+                            int(spec["scored_tokens"]), control=True)
     out.update(tokens=int(gaps["program"].numel()), check_s=time.perf_counter() - t,
                served=[len(r.tokens) for r in picked])
     for side, g in gaps.items():

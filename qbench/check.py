@@ -1,6 +1,7 @@
 """Whether what the timed path served is correct: the reference's logits at
 the served positions of a sample of finished requests.
 
+The reference is the configuration's model family's (qbench/families/).
 The sample is drawn from the seed among the greedy requests that finished
 in the window (and the traced stretch after it): the one with the most
 served tokens, then one from each of `check.requests - 1` equal spans of
@@ -26,7 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from qbench.reference.model import Reference, Served, served_gaps
+from qbench.reference.served import Served, served_gaps
 from qbench.weights import WeightMaker, derive_seed
 
 CONTROL_ACT_BITS = 4
@@ -53,18 +54,18 @@ def served_of(r, scored: int) -> Served:
                   scored=min(scored, len(r.tokens)))
 
 
-def token_gaps(cfg: dict, seed: int, picked, device, scored: int,
+def token_gaps(family, cfg: dict, seed: int, picked, device, scored: int,
                control: bool = False) -> Dict[str, torch.Tensor]:
     """The reference's gaps at the judged positions of the picked requests:
     of the served tokens ("program") and, with `control`, of the control's
     first choices ("control")."""
-    maker = WeightMaker(seed, cfg, device)
+    maker = WeightMaker(seed, cfg, device, family.sizes(cfg))
     seqs = [served_of(r, scored) for r in picked]
-    ref = Reference(maker).served_logits(seqs)
+    ref = family.Reference(maker).served_logits(seqs)
     out = {"program": torch.cat([served_gaps(lg, s.tokens[-s.scored:])
                                  for lg, s in zip(ref, seqs)])}
     if control:
-        ctl = Reference(maker, act_bits=CONTROL_ACT_BITS).served_logits(seqs)
+        ctl = family.Reference(maker, act_bits=CONTROL_ACT_BITS).served_logits(seqs)
         out["control"] = torch.cat([served_gaps(lg, c.argmax(dim=-1))
                                     for lg, c in zip(ref, ctl)])
     return out
@@ -85,6 +86,6 @@ def judge(cell, gaps: Optional[torch.Tensor], n_requests: int) -> Tuple[bool, di
 def check(cell, seed: int, requests, device) -> Tuple[bool, dict]:
     spec = cell.traffic["check"]
     picked = sample(requests, seed, int(spec["requests"]))
-    gaps = (token_gaps(cell.config, seed, picked, device, int(spec["scored_tokens"]))["program"]
-            if picked else None)
+    gaps = (token_gaps(cell.family, cell.config, seed, picked, device,
+                       int(spec["scored_tokens"]))["program"] if picked else None)
     return judge(cell, gaps, len(picked))

@@ -4,8 +4,9 @@
 The engine is the program's normal serving path: the scheduler's defaults
 (chunked prefill, mixed chunk + decode steps), the device feed off, so
 every step samples real ids and reads them back. Its weights are the
-benchmark's own (qbench/weights.py), handed over as a float checkpoint is:
-`quantize_params`, then `Worker.create(params=...)`.
+benchmark's own (qbench/weights.py), laid out by the configuration's model
+family (qbench/families/) and handed over as a float checkpoint is: the
+family's `quantize_params`, then `Worker.create(params=...)`.
 
 Besides the tokens, the harness reads only what the engine shows its
 callers: each step's outputs, `last_step_kind`, `stats()` and the kernel
@@ -68,40 +69,29 @@ class Step:
     pages_used: int  # KV pages held once the step returned
 
 
-def model_args(cfg: dict):
-    """The program's LlamaArgs of a configuration file."""
-    from qserve_tpu_torch.config import QuantSpec
-    from qserve_tpu_torch.models import llama, mixtral
-
-    s = cfg["serving"]
-    quant = QuantSpec.from_precision(s["precision"], s["group_size"], s["kv_zero_point"],
-                                     lm_head_bits=s["lm_head_bits"])
-    if cfg.get("num_local_experts"):
-        return mixtral.args_from_config_dict(cfg, quant)
-    return llama.LlamaArgs.from_config_dict(cfg, quant)
-
-
-def build_engine(cfg: dict, seed: int, device, args=None, num_pages: Optional[int] = None):
-    """The engine of a configuration, its weights made from `seed` on
-    `device` and quantized there; the KV cache takes the configuration's
-    share of the memory the weights leave (or `num_pages`)."""
+def build_engine(family, cfg: dict, seed: int, device, args=None,
+                 num_pages: Optional[int] = None):
+    """The engine of a configuration, served as its model family's program
+    says, its weights made from `seed` on `device` and quantized there; the
+    KV cache takes the configuration's share of the memory the weights
+    leave (or `num_pages`). `args` replaces the program's (small CPU tests
+    change its MoE routing)."""
     from qserve_tpu_torch.config import CacheConfig, SchedulerConfig
     from qserve_tpu_torch.engine.arg_utils import auto_num_pages
     from qserve_tpu_torch.engine.llm_engine import LLMEngine
-    from qserve_tpu_torch.models import llama, mixtral
     from qserve_tpu_torch.worker.worker import Worker
 
     s = cfg["serving"]
-    args = args or model_args(cfg)
-    maker = WeightMaker(seed, cfg, device)
-    quantize = (mixtral if args.num_experts else llama).quantize_params
-    params = quantize(maker.float_params(), args, device=device)
+    prog = family.program(cfg)
+    args = args or prog.args
+    maker = WeightMaker(seed, cfg, device, family.sizes(cfg))
+    params = prog.quantize(family.float_params(maker), args, device=device)
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()  # the float tensors' blocks go back to the card
     cache_config = CacheConfig(block_size=s["page_size"], quant=args.quant,
                                gpu_memory_utilization=s["kv_cache_memory_fraction"],
-                               sliding_window=args.sliding_window)
+                               **prog.cache)
     sched = SchedulerConfig(max_num_batched_tokens=s["max_num_batched_tokens"],
                             max_num_seqs=s["max_num_seqs"], max_model_len=s["max_model_len"])
     cache_config.num_device_pages = num_pages or auto_num_pages(

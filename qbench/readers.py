@@ -11,7 +11,7 @@ from typing import Optional
 
 import numpy as np
 
-from qbench.roofline import gemm, model, paged_attention, peaks
+from qbench.roofline import gemm, paged_attention, peaks
 
 
 def p95(values) -> Optional[float]:
@@ -44,28 +44,29 @@ def launches_per_decode_step(run):
     return sum(n) / len(n) if n else None
 
 
-def _roofline(family):
-    """100 x the least time of the traced steps' launches of a kernel family
-    over those kernels' device time in the trace."""
+def _roofline(kernels, step_bound_s):
+    """100 x the least time of the traced steps' launches of some kernels
+    (their names), by the model family's count (step_bound_s(family)), over
+    those kernels' device time in the trace."""
     def read(run):
         if run.trace is None:
             return None
-        dev_s = run.trace.device_s(family.KERNELS)
-        bound = sum(family.step_bound_s(s, run.sizes) for s in run.traced)
+        dev_s = run.trace.device_s(kernels)
+        bound = sum(step_bound_s(run.family)(s, run.sizes) for s in run.traced)
         return 100.0 * bound / dev_s if dev_s > 0 and bound > 0 else None
     return read
 
 
-paged_attn_roofline = _roofline(paged_attention)
-gemm_roofline = _roofline(gemm)
+paged_attn_roofline = _roofline(paged_attention.KERNELS, lambda f: f.paged_attn_bound_s)
+gemm_roofline = _roofline(gemm.KERNELS, lambda f: f.gemm_bound_s)
 
 
 def mfu(run):
-    """100 x the model's ops in the traced stretch over its length at the
-    int8 peak."""
+    """100 x the model's ops in the traced stretch (its family's count) over
+    its length at the int8 peak."""
     if run.trace is None or run.trace.window_s <= 0:
         return None
-    ops = sum(model.step_ops(s, run.sizes) for s in run.traced)
+    ops = sum(run.family.step_ops(s, run.sizes) for s in run.traced)
     return 100.0 * ops / (run.trace.window_s * peaks.INT8_OPS) if ops > 0 else None
 
 

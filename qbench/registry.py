@@ -1,10 +1,12 @@
 """Finds every piece of a cell by its name in BENCHMARK.json.
 
-A configuration is the file its `configs` entry names; a traffic mix is
-qbench/traffic/<traffic>.json; a cell's output limits are
+A configuration is the file its `configs` entry names, and its model
+family qbench/families/<model_type>.py, by the file's `model_type`; a
+traffic mix is qbench/traffic/<traffic>.json; a cell's output limits are
 qbench/limits/<cell>.json; an end-to-end metric is qbench/e2e/<name>.py and
 a per-layer metric qbench/metrics/<name>.py. Adding a cell, a
-configuration, a mix or a metric adds files and entries and edits none.
+configuration, a model family, a mix or a metric adds files and entries
+and edits none.
 """
 
 from __future__ import annotations
@@ -35,17 +37,24 @@ def load_module(kind: str, name: str, root: str = ROOT):
     return mod
 
 
+def family_of(cfg: dict, root: str = ROOT):
+    """The model family of a configuration (qbench/families/__init__.py)."""
+    return load_module("families", cfg["model_type"], root)
+
+
 @dataclasses.dataclass
 class Cell:
     name: str
     config_name: str
     config: dict
+    family: object  # the configuration's model family module
     traffic_name: str
     traffic: dict
     chips: int
     limits: dict
     end_to_end: List[dict]  # the BENCHMARK.json entries this cell reports
     per_layer: List[dict]
+    root: str  # the checkout its files were found in
 
 
 def load_config(name: str, root: str = ROOT) -> dict:
@@ -71,17 +80,20 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     if name not in cells:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json ({sorted(cells)})")
     w = cells[name]
+    config = load_config(w["config"], root)
     e2e = [m for m in bench["end_to_end"] if _applies(m, name, set())]
     reported = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"] if _applies(m, name, reported)]
     return Cell(
         name=name,
         config_name=w["config"],
-        config=load_config(w["config"], root),
+        config=config,
+        family=family_of(config, root),
         traffic_name=w["traffic"],
         traffic=load_traffic(w["traffic"], root),
         chips=int(w["chips"]),
         limits=load_json(os.path.join(root, "qbench", "limits", name + ".json")),
         end_to_end=e2e,
         per_layer=per_layer,
+        root=root,
     )

@@ -36,21 +36,14 @@ def expected_experts(t: int, n_exp: int, top_k: int) -> float:
     return n_exp * (1.0 - ((n_exp - top_k) / n_exp) ** t)
 
 
-def step_bound_s(step, sz) -> float:
-    """The least time of one step's W4A8 GEMM launches, all layers."""
-    t = live_tokens(step)
-    if t == 0:
-        return 0.0
-    shapes = sz.linear_shapes()
-    per_layer = sum(bound_s(w4a8_bytes(t, *shapes[n]), w4a8_ops(t, *shapes[n]))
-                    for n in ("qkv", "o"))
-    if sz.experts:
-        rows = sz.top_k * t
-        used = expected_experts(t, sz.experts, sz.top_k)
-        for n in ("gate_up", "down"):
-            per_layer += bound_s(w4a8_bytes(rows, *shapes[n], weights=used),
-                                 w4a8_ops(rows, *shapes[n]))
-    else:
-        per_layer += sum(bound_s(w4a8_bytes(t, *shapes[n]), w4a8_ops(t, *shapes[n]))
-                         for n in ("gate_up", "down"))
-    return sz.layers * per_layer
+def dense_bound_s(t: int, shape) -> float:
+    """The least time of one launch over t live rows of a [K, N] weight."""
+    return bound_s(w4a8_bytes(t, *shape), w4a8_ops(t, *shape))
+
+
+def routed_bound_s(t: int, n_exp: int, top_k: int, shape) -> float:
+    """The least time of one routed launch over t tokens' top-k rows, the
+    weights of the experts they are expected to choose read once each."""
+    rows = top_k * t
+    used = expected_experts(t, n_exp, top_k)
+    return bound_s(w4a8_bytes(rows, *shape, weights=used), w4a8_ops(rows, *shape))

@@ -26,6 +26,7 @@ def row_bytes(ctx: int, sz) -> float:
     return codes + scales + cur + q_o + table
 
 
-def step_bound_s(step, sz) -> float:
-    """The least time of one step's K4 launches, all layers."""
-    return sz.layers * sum(row_bytes(c, sz) for c in step.decode_ctx) / HBM_BPS
+def bound_s(ctxs, sz, layers: int) -> float:
+    """The least time of `layers` layers' K4 launches over decode rows of
+    these contexts."""
+    return layers * sum(row_bytes(c, sz) for c in ctxs) / HBM_BPS

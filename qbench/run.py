@@ -50,7 +50,8 @@ GRACE_S = 60.0  # how long requests due in the window are followed past it
 class RunView:
     """What the metric files read."""
 
-    sizes: object
+    sizes: object  # the family's Sizes of the configuration
+    family: object  # the configuration's model family (qbench/families/)
     kv_pages: int  # the KV cache's pages
     t0: float
     t1: float
@@ -75,10 +76,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, start: float,
 
     from qbench import check, harness, tracing
     from qbench.traffic import Traffic
-    from qbench.weights import Sizes
 
-    sizes = Sizes(cell.config)
-    engine = harness.build_engine(cell.config, seed, device, args=args, num_pages=num_pages)
+    sizes = cell.family.sizes(cell.config)
+    engine = harness.build_engine(cell.family, cell.config, seed, device, args=args,
+                                  num_pages=num_pages)
     traffic = Traffic(cell.traffic, seed, sizes.vocab, cell.config["special_token_ids"],
                       epoch_s=seconds)
     drv = harness.Feeder(engine, traffic, clock=clock)
@@ -109,13 +110,13 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, start: float,
             while_=lambda: any(r.first is None and r.done is None for r in waiting))
     peak = harness.memory_peak(device)
 
-    view = RunView(sizes=sizes, kv_pages=drv.kv_pages, t0=t0, t1=t1, setup_s=t0 - start,
-                   window=drv.steps[n0:n1], traced=drv.steps[n1:n2], trace=summary, due=due,
-                   finished=harness.finished_in(drv, t0, t1))
+    view = RunView(sizes=sizes, family=cell.family, kv_pages=drv.kv_pages, t0=t0, t1=t1,
+                   setup_s=t0 - start, window=drv.steps[n0:n1], traced=drv.steps[n1:n2],
+                   trace=summary, due=due, finished=harness.finished_in(drv, t0, t1))
     entries = cell.per_layer if trace else cell.end_to_end
     metrics = {}
     for m in entries:
-        v = registry.load_module("metrics" if trace else "e2e", m["name"]).read(view)
+        v = registry.load_module("metrics" if trace else "e2e", m["name"], cell.root).read(view)
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     attempted = len(due)

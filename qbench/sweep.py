@@ -33,14 +33,13 @@ import torch  # noqa: E402
 
 from qbench import harness, registry  # noqa: E402
 from qbench.traffic import Traffic  # noqa: E402
-from qbench.weights import Sizes  # noqa: E402
 
 
-def one_rate(engine, cfg, traffic, rate, seconds, seed) -> dict:
+def one_rate(engine, family, cfg, traffic, rate, seconds, seed) -> dict:
     tr = copy.deepcopy(traffic)
     tr["rate_per_s"] = rate
-    drv = harness.Feeder(engine, Traffic(tr, seed, Sizes(cfg).vocab, cfg["special_token_ids"],
-                                         epoch_s=seconds))
+    drv = harness.Feeder(engine, Traffic(tr, seed, family.sizes(cfg).vocab,
+                                         cfg["special_token_ids"], epoch_s=seconds))
     peak = {"running": 0, "waiting": 0}
     orig_step = drv.step
 
@@ -97,14 +96,15 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=1)
     a = ap.parse_args(argv)
     cfg, traffic = registry.load_config(a.config), registry.load_traffic(a.traffic)
-    engine = harness.build_engine(cfg, a.seed, "cuda")
+    family = registry.family_of(cfg)
+    engine = harness.build_engine(family, cfg, a.seed, "cuda")
     for rate in a.rates:
-        line = one_rate(engine, cfg, traffic, rate, a.seconds, a.seed)
+        line = one_rate(engine, family, cfg, traffic, rate, a.seconds, a.seed)
         line["card"] = torch.cuda.get_device_name(0)
         print(json.dumps(line), flush=True)
         if "error" in line:
             harness.free_engine(engine)
-            engine = harness.build_engine(cfg, a.seed, "cuda")
+            engine = harness.build_engine(family, cfg, a.seed, "cuda")
     return 0
 
 

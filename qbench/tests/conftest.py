@@ -2,7 +2,6 @@
 plain paths at tiny widths; those marked `card` need a CUDA device and skip
 without one (decided in the `card` fixture, not at import)."""
 
-import copy
 import os
 import sys
 
@@ -39,7 +38,7 @@ def tiny_cell(moe=False, traffic="decode-batch", limits=(1.0, 1.0)):
     own."""
     from qbench import registry
 
-    cell = copy.deepcopy(registry.load_cell(REAL[(moe, traffic)]))
+    cell = registry.load_cell(REAL[(moe, traffic)])  # read anew: its dicts are its own
     if cell.traffic_name != traffic:
         # the chat mix has no cell while the scheduler's max_num_seqs fault
         # stands (PERF.md): its files wait, run here with its latency metrics

@@ -19,8 +19,9 @@ def _req(i, due, first, last, n_out, max_tokens=None, done=True):
 
 
 def _view(reqs, steps=(), t0=0.0, t1=10.0):
-    return RunView(sizes=None, kv_pages=200, t0=t0, t1=t1, setup_s=3.5, window=list(steps), traced=[],
-                   trace=None, due=reqs, finished=[r for r in reqs if r.done is not None])
+    return RunView(sizes=None, family=None, kv_pages=200, t0=t0, t1=t1, setup_s=3.5,
+                   window=list(steps), traced=[], trace=None, due=reqs,
+                   finished=[r for r in reqs if r.done is not None])
 
 
 def _e2e(name):

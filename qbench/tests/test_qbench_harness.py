@@ -34,13 +34,12 @@ def test_dense_decode_batch_is_correct(seed):
 
 
 def test_moe_masked_and_routed_are_correct():
-    from qbench import harness
     import dataclasses
 
     cell = tiny_cell(True, "decode-batch", TINY_LIMITS)
     assert _run(cell, 3)["correct"]
     # streams of 32 rows or more take the routed GEMMs in 16-row blocks
-    routed = dataclasses.replace(harness.model_args(cell.config), moe_route_min_tokens=32,
+    routed = dataclasses.replace(cell.family.program(cell.config).args, moe_route_min_tokens=32,
                                  moe_route_block=16)
     out = _run(cell, 3, args=routed)
     assert out["correct"], out["checks"]
@@ -101,7 +100,7 @@ def test_sweep_reads_one_rate():
     from qbench import harness, sweep
 
     cell = tiny_cell(False, "chat-bursty")
-    engine = harness.build_engine(cell.config, 1, "cpu", num_pages=128)
-    line = sweep.one_rate(engine, cell.config, cell.traffic, 4.0, 1.5, 1)
+    engine = harness.build_engine(cell.family, cell.config, 1, "cpu", num_pages=128)
+    line = sweep.one_rate(engine, cell.family, cell.config, cell.traffic, 4.0, 1.5, 1)
     assert "error" not in line, line
     assert line["due"] > 0 and line["ttft_p95_ms"] > 0 and line["max_running"] >= 1

@@ -63,7 +63,8 @@ def test_a_run_loads_no_jax():
         "import sys\n"
         f"sys.path.insert(0, {registry.ROOT!r})\n"
         "from qbench import run, harness, check, tracing, calibrate\n"
-        "from qbench.reference import model\n"
+        "from qbench.reference import mistral, mixtral, served\n"
+        "from qbench.families import mistral, mixtral\n"
         "import qserve_tpu_torch\n"
         "from qserve_tpu_torch.engine import llm_engine, arg_utils\n"
         "from qserve_tpu_torch.models import llama, mixtral\n"

@@ -16,7 +16,7 @@ from qbench.tests.conftest import tiny_cell
 SPAN_METRICS = {"schedule_ms.batch": "engine.schedule", "runner_pack_ms.batch": "runner.pack",
                 "forward_issue_ms.batch": "runner.forward",
                 "readback_wait_ms.batch": "runner.readback",
-                "engine_post_ms.batch": "engine.post", "moe_issue_ms.batch": "model.moe"}
+                "engine_post_ms.batch": "engine.post"}
 BENCH = registry.load_json(os.path.join(registry.ROOT, "BENCHMARK.json"))
 
 
@@ -42,7 +42,7 @@ def test_span_metrics_and_their_coverage(moe, monkeypatch):
     cell = "mixtral-8x7b.decode-batch" if moe else "mistral-7b.decode-batch"
     listed = {m["name"] for m in BENCH["per_layer"] if m["name"] in SPAN_METRICS
               and cell in m["workloads"]}
-    assert listed == set(SPAN_METRICS) - (set() if moe else {"moe_issue_ms.batch"})
+    assert listed == set(SPAN_METRICS)
     for name in listed:
         assert out["metrics"][name]["unit"] == "ms" and out["metrics"][name]["value"] > 0
     assert sum(1 for s in view.traced if s.kind == "decode") > 0
@@ -73,7 +73,8 @@ def test_span_readers_read_nothing_without_spans(monkeypatch):
     gives no value and raises nothing."""
     from qbench.harness import Step
 
-    view = qrun.RunView(sizes=None, kv_pages=1, t0=0.0, t1=1.0, setup_s=0.0, window=[],
+    view = qrun.RunView(sizes=None, family=None, kv_pages=1, t0=0.0, t1=1.0, setup_s=0.0,
+                        window=[],
                         traced=[Step(0.0, 1.0, "decode", 0, [1], [], 1, 1, 1)],
                         trace=object(), due=[], finished=[])
     monkeypatch.setattr(spans, "program_spans", lambda: [])
