@@ -5,7 +5,7 @@ the JAX package's, so both engines read the same configuration."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 # Precision strings accepted by the CLI (reference: engine/arg_utils.py:404-413).
 _PRECISIONS = (
@@ -122,6 +122,9 @@ class CacheConfig:
     # Mistral-style sliding window (tokens): the block manager reuses pages
     # cyclically past it and the attention kernels mask to it; None = full
     sliding_window: Optional[int] = None
+    # each layer's window (None: all keys), where the model gives them: the
+    # scheduler counts the page slots held wholly below a layer's window
+    layer_windows: Tuple[Optional[int], ...] = ()
     quant: QuantSpec = dataclasses.field(
         default_factory=lambda: QuantSpec.from_precision("w4a8kv4")
     )

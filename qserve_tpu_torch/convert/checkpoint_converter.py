@@ -98,8 +98,10 @@ def _config_meta(args: llama.LlamaArgs) -> dict:
     """The JAX package's JSON: its LlamaArgs fields (scan_layers, tp_size
     and tp_axis at their single-device values), the QuantSpec and the
     layout marker."""
+    if args.layer_attn:
+        raise ValueError("the packed format holds one window and RoPE for every layer")
     meta = {f.name: getattr(args, f.name) for f in dataclasses.fields(args)
-            if f.name not in ("quant", "logit_dtype")}
+            if f.name not in ("quant", "logit_dtype", "layer_attn")}
     meta.update(quant=dataclasses.asdict(args.quant), scan_layers=True,
                 tp_size=1, tp_axis="tp", pack_layout=PACK_LAYOUT_VERSION)
     return meta

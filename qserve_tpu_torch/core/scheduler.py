@@ -8,6 +8,7 @@ preempted groups — over integer page ids.
 
 from __future__ import annotations
 
+import collections
 import enum
 import time
 from collections import deque
@@ -103,6 +104,11 @@ class Scheduler:
 
         self.prefix_pool = PrefixPool(cache_config.block_size)
         self.counters = tracing.Counters()
+        # the model's layer count and its window layers ({window: layers}),
+        # where the cache config gives each layer's window
+        windows = tuple(getattr(cache_config, "layer_windows", ()))
+        self._num_layers = len(windows)
+        self._window_layers = collections.Counter(w for w in windows if w is not None)
 
     # ---- request lifecycle ----
     def add_seq_group(self, seq_group: SequenceGroup) -> None:
@@ -132,6 +138,8 @@ class Scheduler:
     # ---- the scheduling step ----
     def schedule(self) -> Tuple[List[SequenceGroupMetadata], SchedulerOutputs]:
         outputs = self._schedule()
+        if self._window_layers:
+            self._count_kv_slots()
         metadata: List[SequenceGroupMetadata] = []
         for group in outputs.scheduled_seq_groups:
             seq_data = {}
@@ -174,6 +182,28 @@ class Scheduler:
                 )
             )
         return metadata, outputs
+
+    def _count_kv_slots(self) -> None:
+        """Counts (utils/tracing.count) the page-layer slots the running
+        sequences hold, `kv_slots_held`, and of those the slots a window
+        layer holds wholly below its window, `kv_slots_outside_window`: keys
+        that no later query of that layer reads. A page reused cyclically
+        under the cache's window holds its newest logical page."""
+        bm, ps = self.block_manager, self.cache_config.block_size
+        cyclic = bm.sliding_window_pages
+        held = below = 0
+        for group in self.running:
+            for seq in group.get_seqs(SequenceStatus.RUNNING):
+                pages = len(bm.get_page_table(seq))
+                kept = min(pages, cyclic) if cyclic else pages
+                held += kept
+                # the next query sits at position len - 1 and reads the
+                # keys from len - window on
+                for window, layers in self._window_layers.items():
+                    dead = min(pages, (seq.get_len() - window) // ps) - (pages - kept)
+                    below += layers * max(0, dead)
+        tracing.count("kv_slots_held", held * self._num_layers)
+        tracing.count("kv_slots_outside_window", below)
 
     def _schedule(self) -> SchedulerOutputs:
         now = time.time()

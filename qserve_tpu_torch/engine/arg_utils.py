@@ -241,6 +241,7 @@ class EngineArgs:
             )
         if args.sliding_window is not None:
             cache_config.sliding_window = args.sliding_window
+        cache_config.layer_windows = args.layer_windows
         if cache_config.num_device_pages is None:
             cache_config.num_device_pages = auto_num_pages(
                 args, cache_config, self.gpu_memory_utilization, self.device
@@ -263,12 +264,13 @@ class EngineArgs:
 
     def _random_args(self, quant: QuantSpec):
         """LlamaArgs of the random-weight model of the config. An MoE config
-        builds MoE layers (the JAX package's single-device random-weight
-        path read it as a dense model of the same widths)."""
+        (Mixtral's, or model_type "mellum") builds MoE layers (the JAX
+        package's single-device random-weight path read it as a dense model
+        of the same widths)."""
         from qserve_tpu_torch.models import llama, mixtral
 
         cfg = self.model_config_dict()
-        if cfg.get("num_local_experts"):
+        if mixtral.is_moe_config(cfg):
             return mixtral.args_from_config_dict(cfg, quant)
         return llama.LlamaArgs.from_config_dict(cfg, quant)
 
@@ -323,9 +325,8 @@ class EngineArgs:
                 logger.warning("quant_path is ignored at tensor_parallel_size > 1: each "
                                "rank quantizes its shards of the float checkpoint")
             cfg = loader.load_hf_config_dict(self.model)
-            if set(cfg.get("architectures", [])) & loader.MIXTRAL_ARCHS:
-                args = mixtral.args_from_config_dict(cfg, quant)
-                fp = mixtral.load_float_params_from_hf(self.model, args)
+            if mixtral.is_moe_config(cfg):
+                args, fp = loader.load_moe_float_params(self.model, cfg, quant)
             else:
                 args = llama.LlamaArgs.from_config_dict(cfg, quant)
                 fp = loader.load_float_params_from_hf(self.model, args)
@@ -334,6 +335,7 @@ class EngineArgs:
             del fp
         if args.sliding_window is not None:
             cache_config.sliding_window = args.sliding_window
+        cache_config.layer_windows = args.layer_windows
         if cache_config.num_device_pages is None:
             cache_config.num_device_pages = auto_num_pages(
                 args, cache_config, self.gpu_memory_utilization, device)

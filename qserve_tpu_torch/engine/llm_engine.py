@@ -386,8 +386,10 @@ class LLMEngine:
 
     def stats(self) -> dict:
         """The engine's totals and queues, the scheduler's event counters
-        (utils/tracing.Counters) and the model runner's decode steps by how
-        their forward ran (utils/tracing.DecodeCounters)."""
+        (utils/tracing.Counters), the model runner's decode steps by how
+        their forward ran (utils/tracing.DecodeCounters) and the running
+        totals of the process's counters (utils/tracing.count: the MoE
+        rows, the KV slots held and those below a layer's window)."""
         return dict(
             generated_tokens=self._num_generated,
             prompt_tokens=self._num_prompt_tokens,
@@ -397,4 +399,5 @@ class LLMEngine:
             swapped=len(self.scheduler.swapped),
             **self.scheduler.counters.as_dict(),
             **self.worker.model_runner.decode_counts.as_dict(),
+            **tracing.totals(),
         )

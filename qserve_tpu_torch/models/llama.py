@@ -19,7 +19,11 @@ are built in models/mixtral.py).
   * an MoE layer (MoELayerParams) adds its attention output eagerly, routes
     each token to its top-k experts and runs them either as a masked loop
     over every expert (short streams: decode) or as grouped GEMMs over a
-    token stream sorted by expert (streams of moe_route_min_tokens or more).
+    token stream sorted by expert (streams of moe_route_min_tokens or more);
+  * each layer attends over its own window (or all keys) and rotates q and k
+    with its own RoPE (`LlamaArgs.attn_spec`): one spec for every layer of a
+    Llama, Mistral or Mixtral, a window layer's and a full layer's YaRN for
+    Mellum. Each RoPE's table is made once a step from the positions.
 
 bf16 rounding happens where the JAX package does it: the residual h, the
 qkv/o/down GEMM outputs and the K/V handed to the cache are bf16; logits are
@@ -41,6 +45,14 @@ from qserve_tpu_torch.layers import rope
 from qserve_tpu_torch.parallel import tp as tpmod
 from qserve_tpu_torch.utils import tracing
 from qserve_tpu_torch.utils.utils import resolve_device
+
+
+class AttnSpec(NamedTuple):
+    """How one layer attends: over the last `window` keys (None: all of
+    them), q and k rotated by `rope`."""
+
+    window: Optional[int]
+    rope: rope.RopeSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +84,24 @@ class LlamaArgs:
     # the heads, MLP channels and vocab columns (parallel/tp.py), and the
     # layer reduces o and down over the TP group
     tp_size: int = 1
+    # one AttnSpec a layer where the layers differ (Mellum); () = every layer
+    # attends over sliding_window with the plain RoPE of rope_theta
+    layer_attn: Tuple[AttnSpec, ...] = ()
+
+    def __post_init__(self) -> None:
+        if self.layer_attn and len(self.layer_attn) != self.num_layers:
+            raise ValueError(f"{len(self.layer_attn)} attention specs for "
+                             f"{self.num_layers} layers")
+
+    def attn_spec(self, li: int) -> AttnSpec:
+        """Layer li's window and RoPE."""
+        if self.layer_attn:
+            return self.layer_attn[li]
+        return AttnSpec(self.sliding_window, rope.RopeSpec(self.rope_theta))
+
+    @property
+    def layer_windows(self) -> Tuple[Optional[int], ...]:
+        return tuple(self.attn_spec(li).window for li in range(self.num_layers))
 
     @property
     def q_size(self) -> int:
@@ -130,9 +160,9 @@ class LlamaArgs:
         """From a dense model's Hugging Face config.json dict
         (models/loader.py's args_from_config_dict). An MoE config goes
         through models/mixtral.py's args_from_config_dict instead."""
-        if cfg.get("num_local_experts"):
+        if cfg.get("num_local_experts") or cfg.get("num_experts"):
             raise ValueError(
-                "an MoE config (num_local_experts): use "
+                "an MoE config (num_local_experts, num_experts): use "
                 "mixtral.args_from_config_dict"
             )
         head_dim = cfg.get("head_dim") or cfg["hidden_size"] // cfg["num_attention_heads"]
@@ -144,11 +174,42 @@ class LlamaArgs:
             num_heads=cfg["num_attention_heads"],
             num_kv_heads=cfg.get("num_key_value_heads", cfg["num_attention_heads"]),
             head_dim=head_dim,
-            rope_theta=cfg.get("rope_theta", 10000.0),
             rms_eps=cfg.get("rms_norm_eps", 1e-6),
-            sliding_window=cfg.get("sliding_window"),
             quant=quant,
+            **attn_fields(cfg, 10000.0),
         )
+
+
+LAYER_TYPES = ("sliding_attention", "full_attention")
+
+
+def attn_fields(cfg: dict, default_theta: float) -> dict:
+    """LlamaArgs's `rope_theta`, `sliding_window` and `layer_attn` of a
+    Hugging Face config: `layer_types` (a window layer or a full one, each),
+    `sliding_window` (and `use_sliding_window`), and the RoPE of
+    `rope_parameters` (one dict, or one a layer type) or of `rope_scaling`
+    with `rope_theta`. Where every layer attends alike with the plain RoPE,
+    `layer_attn` stays empty; where layers differ, `sliding_window` is the
+    window every layer shares (None where any layer attends over all keys,
+    so that the block manager keeps every page)."""
+    window = cfg.get("sliding_window") if cfg.get("use_sliding_window", True) else None
+    theta = float(cfg.get("rope_theta", default_theta))
+    params = cfg.get("rope_parameters", cfg.get("rope_scaling"))
+    per_type = isinstance(params, dict) and bool(set(params) & set(LAYER_TYPES))
+    types = cfg.get("layer_types") or [None] * cfg["num_hidden_layers"]
+    specs = []
+    for t in types:
+        if t not in (None,) + LAYER_TYPES:
+            raise NotImplementedError(f"layer type {t!r} is not implemented by the port")
+        if per_type and t not in params:
+            raise ValueError(f"rope_parameters gives no RoPE for layer type {t!r}")
+        specs.append(AttnSpec(None if t == "full_attention" else window,
+                              rope.spec_from_config(params[t] if per_type else params, theta)))
+    first = specs[0]
+    if all(s == first for s in specs) and first.rope.yarn is None and first.window == window:
+        return dict(rope_theta=first.rope.theta, sliding_window=window)
+    shared = window if all(s.window == window for s in specs) else None
+    return dict(rope_theta=first.rope.theta, sliding_window=shared, layer_attn=tuple(specs))
 
 
 class LlamaLayerParams(NamedTuple):
@@ -364,8 +425,7 @@ def _layer_forward(
     li: int,
     h: torch.Tensor,  # [T, E] bf16 residual stream EXCLUDING delta
     delta: torch.Tensor,  # [T, E] previous sub-block's un-added output
-    cos: torch.Tensor,
-    sin: torch.Tensor,
+    tables: dict,  # RopeSpec -> (cos, sin) [T, D/2] (_rope_tables)
     args: LlamaArgs,
     attend,  # fn(q [T,Hq,D], k, v, li) -> [T,Hq,D]
 ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
@@ -391,6 +451,7 @@ def _layer_forward(
         qkv = lin.apply_linear(qkv_p, ops.rmsnorm(h, layers.input_ln[li], eps), gs)
     q, k, v = qkv.split(
         [args.q_size_local, args.kv_size_local, args.kv_size_local], dim=-1)
+    cos, sin = tables[args.attn_spec(li).rope]
     q = rope.apply_rope(q.reshape(T, args.heads_local, args.head_dim), cos, sin)
     k = rope.apply_rope(k.reshape(T, args.kv_heads_local, args.head_dim), cos, sin)
     v = v.reshape(T, args.kv_heads_local, args.head_dim)
@@ -408,8 +469,7 @@ def _layer_forward(
         # a plain add and a plain RMSNorm, as the JAX package's MoE branch
         h = h + o.to(h.dtype)
         x = ops.rmsnorm(h, layers.post_ln[li], eps)
-        with tracing.span("model.moe"):
-            d = _moe_mlp(layers.router[li], gu_p, down_p, x, args, int8_act, gs)
+        d = _moe_mlp(layers.router[li], gu_p, down_p, x, args, int8_act, gs)
     elif int8_act:
         h, g8, gsc, gsum = ops.add_rmsnorm_quant(
             h, o, layers.post_ln[li], eps, lin.needs_act_sum(gu_p)
@@ -439,7 +499,21 @@ def _moe_mlp(
     the routed grouped GEMMs (_moe_routed_ffn); shorter ones run every
     expert over every token in expert order, a zero routing weight masking
     the tokens an expert does not serve (decode reads every expert's
-    weights either way)."""
+    weights either way).
+
+    Runs inside span `model.moe`, of kind `routed` or `masked`, and counts
+    (utils/tracing.count) the live (token, expert) rows, T k, as
+    `moe_live_rows` and the rows the expert GEMMs compute, T NE masked or
+    the routed stream's P, as `moe_expert_rows`."""
+    routed = (x.shape[0] >= args.moe_route_min_tokens and lin.supports_routed(gu_p)
+              and lin.supports_routed(down_p))
+    with tracing.span("model.moe") as sp:
+        if sp is not None:
+            sp.kind = "routed" if routed else "masked"
+        return _moe_dispatch(router, gu_p, down_p, x, args, int8_act, gs, routed)
+
+
+def _moe_dispatch(router, gu_p, down_p, x, args, int8_act, gs, routed):
     T = x.shape[0]
     n_exp = args.num_experts
     router_logits = ops.matmul(x, router.to(torch.bfloat16), torch.float32)
@@ -448,11 +522,12 @@ def _moe_mlp(
     # probabilities do not tie
     topv, topi = torch.topk(probs, args.moe_top_k, dim=-1)
     topv = topv / topv.sum(dim=-1, keepdim=True)  # [T, k]
+    tracing.count("moe_live_rows", T * args.moe_top_k)
 
-    if (T >= args.moe_route_min_tokens and lin.supports_routed(gu_p)
-            and lin.supports_routed(down_p)):
+    if routed:
         return _moe_routed_ffn(gu_p, down_p, x, topv, topi, args, int8_act, gs)
 
+    tracing.count("moe_expert_rows", T * n_exp)
     combine = torch.zeros((T, n_exp), dtype=torch.float32, device=x.device)
     combine.scatter_(1, topi, topv)  # each token's k weights, 0 elsewhere
     if int8_act:
@@ -493,6 +568,7 @@ def _moe_routed_ffn(
     st, dest, rows, block_expert, P = route_layout(
         topi, args.num_experts, args.moe_route_block
     )
+    tracing.count("moe_expert_rows", P)
 
     if int8_act:
         # quantize the T rows once, scatter the int8 rows and scales into the
@@ -554,8 +630,21 @@ def route_layout(topi: torch.Tensor, n_exp: int, bblk: int):
     return st, dest, rows.view(T, kk), block_expert, P
 
 
-def _run_layers(params: LlamaParams, h, cos, sin, args: LlamaArgs, attend):
-    """All layers; returns (h, (k_all, v_all) bf16 [L, T, Hkv_local, D])."""
+def _rope_tables(positions: torch.Tensor, args: LlamaArgs) -> dict:
+    """(cos, sin) of each RoPE the layers use, at these positions."""
+    specs = {args.attn_spec(li).rope for li in range(args.num_layers)}
+    return {s: rope.rope_cos_sin(positions, args.head_dim, s.theta, s.yarn) for s in specs}
+
+
+def _window(args: LlamaArgs, li: int) -> Optional[int]:
+    """The keys layer li attends over, for every attend closure."""
+    return args.attn_spec(li).window
+
+
+def _run_layers(params: LlamaParams, h, positions, args: LlamaArgs, attend):
+    """All layers, q and k of each rotated at `positions` by its own RoPE;
+    returns (h, (k_all, v_all) bf16 [L, T, Hkv_local, D])."""
+    tables = _rope_tables(positions, args)
     T = h.shape[0]
     shape = (args.num_layers, T, args.kv_heads_local, args.head_dim)
     k_all = torch.empty(shape, dtype=torch.bfloat16, device=h.device)
@@ -563,7 +652,7 @@ def _run_layers(params: LlamaParams, h, cos, sin, args: LlamaArgs, attend):
     delta = torch.zeros_like(h)
     for li in range(args.num_layers):
         h, delta, (k, v) = _layer_forward(
-            params.layers, li, h, delta, cos, sin, args, attend
+            params.layers, li, h, delta, tables, args, attend
         )
         k_all[li] = k
         v_all[li] = v
@@ -611,14 +700,12 @@ def prefill_from_hidden(
     last_token_idx: torch.Tensor,
     args: LlamaArgs,
 ) -> Tuple[torch.Tensor, kvc.KVCache]:
-    cos, sin = rope.rope_cos_sin(positions, args.head_dim, args.rope_theta)
-
-    def attend(q, k, v, _li):
+    def attend(q, k, v, li):
         return attention.prefill_attention(
-            q, k, v, segment_ids, sliding_window=args.sliding_window
+            q, k, v, segment_ids, sliding_window=_window(args, li)
         )
 
-    h, (k_all, v_all) = _run_layers(params, h, cos, sin, args, attend)
+    h, (k_all, v_all) = _run_layers(params, h, positions, args, attend)
     kv = kvc.append_all_layers(
         kv, k_all, v_all, page_ids, slots,
         args.quant.kv_bits, args.quant.kv_zero_point,
@@ -678,15 +765,13 @@ def prefill_chunk_from_hidden(
     prefix_len: int,
     args: LlamaArgs,
 ) -> Tuple[torch.Tensor, kvc.KVCache]:
-    cos, sin = rope.rope_cos_sin(positions, args.head_dim, args.rope_theta)
-
     def attend(q, k, v, li):
         return attention.prefix_prefill_attention(
             q, k, v, segment_ids, positions, kv, block_tables, prefix_len,
-            li, args.quant.kv_bits, sliding_window=args.sliding_window,
+            li, args.quant.kv_bits, sliding_window=_window(args, li),
         )
 
-    h, (k_all, v_all) = _run_layers(params, h, cos, sin, args, attend)
+    h, (k_all, v_all) = _run_layers(params, h, positions, args, attend)
     kv = kvc.append_all_layers(
         kv, k_all, v_all, page_ids, slots,
         args.quant.kv_bits, args.quant.kv_zero_point,
@@ -725,23 +810,21 @@ def prefill_chunk_with_decode(
         d_block_tables, d_context_lens, kv.page_size
     )
     h = params.embed[torch.cat([token_ids, d_token_ids]).long()].to(torch.bfloat16)
-    cos, sin = rope.rope_cos_sin(
-        torch.cat([positions, d_positions]), args.head_dim, args.rope_theta
-    )
 
     def attend(q, k, v, li):
+        window = _window(args, li)
         oc = attention.prefix_prefill_attention(
             q[:T], k[:T], v[:T], segment_ids, positions, kv, chunk_tables,
-            prefix_len, li, args.quant.kv_bits,
-            sliding_window=args.sliding_window,
+            prefix_len, li, args.quant.kv_bits, sliding_window=window,
         )
         od = attention.paged_decode_attention(
             q[T:], kv, d_block_tables, d_context_lens, li, k[T:], v[T:],
-            args.quant.kv_bits, sliding_window=args.sliding_window,
+            args.quant.kv_bits, sliding_window=window,
         )
         return torch.cat([oc, od], dim=0)
 
-    h, (k_all, v_all) = _run_layers(params, h, cos, sin, args, attend)
+    h, (k_all, v_all) = _run_layers(
+        params, h, torch.cat([positions, d_positions]), args, attend)
     kv = kvc.append_all_layers(
         kv, k_all[:, :T], v_all[:, :T], page_ids, slots,
         args.quant.kv_bits, args.quant.kv_zero_point,
@@ -771,15 +854,14 @@ def decode(
     )
 
     h = params.embed[token_ids.long()].to(torch.bfloat16)
-    cos, sin = rope.rope_cos_sin(positions, args.head_dim, args.rope_theta)
 
     def attend(q, k, v, li):
         return attention.paged_decode_attention(
             q, kv, block_tables, context_lens, li, k, v, args.quant.kv_bits,
-            sliding_window=args.sliding_window,
+            sliding_window=_window(args, li),
         )
 
-    h, (k_all, v_all) = _run_layers(params, h, cos, sin, args, attend)
+    h, (k_all, v_all) = _run_layers(params, h, positions, args, attend)
     kv = kvc.append_all_layers(
         kv, k_all, v_all, page_ids, slots,
         args.quant.kv_bits, args.quant.kv_zero_point,
@@ -820,7 +902,6 @@ def teacher_forced_nll(
     segment_ids = (positions < length).to(torch.int32)
 
     h = params.embed[token_ids.long()].to(torch.bfloat16)
-    cos, sin = rope.rope_cos_sin(positions, args.head_dim, args.rope_theta)
 
     def kv_roundtrip(x):
         from qserve_tpu_torch.quant import qoq
@@ -831,14 +912,14 @@ def teacher_forced_nll(
         )
         return qoq.dequantize_kv(q, scale, zero).to(x.dtype)
 
-    def attend(q, k, v, _li):
+    def attend(q, k, v, li):
         if simulate_kv_quant:
             k, v = kv_roundtrip(k), kv_roundtrip(v)
         return attention.prefill_attention(
-            q, k, v, segment_ids, sliding_window=args.sliding_window
+            q, k, v, segment_ids, sliding_window=_window(args, li)
         )
 
-    h, _ = _run_layers(params, h, cos, sin, args, attend)
+    h, _ = _run_layers(params, h, positions, args, attend)
     h = ops.rmsnorm(h, params.final_ln, args.rms_eps)
 
     targets = torch.roll(token_ids, -1).long()  # target[t] = token[t+1]
@@ -867,8 +948,8 @@ def reference_forward_float(
 
     An oracle, not a serving path: every product is f32, and attention is
     attention.prefill_attention_plain, called by name on every device,
-    because the prefill kernel (K3) takes bf16 operands only. Nothing is
-    cast to bf16."""
+    because the prefill kernel (K3) takes bf16 operands only, over each
+    layer's own window and RoPE. Nothing is cast to bf16."""
     T = token_ids.shape[0]
     dev = token_ids.device
 
@@ -879,7 +960,7 @@ def reference_forward_float(
 
     h = f32(float_params["embed"])[token_ids.long()]
     positions = torch.arange(T, dtype=torch.int32, device=dev)
-    cos, sin = rope.rope_cos_sin(positions, args.head_dim, args.rope_theta)
+    tables = _rope_tables(positions, args)
     seg = torch.ones((T,), dtype=torch.int32, device=dev)
 
     def rms(x, w):
@@ -901,14 +982,16 @@ def reference_forward_float(
             out = out + w[:, None] * d
         return out
 
-    for fl in float_params["layers"]:
+    for li, fl in enumerate(float_params["layers"]):
         x = rms(h, fl["input_ln"])
         q, k, v = (x @ f32(fl["qkv"])).split(
             [args.q_size, args.kv_size, args.kv_size], dim=-1)
+        cos, sin = tables[args.attn_spec(li).rope]
         q = rope.apply_rope(q.reshape(T, args.num_heads, args.head_dim), cos, sin)
         k = rope.apply_rope(k.reshape(T, args.num_kv_heads, args.head_dim), cos, sin)
         v = v.reshape(T, args.num_kv_heads, args.head_dim)
-        attn = attention.prefill_attention_plain(q, k, v, seg)
+        attn = attention.prefill_attention_plain(q, k, v, seg,
+                                                 sliding_window=_window(args, li))
         h = h + attn.reshape(T, -1) @ f32(fl["o"])
         x = rms(h, fl["post_ln"])
         if args.num_experts > 0:

@@ -19,7 +19,7 @@ import torch
 
 from qserve_tpu_torch.config import QuantSpec
 from qserve_tpu_torch.logger import init_logger
-from qserve_tpu_torch.models import llama
+from qserve_tpu_torch.models import llama, mixtral
 from qserve_tpu_torch.utils.weight_utils import hf_model_weights_iterator
 
 logger = init_logger(__name__)
@@ -30,7 +30,6 @@ LLAMA_ARCHS = {
     "Qwen2ForCausalLM",
     "YiForCausalLM",
 }
-MIXTRAL_ARCHS = {"MixtralForCausalLM"}
 
 
 def load_hf_config_dict(model_dir: str) -> dict:
@@ -40,6 +39,18 @@ def load_hf_config_dict(model_dir: str) -> dict:
 
 def args_from_config_dict(cfg: dict, quant: QuantSpec) -> llama.LlamaArgs:
     return llama.LlamaArgs.from_config_dict(cfg, quant)
+
+
+def load_moe_float_params(model_dir: str, cfg: dict, quant: QuantSpec):
+    """(args, float params) of a sparse-MoE checkpoint: Mixtral's tensor
+    names. A Mellum config reads as its MoE args, but its checkpoint's
+    tensor names are not known to the port, so it is refused."""
+    args = mixtral.args_from_config_dict(cfg, quant)
+    if cfg.get("model_type") == "mellum":
+        raise NotImplementedError(
+            "reading a Mellum checkpoint is not implemented (its tensor names are not "
+            "known to the port): serve its config with random weights")
+    return args, mixtral.load_float_params_from_hf(model_dir, args)
 
 
 def _layer_name(name: str):
@@ -160,11 +171,8 @@ def load_model(
     quant_path, as the JAX package does."""
     cfg = load_hf_config_dict(model_dir)
     archs = set(cfg.get("architectures", []))
-    if archs & MIXTRAL_ARCHS:
-        from qserve_tpu_torch.models import mixtral
-
-        args = mixtral.args_from_config_dict(cfg, quant)
-        fp = mixtral.load_float_params_from_hf(model_dir, args)
+    if mixtral.is_moe_config(cfg):
+        args, fp = load_moe_float_params(model_dir, cfg, quant)
         params = mixtral.quantize_params(fp, args, device=device)
         logger.info("Self-quantized Mixtral (%d experts) to %s",
                     args.num_experts, quant.precision)

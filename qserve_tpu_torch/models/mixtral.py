@@ -21,23 +21,46 @@ from qserve_tpu_torch.parallel import tp as tpmod
 from qserve_tpu_torch.utils.utils import resolve_device
 
 
+def is_moe_config(cfg: dict) -> bool:
+    """A Hugging Face config of a sparse-MoE model the port serves through
+    MoE layers: Mixtral's (its architecture, or num_local_experts) or
+    Mellum's (model_type "mellum")."""
+    return ("MixtralForCausalLM" in cfg.get("architectures", ())
+            or bool(cfg.get("num_local_experts")) or cfg.get("model_type") == "mellum")
+
+
 def args_from_config_dict(cfg: dict, quant: QuantSpec) -> llama.LlamaArgs:
-    """From a Hugging Face MixtralForCausalLM config.json dict."""
+    """From a Hugging Face MixtralForCausalLM config.json dict, or Mellum's
+    (model_type "mellum": `num_experts` experts of width
+    `moe_intermediate_size`, every layer sparse; a window or a full layer
+    each by `layer_types`, each layer type's RoPE in `rope_parameters`). The
+    router is a softmax over every expert, its top `num_experts_per_tok`
+    renormalised."""
     head_dim = cfg.get("head_dim") or cfg["hidden_size"] // cfg["num_attention_heads"]
+    n_exp = cfg.get("num_local_experts", cfg.get("num_experts"))
+    if not n_exp:
+        raise ValueError("an MoE config names its experts' count (num_local_experts "
+                         "or num_experts)")
+    if not cfg.get("norm_topk_prob", True):
+        raise NotImplementedError("norm_topk_prob false: the port renormalises the top-k")
+    if set(cfg.get("mlp_layer_types", ["sparse"])) != {"sparse"}:
+        raise NotImplementedError("dense MLP layers among the sparse ones are not "
+                                  "implemented by the port")
+    if cfg.get("attention_bias"):
+        raise NotImplementedError("attention_bias is not implemented by the port")
     return llama.LlamaArgs(
         vocab_size=cfg["vocab_size"],
         hidden_size=cfg["hidden_size"],
-        intermediate_size=cfg["intermediate_size"],
+        intermediate_size=cfg.get("moe_intermediate_size", cfg["intermediate_size"]),
         num_layers=cfg["num_hidden_layers"],
         num_heads=cfg["num_attention_heads"],
         num_kv_heads=cfg.get("num_key_value_heads", cfg["num_attention_heads"]),
         head_dim=head_dim,
-        rope_theta=cfg.get("rope_theta", 1e6),
         rms_eps=cfg.get("rms_norm_eps", 1e-5),
-        sliding_window=cfg.get("sliding_window"),
         quant=quant,
-        num_experts=cfg.get("num_local_experts", 8),
+        num_experts=n_exp,
         moe_top_k=cfg.get("num_experts_per_tok", 2),
+        **llama.attn_fields(cfg, 1e6),
     )
 
 

@@ -24,6 +24,14 @@ times its own steps with) and on the unix-ns clock that torch.profiler
 stamps its CPU events with, through the offset between the two clocks
 captured when spans turn on.
 
+Counter samples (`count(name, n)`) go into the same ring: the counter's
+name, n, the step number and the time, only while spans record. Each call
+also adds n to the process's running total of the name (`totals()`,
+always on, in `LLMEngine.stats()`). A CUDA graph's capture keeps the
+samples its forward made (`captured_counts`) instead of recording them,
+and each replay records them again (`replay_counts`), as the kernel launch
+counts are added back (kernels/_build.LAUNCHES). `samples()` reads them.
+
 Counters (`Counters`) count the scheduler's events: preemptions by mode,
 pages swapped, prompt tokens skipped by a computed shared prefix or
 computed in chunks, requests admitted and their wait in the queue. They
@@ -56,8 +64,11 @@ _offset_ns = 0  # time.time_ns() - time.perf_counter_ns() when spans turned on
 _step = 0  # the engine's step number
 _next_id = 0
 _open: List[int] = []  # ids of the open spans, innermost last
-# (id, parent, name, step, start_ns, end_ns, request_id, kind, offset_ns)
+# (id, parent, name, step, start_ns, end_ns, request_id, kind, offset_ns,
+#  value): value is None for a span, a counter sample's n otherwise
 _ring: collections.deque = collections.deque(maxlen=RING)
+_totals: Dict[str, int] = collections.Counter()
+_captured: Optional[Dict[str, int]] = None  # a capture's samples, while one runs
 _OFF = contextlib.nullcontext()
 
 
@@ -101,7 +112,7 @@ class _Open:
         end = time.perf_counter_ns()
         _open.pop()
         _ring.append((self.id, self.parent, self.name, _step, self.start_ns, end,
-                      self.request_id, self.kind, _offset_ns))
+                      self.request_id, self.kind, _offset_ns, None))
 
 
 def span(name: str, request_id: Optional[str] = None):
@@ -118,8 +129,65 @@ def record(name: str, start_ns: int, end_ns: int, request_id: Optional[str] = No
     global _next_id
     if not _on:
         return
-    _ring.append((_next_id, None, name, _step, start_ns, end_ns, request_id, None, _offset_ns))
+    _ring.append((_next_id, None, name, _step, start_ns, end_ns, request_id, None, _offset_ns,
+                  None))
     _next_id += 1
+
+
+class Sample(NamedTuple):
+    """A counter sample: n more of `name` at one instant of a step."""
+
+    name: str
+    step: int
+    t_ns: int  # time.perf_counter_ns()
+    unix_ns: int  # the same instant on torch.profiler's clock
+    value: int
+
+
+def count(name: str, n: int) -> None:
+    """n more of counter `name`: added to its running total, and while
+    spans record, a sample in the ring. Inside `captured_counts` the sample
+    is kept for the graph's replays instead."""
+    global _next_id
+    if _captured is not None:
+        _captured[name] = _captured.get(name, 0) + n
+        return
+    _totals[name] += n
+    if _on:
+        t = time.perf_counter_ns()
+        _ring.append((_next_id, None, name, _step, t, t, None, None, _offset_ns, n))
+        _next_id += 1
+
+
+@contextlib.contextmanager
+def captured_counts():
+    """Yields a dict that holds, on exit, the counts made inside (a CUDA
+    graph's capture, which runs none of its work), summed by name; nothing
+    inside is added to the totals or recorded."""
+    global _captured
+    outer, _captured = _captured, {}
+    try:
+        yield _captured
+    finally:
+        _captured = outer
+
+
+def replay_counts(held: Dict[str, int]) -> None:
+    """A replayed graph's counts: each name's total, one sample each."""
+    for name, n in held.items():
+        count(name, n)
+
+
+def totals() -> Dict[str, int]:
+    """The running total of every counter since the process started."""
+    return dict(_totals)
+
+
+def samples(since: int = -1) -> List[Sample]:
+    """The counter samples in the ring, in the order they were made (of
+    entries with an id above `since`)."""
+    return [Sample(n, st, t0, t0 + off, v)
+            for i, _, n, st, t0, _, _, _, off, v in list(_ring) if i > since and v is not None]
 
 
 def _turn(on: bool) -> None:
@@ -156,7 +224,7 @@ def spans(since: int = -1) -> List[Span]:
     """The spans in the ring with an id above `since`, in the order they
     closed."""
     return [Span(i, p, n, st, t0, t1, t0 + off, t1 + off, rid, kind)
-            for i, p, n, st, t0, t1, rid, kind, off in list(_ring) if i > since]
+            for i, p, n, st, t0, t1, rid, kind, off, v in list(_ring) if i > since and v is None]
 
 
 def clear() -> None:

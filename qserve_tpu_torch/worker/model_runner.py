@@ -61,7 +61,9 @@ class DecodeGraph:
     """One CUDA graph of the decode forward at a padded batch B: the static
     inputs (tokens [B], block tables [B, maxP], context lens [B]) each step
     is copied into, the logits [B, V] a replay writes, and the port's
-    launches the capture recorded (kernels/_build.LAUNCHES)."""
+    launches and the counter samples the capture recorded
+    (kernels/_build.LAUNCHES, utils/tracing.count), made again by each
+    replay."""
 
     def __init__(self, B: int, max_pages: int, device) -> None:
         self.inputs = (
@@ -72,6 +74,7 @@ class DecodeGraph:
         self.graph = None
         self.logits: Optional[torch.Tensor] = None
         self.launches: Dict[str, int] = {}
+        self.counts: Dict[str, int] = {}
 
     def load(self, tok: np.ndarray, bt: np.ndarray, cl: np.ndarray) -> None:
         """A step's packed host arrays into the static inputs, on CUDA
@@ -89,13 +92,15 @@ class DecodeGraph:
             forward()
         torch.cuda.current_stream().wait_stream(stream)
         self.graph = torch.cuda.CUDAGraph()
-        with _build.captured_launches() as self.launches:
+        with _build.captured_launches() as self.launches, \
+                tracing.captured_counts() as self.counts:
             with torch.cuda.graph(self.graph, pool=pool, stream=stream):
                 self.logits = forward()
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
         _build.LAUNCHES.update(self.launches)
+        tracing.replay_counts(self.counts)
         return self.logits
 
 

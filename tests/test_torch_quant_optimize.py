@@ -33,7 +33,6 @@ from qserve_tpu.models import llama as jllama
 from qserve_tpu.quant import optimize as joptimize
 from qserve_tpu_torch.config import QuantSpec as TQuantSpec
 from qserve_tpu_torch.kernels import attention, ops
-from qserve_tpu_torch.layers import rope
 from qserve_tpu_torch.models import llama as tllama
 from qserve_tpu_torch.quant import optimize, qoq
 
@@ -225,10 +224,8 @@ def _quantized_logits(params, args, toks):
     T = len(toks)
     tok = torch.from_numpy(toks)
     h = params.embed[tok.long()].to(torch.bfloat16)
-    cos, sin = rope.rope_cos_sin(torch.arange(T, dtype=torch.int32), args.head_dim,
-                                 args.rope_theta)
     seg = torch.ones(T, dtype=torch.int32)
-    h, _ = tllama._run_layers(params, h, cos, sin, args,
+    h, _ = tllama._run_layers(params, h, torch.arange(T, dtype=torch.int32), args,
                               lambda q, k, v, _li: attention.prefill_attention(q, k, v, seg))
     h = ops.rmsnorm(h, params.final_ln, args.rms_eps)
     return ops.matmul(h, params.lm_head, torch.float32)

@@ -122,6 +122,59 @@ def test_moe_span_once_per_layer_under_the_forward():
         assert all(s.step == fwd.step for s in moe)
 
 
+def test_moe_span_kind_and_counter_samples_under_the_profiler():
+    """Each model.moe span names its dispatch (decode: the masked loop);
+    each MoE layer counts its live rows, T k, and the rows its experts
+    computed, T NE masked; the samples sit inside their step's forward and
+    the totals grow by as much."""
+    eng = _engine(moe=True)
+    before = tracing.totals()
+    _add(eng, (12, 20))
+    _profiled(eng)
+    spans, samples = tracing.spans(), tracing.samples()
+    assert all(s.value is not None for s in samples) and samples
+    moe = [s for s in spans if s.name == "model.moe"]
+    assert {s.kind for s in moe} == {"masked"}  # every stream under 1024 rows
+    fwd = {s.step: s for s in spans if s.name == "runner.forward"}
+    live = [s for s in samples if s.name == "moe_live_rows"]
+    rows = [s for s in samples if s.name == "moe_expert_rows"]
+    assert len(live) == len(rows) == len(moe)
+    for a, b in zip(live, rows):
+        assert b.value == 2 * a.value  # 4 experts, top-2
+        f = fwd[a.step]
+        assert f.start_ns <= a.t_ns <= f.end_ns
+    after = tracing.totals()
+    assert after["moe_live_rows"] - before.get("moe_live_rows", 0) == sum(s.value for s in live)
+
+
+def test_counts_without_spans_reach_the_totals_only():
+    before = tracing.totals().get("x_test", 0)
+    tracing.count("x_test", 5)
+    assert tracing.samples() == [] and tracing.totals()["x_test"] == before + 5
+    tracing.enable()
+    tracing.count("x_test", 2)
+    (smp,) = tracing.samples()
+    assert (smp.name, smp.value) == ("x_test", 2) and tracing.spans() == []
+    assert smp.unix_ns - smp.t_ns == tracing._offset_ns
+
+
+def test_a_capture_keeps_its_counts_for_each_replay():
+    """A graph's capture runs nothing: its counts are held, not added; each
+    replay adds them back, one sample a name while spans record."""
+    tracing.enable()
+    before = tracing.totals().get("y_test", 0)
+    with tracing.captured_counts() as held:
+        tracing.count("y_test", 3)
+        tracing.count("y_test", 4)
+        tracing.count("z_test", 1)
+    assert held == {"y_test": 7, "z_test": 1}
+    assert tracing.totals().get("y_test", 0) == before and tracing.samples() == []
+    tracing.replay_counts(held)
+    tracing.replay_counts(held)
+    assert tracing.totals()["y_test"] == before + 14
+    assert [(s.name, s.value) for s in tracing.samples()] == [("y_test", 7), ("z_test", 1)] * 2
+
+
 def test_request_queue_span_per_request():
     eng = _engine(max_num_seqs=2)
     _add(eng, (12, 20, 30, 9))
