@@ -777,6 +777,150 @@ def phase_gemm_routed(res, dev):
         del qw, ws, args
 
 
+# the benchmark cells' decode GEMM shapes, (model, M, linear, K, N), at the
+# configurations' published widths (qbench/configs/): Mistral-7B and
+# Mixtral-8x7B (its experts' FFN is Mistral's) at M = 16 and 128 rows,
+# Mellum2-12B-A2.5B (hidden 2304, 32 heads over 4 kv heads of 128, expert
+# FFN 896) at its cell's 32
+_MISTRAL_LINEARS = dict(qkv=(4096, 6144), o=(4096, 4096), gate_up=(4096, 28672),
+                        down=(14336, 4096))
+_MELLUM_LINEARS = dict(qkv=(2304, 5120), o=(4096, 2304), gate_up=(2304, 1792),
+                       down=(896, 2304))
+DECODE_GEMMS = ([("mistral/mixtral", M, n, *kn) for M in (16, 128)
+                 for n, kn in _MISTRAL_LINEARS.items()]
+                + [("mellum", 32, n, *kn) for n, kn in _MELLUM_LINEARS.items()])
+
+
+def phase_gemm_split(res, dev):
+    """Split-K (gemm_common.cuh; kernels/gemm.py split_k): K2, K8 and K9 at
+    the cells' decode shapes, each as its wrapper launches it (the planned
+    K split) against the same C entry at one slice, bit for bit, and K2
+    against its plain version; the same K2 launches captured in a CUDA graph
+    and replayed three times over fresh inputs into poisoned outputs (the
+    workspace must be clean again after each launch); a routed K2 at one
+    256-row block, split; and the routed K2 at a doc-batch chunk's stream
+    plans no split."""
+    import torch
+
+    from qserve_tpu_torch.kernels import _build, gemm, ops
+    from qserve_tpu_torch.layers import linear as lin
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"  {sms} SMs; plans (tiles, K splits): " + ", ".join(
+        f"{m} {n} M={M}: ({-(-M // 128) * (N // 128)}, {gemm.split_k(M, N, K, sms)})"
+        for m, M, n, K, N in DECODE_GEMMS))
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    def unsplit(stem, entry, argtypes, ptrs, ints, out):
+        """The C entry at one K slice into `out`."""
+        fn = _build.function(stem, entry, argtypes)
+        o = torch.empty_like(out)
+        _build.check(entry, fn(*(t.data_ptr() for t in ptrs), o.data_ptr(), *ints,
+                               1, None, None, _build.stream()))
+        return o
+
+    def same(tag, got, want):
+        assert got.dtype == want.dtype and torch.equal(got, want), \
+            f"{tag}: max err {(got.float() - want.float()).abs().max().item()}"
+
+    k2 = []  # (operands, the unsplit output) of each K2 shape, for the graph
+    for model, M, name, K, N in DECODE_GEMMS:
+        s = gemm.split_k(M, N, K, sms)
+        # Mistral's and Mixtral's gate_up fill the SMs; Mellum's 14-step down
+        # is shorter than two slices of gemm.MIN_STEPS
+        whole = (model, name) in (("mistral/mixtral", "gate_up"), ("mellum", "down"))
+        assert (s == 1) == whole, f"{model} {name} M={M}: {s} K slices"
+        tag = f"{model} {name} M={M} K={K} N={N} s={s}"
+        a, qw = i8(M, K), i8(K // 2, N)
+        asc = torch.rand(M, 1, generator=g, device=dev) * 0.05
+        asum = torch.randn(M, 1, generator=g, device=dev)
+        s1 = torch.rand(N, generator=g, device=dev) * 1e-3
+        sz = torch.rand(N, generator=g, device=dev) * 8e-3
+        args = (a, asc, asum, qw, s1, sz)
+        got = ops.w4a8_gemm_per_chn(*args)
+        one = unsplit("w4a8_gemm", "qs_w4a8_gemm_per_chn", gemm._ARGS,
+                      (a, qw, s1, sz, asc, asum), (M, N, K), got)
+        same(f"K2 {tag} vs one slice", got, one)
+        same(f"K2 {tag} vs plain", got, ops.w4a8_gemm_per_chn_plain(*args))
+        k2.append((args, one))
+        ms = device_ms(lambda: ops.w4a8_gemm_per_chn(*args))
+        ms1 = device_ms(lambda: unsplit("w4a8_gemm", "qs_w4a8_gemm_per_chn", gemm._ARGS,
+                                        (a, qw, s1, sz, asc, asum), (M, N, K), got))
+        res.add("w4a8_gemm_per_chn split", tag, 0.0, ms,
+                cuda_ms(lambda: ops.w4a8_gemm_per_chn_plain(*args), iters=3, warmup=1),
+                M * K + K // 2 * N + 8 * N + 8 * M + 2 * M * N, 2 * M * K * N, INT8_OPS,
+                None, dev_ms=ms, one_slice_dev_ms=ms1)
+        # K8 (g128: every K here is a multiple of 128) and K9, bit for bit
+        G = 128
+        p8 = lin.W4GrpLinear(i8(K // 2, N), i8(K // G, N), i8(K // G, N), s1)
+        got = ops.w4a8_gemm_per_group(a, asc, *p8, G)
+        same(f"K8 {tag} vs one slice", got, unsplit(
+            "w4a8_gemm_per_group", "qs_w4a8_gemm_per_group", gemm._ARGS_GROUP,
+            (a, p8.qweight, p8.s2_scale, p8.s2_zero, s1, asc), (0, M, N, K, G), got))
+        same(f"K8 {tag} vs plain", got, ops.w4a8_gemm_per_group_plain(a, asc, *p8, G))
+        w8 = i8(K, N)
+        got = ops.w8a8_gemm(a, asc, w8, s1)
+        same(f"K9 {tag} vs one slice", got, unsplit(
+            "w8a8_gemm", "qs_w8a8_gemm", gemm._ARGS_W8, (a, w8, s1, asc), (0, M, N, K), got))
+        same(f"K9 {tag} vs plain", got, ops.w8a8_gemm_plain(a, asc, w8, s1))
+        del p8, w8
+    log(f"  K2, K8, K9 at {len(DECODE_GEMMS)} decode shapes: the planned split equals "
+        "one slice and the plain version bit for bit")
+
+    # one CUDA graph of every K2 decode launch, replayed over fresh inputs
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args, _ in k2:
+            ops.w4a8_gemm_per_chn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        outs = [ops.w4a8_gemm_per_chn(*args) for args, _ in k2]
+    for r in range(3):
+        for (args, _), out in zip(k2, outs):
+            args[0].copy_(i8(*args[0].shape))
+            out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for (args, _), out, (model, M, name, K, N) in zip(k2, outs, DECODE_GEMMS):
+            a, asc, asum, qw, s1, sz = args
+            same(f"graph replay {r} {model} {name} M={M}", out, unsplit(
+                "w4a8_gemm", "qs_w4a8_gemm_per_chn", gemm._ARGS,
+                (a, qw, s1, sz, asc, asum), (M, N, K), out))
+    log(f"  a CUDA graph of the {len(k2)} K2 launches, replayed 3 times over fresh "
+        "inputs into poisoned outputs: equal to one slice bit for bit")
+    del graph, outs, k2
+
+    # the routed K2 at one 256-row block (the wrapper's split) and at a
+    # doc-batch chunk: 2048 tokens x top-2 padded into 256-row blocks
+    mix = MIXTRAL_8X7B
+    E, I, ne = mix["hidden_size"], mix["intermediate_size"], mix["num_local_experts"]
+    M, K, N = 256, I, E
+    be = torch.tensor([3], dtype=torch.int32, device=dev)
+    a, qw = i8(M, K), i8(ne, K // 2, N)
+    asc = torch.rand(M, 1, generator=g, device=dev) * 0.05
+    asum = torch.randn(M, 1, generator=g, device=dev)
+    s1 = torch.rand(ne, N, generator=g, device=dev) * 1e-3
+    sz = torch.rand(ne, N, generator=g, device=dev) * 8e-3
+    args = (a, asc, asum, qw, s1, sz, be)
+    got = ops.w4a8_gemm_per_chn_routed(*args)
+    s = gemm.split_k(M, N, K, sms)
+    assert s > 1, "the one-block routed down plans no split"
+    same(f"routed K2 M={M} K={K} N={N} s={s} vs one slice", got, unsplit(
+        "w4a8_gemm", "qs_w4a8_gemm_per_chn_routed", gemm._ARGS_ROUTED,
+        (a, qw, s1, sz, asc, asum, be), (M, N, K, 256), got))
+    same(f"routed K2 M={M} s={s} vs plain", got, ops.w4a8_gemm_per_chn_routed_plain(*args))
+    _, _, _, P, _, _ = _routed_stream(dev, g)
+    for K, N in ((E, 2 * I), (I, E)):
+        assert gemm.split_k(P, N, K, sms) == 1, f"routed M={P} K={K} N={N} splits"
+    log(f"  routed K2 at one 256-row block: split {s} ways, equal bit for bit; at a "
+        f"doc-batch chunk's {P} rows: no split")
+
+
 def phase_flash(res, dev):
     import torch
     import torch.nn.functional as F
@@ -4105,6 +4249,7 @@ def main() -> int:
     res = Results()
     kernel_phases = dict(
         elementwise=phase_elementwise, gemm=phase_gemm, gemm_routed=phase_gemm_routed,
+        gemm_split=phase_gemm_split,
         flash=phase_flash,
         paged=phase_paged, kv_append=phase_kv_append, prefix=phase_prefix,
         sampler=phase_sampler)

@@ -26,6 +26,17 @@
 // copies 12-16 KB from L2 and converts the weights between two block
 // barriers, against ~256 cycles of tensor work.
 //
+// Split-K: where the tile grid leaves SMs idle (decode: M <= 128 is one M
+// tile, so N / 128 blocks), the wrapper launches gridDim.z = S > 1 blocks a
+// tile (kernels/gemm.py `split_k` picks S from M, N, K and the SM count).
+// Block z walks the steps [z * nsteps / S, (z + 1) * nsteps / S) of K;
+// every block of the tile stores its int32 partial sums and arrives at the
+// tile's counter, and the last to arrive adds the others' partials to its
+// own (integers: exact in any order), puts the counter back to 0 and alone
+// runs the unchanged epilogue. So the output is the unsplit launch's bit for
+// bit, and the workspace is clean again after every launch (CUDA graphs
+// replay it as it is).
+//
 // A policy (`Stage`) gives kSlot, its ring bytes a step; issue(s, slot),
 // every thread's cp.async copies of step s's W bytes; and convert(s, slot,
 // bs), the K-major tile of step s. The 64 k of a step are two runs of 32
@@ -200,13 +211,76 @@ constexpr int wgmma_smem() {
              : WG_BM * WG_LDC * (int)sizeof(typename Epi::Out);
 }
 
+// ---------------------------------------------------------------------------
+// Split-K (see the top of this file)
+// ---------------------------------------------------------------------------
+
+// the split's workspace: a slot of partial sums per block of a split tile
+// (16 int4 a thread, laid out [slot][16][256 threads] so every store and
+// load is a coalesced 16-byte one) and an arrival counter per tile, 0
+// between launches; both null when S = 1
+struct SplitK {
+  int4* partials;
+  int* arrivals;
+};
+
+// this block's steps [s0, s1) of K's nsteps: slice blockIdx.z of gridDim.z
+struct Steps {
+  int s0, s1;
+};
+__device__ __forceinline__ Steps k_slice(int nsteps) {
+  return {(int)blockIdx.z * nsteps / (int)gridDim.z,
+          ((int)blockIdx.z + 1) * nsteps / (int)gridDim.z};
+}
+
+// Every block of the tile stores acc and arrives; the last to arrive adds
+// the other blocks' partials into acc, resets the tile's counter and
+// returns true: it alone runs the epilogue. The stores are made visible
+// device-wide before the arrival (__threadfence), and the last block reads
+// them from L2 (ld.global.cg), past its own L1.
+__device__ __forceinline__ bool split_reduce(int (&acc)[64], SplitK ws) {
+  __shared__ int last;
+  const int S = gridDim.z, tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const size_t slot = (size_t)tile * S;
+  int4* mine = ws.partials + (slot + blockIdx.z) * 16 * WG_THREADS + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    __stcg(mine + j * WG_THREADS,
+           make_int4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]));
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ws.arrivals + tile, 1) == S - 1;
+    if (last) ws.arrivals[tile] = 0;  // every block of the tile has arrived
+  }
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  for (int z = 0; z < S; ++z) {
+    if (z == (int)blockIdx.z) continue;
+    const int4* p = ws.partials + (slot + z) * 16 * WG_THREADS + threadIdx.x;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int4 v = __ldcg(p + j * WG_THREADS);
+      acc[4 * j] += v.x;
+      acc[4 * j + 1] += v.y;
+      acc[4 * j + 2] += v.z;
+      acc[4 * j + 3] += v.w;
+    }
+  }
+  return true;
+}
+
 // One block's 128x128 tile (M tile blockIdx.x, N tile blockIdx.y) of
 // out = epilogue(A . W), A int8 [M, K] (K % 64 == 0), out [M, N]
-// (N % 64 == 0), W whatever the policy reads.
-template <class Stage, class Epi>
+// (N % 64 == 0), W whatever the policy reads. kSplit: over K slice
+// blockIdx.z of gridDim.z, reduced in `ws`; else over all of K (the loop
+// compiles as it did before the split existed: the ring is indexed by the
+// slice's own step count i, s = s0 + i, and s0 = 0).
+template <bool kSplit, class Stage, class Epi>
 __device__ __forceinline__ void wgmma_gemm_tile(
     const int8_t* __restrict__ A, Stage& stage, const Epi& epilogue, int M,
-    int N, int K, int a_step, int a_hi) {
+    int N, int K, int a_step, int a_hi, SplitK ws) {
   extern __shared__ __align__(128) unsigned char wsm[];
   unsigned char* As = wsm;                             // [STAGES][WG_A]
   unsigned char* Ws = wsm + WG_STAGES * WG_A;          // [STAGES][kSlot]
@@ -214,12 +288,15 @@ __device__ __forceinline__ void wgmma_gemm_tile(
   const int tid = threadIdx.x, wg = tid >> 7, tw = tid & 127;
   const int warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.x * WG_BM, n0 = blockIdx.y * WG_BN;
-  const int nsteps = K / 64;
+  const Steps steps = kSplit ? k_slice(K / 64) : Steps{0, K / 64};
+  const int nsteps = steps.s1 - steps.s0;
 
-  // copies of step s into slot s % STAGES: this warpgroup's 64 rows of A
-  // (two 16-byte granules a thread), and the policy's bytes of W
-  auto issue = [&](int s) {
-    unsigned char* as = As + (s % WG_STAGES) * WG_A;
+  // copies of the slice's step i (K's step s0 + i) into slot i % STAGES:
+  // this warpgroup's 64 rows of A (two 16-byte granules a thread), and the
+  // policy's bytes of W
+  auto issue = [&](int i) {
+    const int s = steps.s0 + i;
+    unsigned char* as = As + (i % WG_STAGES) * WG_A;
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int i = tw + u * 128;
@@ -229,7 +306,7 @@ __device__ __forceinline__ void wgmma_gemm_tile(
       const bool ok = m0 + r < M;
       cp_async16(as + kmajor(r, k), A + (size_t)(ok ? m0 + r : 0) * K + col, ok);
     }
-    stage.issue(s, Ws + (s % WG_STAGES) * Stage::kSlot);
+    stage.issue(s, Ws + (i % WG_STAGES) * Stage::kSlot);
   };
 
   int acc[64];
@@ -237,34 +314,36 @@ __device__ __forceinline__ void wgmma_gemm_tile(
   for (int i = 0; i < 64; ++i) acc[i] = 0;
 
 #pragma unroll
-  for (int s = 0; s < WG_STAGES - 1; ++s) {
-    if (s < nsteps) issue(s);
+  for (int i = 0; i < WG_STAGES - 1; ++i) {
+    if (i < nsteps) issue(i);
     cp_async_commit();
   }
-  for (int s = 0; s < nsteps; ++s) {
+  for (int i = 0; i < nsteps; ++i) {
     cp_async_wait<WG_STAGES - 2>();
-    __syncthreads();  // step s landed; every wgmma of step s - 2 is done
-    stage.convert(s, Ws + (s % WG_STAGES) * Stage::kSlot, Bs + (s & 1) * WG_B);
+    __syncthreads();  // step i landed; every wgmma of step i - 2 is done
+    stage.convert(steps.s0 + i, Ws + (i % WG_STAGES) * Stage::kSlot,
+                  Bs + (i & 1) * WG_B);
     fence_async_shared();
     __syncthreads();
-    const unsigned char* as = As + (s % WG_STAGES) * WG_A + wg * 64 * 64;
-    const unsigned char* bs = Bs + (s & 1) * WG_B;
+    const unsigned char* as = As + (i % WG_STAGES) * WG_A + wg * 64 * 64;
+    const unsigned char* bs = Bs + (i & 1) * WG_B;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) fence_reg(acc[i]);
+    for (int j = 0; j < 64; ++j) fence_reg(acc[j]);
     wgmma_fence();
     wgmma_s8_m64n128k32(acc, wgmma_desc(as, 128, 512), wgmma_desc(bs, 128, 512));
     wgmma_s8_m64n128k32(acc, wgmma_desc(as + 256, 128, 512),
                         wgmma_desc(bs + 256, 128, 512));
     wgmma_commit();
-    wgmma_wait<1>();  // step s - 1's products are done: its slot is free
+    wgmma_wait<1>();  // step i - 1's products are done: its slot is free
 #pragma unroll
-    for (int i = 0; i < 64; ++i) fence_reg(acc[i]);
-    if (s + WG_STAGES - 1 < nsteps) issue(s + WG_STAGES - 1);
+    for (int j = 0; j < 64; ++j) fence_reg(acc[j]);
+    if (i + WG_STAGES - 1 < nsteps) issue(i + WG_STAGES - 1);
     cp_async_commit();
   }
   wgmma_wait<0>();
 #pragma unroll
   for (int i = 0; i < 64; ++i) fence_reg(acc[i]);
+  if (kSplit && !split_reduce(acc, ws)) return;
 
   // the output tile through shared memory (over the ring, which no copy or
   // product reads any more), then out in 16-byte row runs. WG_LDC: the 8
@@ -299,11 +378,13 @@ __device__ __forceinline__ void wgmma_gemm_tile(
 }
 
 // Launches a kernel of wgmma_gemm_tile on the grid of 128x128 tiles (M
-// tiles fastest) with `smem` bytes of dynamic shared memory (set once per
-// kernel: above 48 KB it must be asked for); returns the launch's error.
+// tiles fastest), `splits` K slices a tile, with `smem` bytes of dynamic
+// shared memory (set once per kernel: above 48 KB it must be asked for);
+// returns the launch's error.
 template <auto Kernel, typename... Args>
-inline int launch_tiles(int smem, int M, int N, cudaStream_t st,
+inline int launch_tiles(int smem, int M, int N, int splits, cudaStream_t st,
                         Args... args) {
+  if (splits < 1) return (int)cudaErrorInvalidValue;
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -311,7 +392,7 @@ inline int launch_tiles(int smem, int M, int N, cudaStream_t st,
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
-  const dim3 grid((M + WG_BM - 1) / WG_BM, (N + WG_BN - 1) / WG_BN);
+  const dim3 grid((M + WG_BM - 1) / WG_BM, (N + WG_BN - 1) / WG_BN, splits);
   Kernel<<<grid, WG_THREADS, smem, st>>>(args...);
   return (int)cudaGetLastError();
 }

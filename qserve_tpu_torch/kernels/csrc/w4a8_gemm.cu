@@ -82,6 +82,23 @@ struct StageW4 {
   }
 };
 
+// One tile of the kernel, over all of K or (kSplit) over the block's K
+// slice; the routed form's block reads its expert (route_rows % 128 == 0,
+// checked by the wrapper), pointers offset in size_t.
+template <bool kSplit>
+__device__ __forceinline__ void per_chn_tile(
+    const int8_t* __restrict__ A, const int8_t* __restrict__ W,
+    const float* __restrict__ s1, const float* __restrict__ sz,
+    const float* __restrict__ a_scale, const float* __restrict__ a_sum,
+    const int* __restrict__ block_expert, __nv_bfloat16* __restrict__ out,
+    int M, int N, int K, int route_rows, SplitK ws) {
+  const size_t e =
+      block_expert ? (size_t)block_expert[(blockIdx.x * WG_BM) / route_rows] : 0;
+  const PerChnEpilogue epilogue{s1 + e * N, sz + e * N, a_scale, a_sum, out};
+  StageW4 stage(W + e * (size_t)(K / 2) * N, N);
+  wgmma_gemm_tile<kSplit>(A, stage, epilogue, M, N, K, 32, K / 2, ws);
+}
+
 __global__ void __launch_bounds__(WG_THREADS)
 w4a8_gemm_per_chn_wgmma_kernel(const int8_t* __restrict__ A,
                                const int8_t* __restrict__ W,
@@ -92,37 +109,59 @@ w4a8_gemm_per_chn_wgmma_kernel(const int8_t* __restrict__ A,
                                const int* __restrict__ block_expert,
                                __nv_bfloat16* __restrict__ out, int M, int N,
                                int K, int route_rows) {
-  // routed: the block's expert (route_rows % 128 == 0, checked by the
-  // wrapper), pointers offset in size_t
-  const size_t e =
-      block_expert ? (size_t)block_expert[(blockIdx.x * WG_BM) / route_rows] : 0;
-  const PerChnEpilogue epilogue{s1 + e * N, sz + e * N, a_scale, a_sum, out};
-  StageW4 stage(W + e * (size_t)(K / 2) * N, N);
-  wgmma_gemm_tile(A, stage, epilogue, M, N, K, 32, K / 2);
+  per_chn_tile<false>(A, W, s1, sz, a_scale, a_sum, block_expert, out, M, N, K,
+                      route_rows, SplitK{});
+}
+
+// the same with K split into gridDim.z slices (gemm_common.cuh)
+__global__ void __launch_bounds__(WG_THREADS)
+w4a8_gemm_per_chn_split_kernel(const int8_t* __restrict__ A,
+                               const int8_t* __restrict__ W,
+                               const float* __restrict__ s1,
+                               const float* __restrict__ sz,
+                               const float* __restrict__ a_scale,
+                               const float* __restrict__ a_sum,
+                               const int* __restrict__ block_expert,
+                               __nv_bfloat16* __restrict__ out, int M, int N,
+                               int K, int route_rows, SplitK ws) {
+  per_chn_tile<true>(A, W, s1, sz, a_scale, a_sum, block_expert, out, M, N, K,
+                     route_rows, ws);
 }
 
 constexpr int SMEM = wgmma_smem<StageW4, PerChnEpilogue>();
 
 int launch(const void* A, const void* W, const void* s1, const void* sz,
            const void* a_scale, const void* a_sum, const void* block_expert,
-           void* out, int M, int N, int K, int route_rows, cudaStream_t st) {
+           void* out, int M, int N, int K, int route_rows, int splits,
+           void* partials, void* arrivals, cudaStream_t st) {
+  const auto a = (const int8_t*)A, w = (const int8_t*)W;
+  const auto f1 = (const float*)s1, fz = (const float*)sz;
+  const auto fs = (const float*)a_scale, fm = (const float*)a_sum;
+  const auto be = (const int*)block_expert;
+  const auto o = (__nv_bfloat16*)out;
+  if (splits > 1)
+    return launch_tiles<w4a8_gemm_per_chn_split_kernel>(
+        SMEM, M, N, splits, st, a, w, f1, fz, fs, fm, be, o, M, N, K,
+        route_rows, SplitK{(int4*)partials, (int*)arrivals});
   return launch_tiles<w4a8_gemm_per_chn_wgmma_kernel>(
-      SMEM, M, N, st, (const int8_t*)A, (const int8_t*)W, (const float*)s1,
-      (const float*)sz, (const float*)a_scale, (const float*)a_sum,
-      (const int*)block_expert, (__nv_bfloat16*)out, M, N, K, route_rows);
+      SMEM, M, N, splits, st, a, w, f1, fz, fs, fm, be, o, M, N, K, route_rows);
 }
 
 }  // namespace
 
 // A [M, K] int8, W [K/2, N] int8, s1/sz [N] f32, a_scale/a_sum [M] f32,
 // out [M, N] bf16; K % 64 == 0 and N % 64 == 0 (checked by the wrapper).
+// splits: K slices a tile (1: no split); above 1, partials and arrivals are
+// the split's workspace (gemm_common.cuh SplitK: a slot of 64 KB a block,
+// an int32 counter a tile, all 0), else null.
 extern "C" int qs_w4a8_gemm_per_chn(const void* A, const void* W,
                                     const void* s1, const void* sz,
                                     const void* a_scale, const void* a_sum,
-                                    void* out, int M, int N, int K,
+                                    void* out, int M, int N, int K, int splits,
+                                    void* partials, void* arrivals,
                                     void* stream) {
-  return launch(A, W, s1, sz, a_scale, a_sum, nullptr, out, M, N, K, M,
-                      (cudaStream_t)stream);
+  return launch(A, W, s1, sz, a_scale, a_sum, nullptr, out, M, N, K, M, splits,
+                partials, arrivals, (cudaStream_t)stream);
 }
 
 // The routed (grouped) form for the MoE prefill dispatch: A is a stream of
@@ -139,7 +178,8 @@ extern "C" int qs_w4a8_gemm_per_chn_routed(const void* A, const void* W,
                                            const void* a_sum,
                                            const void* block_expert, void* out,
                                            int M, int N, int K, int route_rows,
-                                           void* stream) {
+                                           int splits, void* partials,
+                                           void* arrivals, void* stream) {
   return launch(A, W, s1, sz, a_scale, a_sum, block_expert, out, M, N, K,
-                      route_rows, (cudaStream_t)stream);
+                route_rows, splits, partials, arrivals, (cudaStream_t)stream);
 }

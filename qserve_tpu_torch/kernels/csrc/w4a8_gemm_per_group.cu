@@ -74,10 +74,14 @@ struct StageW4Group {
   uint32_t s2lo, z2lo, s2hi, z2hi;  // this thread's 4 columns, current groups
   uint32_t sel_s[4], sel_z[4];      // __byte_perm picks of column word jj
 
+  // from step s0, the first of this block's K slice: each plane's group
+  // of that step's first row, loaded at once
   __device__ __forceinline__ StageW4Group(const int8_t* W, const int8_t* s2,
-                                          const int8_t* z2, int N, int K, int G)
+                                          const int8_t* z2, int N, int K, int G,
+                                          int s0)
       : W(W), s2(s2), z2(z2), N(N), n0(blockIdx.y * WG_BN), G(G), K2(K / 2),
-        nsteps(K / 64), lo_g(0), hi_g(K / 2 / G), lo_next(0), hi_next(0) {
+        nsteps(K / 64), lo_g(s0 * 32 / G), hi_g((K / 2 + s0 * 32) / G),
+        lo_next(s0 * 32), hi_next(s0 * 32) {
     live = n0 + 4 * t.cq < N;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
@@ -85,7 +89,7 @@ struct StageW4Group {
       sel_s[jj] = 0x4440u | c;
       sel_z[jj] = 0x4040u | c | (c << 8);
     }
-    load(0);
+    load(s0);
   }
   __device__ __forceinline__ uint32_t group_word(const int8_t* p, int g) const {
     return live ? __ldg(reinterpret_cast<const unsigned int*>(
@@ -99,7 +103,7 @@ struct StageW4Group {
       s2lo = group_word(s2, lo_g);
       z2lo = group_word(z2, lo_g);
       ++lo_g;
-      lo_next += G;
+      lo_next = lo_g * G;
     }
     if (r0 == hi_next) {
       s2hi = group_word(s2, hi_g);
@@ -134,6 +138,27 @@ struct StageW4Group {
   }
 };
 
+// One tile, over all of K or (kSplit) over the block's K slice, the stage
+// starting at the slice's first step; the routed form's block reads its
+// expert (route_rows % 128 == 0, checked by the wrapper): W ([NE, K/2, N]),
+// s2 and z2 ([NE, K/G, N]) and s1 ([NE, N]) offset by its stride in size_t.
+template <bool kSplit, typename OutT>
+__device__ __forceinline__ void per_group_tile(
+    const int8_t* __restrict__ A, const int8_t* __restrict__ W,
+    const int8_t* __restrict__ s2, const int8_t* __restrict__ z2,
+    const float* __restrict__ s1, const float* __restrict__ a_scale,
+    const int* __restrict__ block_expert, OutT* __restrict__ out, int M, int N,
+    int K, int G, int route_rows, SplitK ws) {
+  const size_t e =
+      block_expert ? (size_t)block_expert[(blockIdx.x * WG_BM) / route_rows] : 0;
+  const size_t group_stride = (size_t)(K / G) * N;
+  const ScaleEpilogue<OutT> epilogue{s1 + e * N, a_scale, out};
+  StageW4Group stage(W + e * (size_t)(K / 2) * N, s2 + e * group_stride,
+                     z2 + e * group_stride, N, K, G,
+                     kSplit ? k_slice(K / 64).s0 : 0);
+  wgmma_gemm_tile<kSplit>(A, stage, epilogue, M, N, K, 32, K / 2, ws);
+}
+
 template <typename OutT>
 __global__ void __launch_bounds__(WG_THREADS)
 w4a8_gemm_per_group_kernel(const int8_t* __restrict__ A,
@@ -145,45 +170,63 @@ w4a8_gemm_per_group_kernel(const int8_t* __restrict__ A,
                            const int* __restrict__ block_expert,
                            OutT* __restrict__ out, int M, int N, int K, int G,
                            int route_rows) {
-  // routed: the block's expert (route_rows % 128 == 0, checked by the
-  // wrapper); W ([NE, K/2, N]), s2 and z2 ([NE, K/G, N]) and s1 ([NE, N])
-  // offset by its stride in size_t
-  const size_t e =
-      block_expert ? (size_t)block_expert[(blockIdx.x * WG_BM) / route_rows] : 0;
-  const size_t group_stride = (size_t)(K / G) * N;
-  const ScaleEpilogue<OutT> epilogue{s1 + e * N, a_scale, out};
-  StageW4Group stage(W + e * (size_t)(K / 2) * N, s2 + e * group_stride,
-                     z2 + e * group_stride, N, K, G);
-  wgmma_gemm_tile(A, stage, epilogue, M, N, K, 32, K / 2);
+  per_group_tile<false>(A, W, s2, z2, s1, a_scale, block_expert, out, M, N, K,
+                        G, route_rows, SplitK{});
+}
+
+// the same with K split into gridDim.z slices (gemm_common.cuh)
+template <typename OutT>
+__global__ void __launch_bounds__(WG_THREADS)
+w4a8_gemm_per_group_split_kernel(const int8_t* __restrict__ A,
+                                 const int8_t* __restrict__ W,
+                                 const int8_t* __restrict__ s2,
+                                 const int8_t* __restrict__ z2,
+                                 const float* __restrict__ s1,
+                                 const float* __restrict__ a_scale,
+                                 const int* __restrict__ block_expert,
+                                 OutT* __restrict__ out, int M, int N, int K,
+                                 int G, int route_rows, SplitK ws) {
+  per_group_tile<true>(A, W, s2, z2, s1, a_scale, block_expert, out, M, N, K,
+                       G, route_rows, ws);
 }
 
 template <typename OutT>
 int launch(const void* A, const void* W, const void* s2, const void* z2,
            const void* s1, const void* a_scale, const void* block_expert,
-           void* out, int M, int N, int K, int G, int route_rows,
-           cudaStream_t st) {
+           void* out, int M, int N, int K, int G, int route_rows, int splits,
+           void* partials, void* arrivals, cudaStream_t st) {
+  constexpr int smem = wgmma_smem<StageW4Group, ScaleEpilogue<OutT>>();
+  const auto a = (const int8_t*)A, w = (const int8_t*)W;
+  const auto q2 = (const int8_t*)s2, p2 = (const int8_t*)z2;
+  const auto f1 = (const float*)s1, fs = (const float*)a_scale;
+  const auto be = (const int*)block_expert;
+  if (splits > 1)
+    return launch_tiles<w4a8_gemm_per_group_split_kernel<OutT>>(
+        smem, M, N, splits, st, a, w, q2, p2, f1, fs, be, (OutT*)out, M, N, K,
+        G, route_rows, SplitK{(int4*)partials, (int*)arrivals});
   return launch_tiles<w4a8_gemm_per_group_kernel<OutT>>(
-      wgmma_smem<StageW4Group, ScaleEpilogue<OutT>>(), M, N, st,
-      (const int8_t*)A, (const int8_t*)W, (const int8_t*)s2, (const int8_t*)z2,
-      (const float*)s1, (const float*)a_scale, (const int*)block_expert,
-      (OutT*)out, M, N, K, G, route_rows);
+      smem, M, N, splits, st, a, w, q2, p2, f1, fs, be, (OutT*)out, M, N, K, G,
+      route_rows);
 }
 
 }  // namespace
 
 // A [M, K] int8, W [K/2, N] int8, s2/z2 [K/G, N] int8, s1 [N] f32,
 // a_scale [M] f32, out [M, N] bf16 (out_f32 == 0) or f32; K % 64 == 0,
-// N % 64 == 0, G % 32 == 0 and K % G == 0 (checked by the wrapper).
+// N % 64 == 0, G % 32 == 0 and K % G == 0 (checked by the wrapper); splits,
+// partials, arrivals: K2's (w4a8_gemm.cu).
 extern "C" int qs_w4a8_gemm_per_group(const void* A, const void* W,
                                       const void* s2, const void* z2,
                                       const void* s1, const void* a_scale,
                                       void* out, int out_f32, int M, int N,
-                                      int K, int G, void* stream) {
+                                      int K, int G, int splits, void* partials,
+                                      void* arrivals, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   return out_f32 ? launch<float>(A, W, s2, z2, s1, a_scale, nullptr, out, M,
-                                 N, K, G, M, st)
+                                 N, K, G, M, splits, partials, arrivals, st)
                  : launch<__nv_bfloat16>(A, W, s2, z2, s1, a_scale, nullptr,
-                                         out, M, N, K, G, M, st);
+                                         out, M, N, K, G, M, splits, partials,
+                                         arrivals, st);
 }
 
 // The routed form for the MoE prefill dispatch: W [NE, K/2, N] int8, s2/z2
@@ -198,8 +241,10 @@ extern "C" int qs_w4a8_gemm_per_group_routed(const void* A, const void* W,
                                              const void* a_scale,
                                              const void* block_expert,
                                              void* out, int M, int N, int K,
-                                             int G, int route_rows,
+                                             int G, int route_rows, int splits,
+                                             void* partials, void* arrivals,
                                              void* stream) {
   return launch<__nv_bfloat16>(A, W, s2, z2, s1, a_scale, block_expert, out,
-                               M, N, K, G, route_rows, (cudaStream_t)stream);
+                               M, N, K, G, route_rows, splits, partials,
+                               arrivals, (cudaStream_t)stream);
 }

@@ -65,6 +65,22 @@ struct StageW8 {
   }
 };
 
+// One tile, over all of K or (kSplit) over the block's K slice; the routed
+// form's block reads its expert (route_rows % 128 == 0, checked by the
+// wrapper), pointers offset in size_t.
+template <bool kSplit, typename OutT>
+__device__ __forceinline__ void w8a8_tile(
+    const int8_t* __restrict__ A, const int8_t* __restrict__ W,
+    const float* __restrict__ w_scale, const float* __restrict__ a_scale,
+    const int* __restrict__ block_expert, OutT* __restrict__ out, int M, int N,
+    int K, int route_rows, SplitK ws) {
+  const size_t e =
+      block_expert ? (size_t)block_expert[(blockIdx.x * WG_BM) / route_rows] : 0;
+  const ScaleEpilogue<OutT> epilogue{w_scale + e * N, a_scale, out};
+  StageW8 stage(W + e * (size_t)K * N, N);
+  wgmma_gemm_tile<kSplit>(A, stage, epilogue, M, N, K, 64, 32, ws);
+}
+
 template <typename OutT>
 __global__ void __launch_bounds__(WG_THREADS)
 w8a8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
@@ -72,38 +88,57 @@ w8a8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
                  const float* __restrict__ a_scale,
                  const int* __restrict__ block_expert, OutT* __restrict__ out,
                  int M, int N, int K, int route_rows) {
-  // routed: the block's expert (route_rows % 128 == 0, checked by the
-  // wrapper), pointers offset in size_t
-  const size_t e =
-      block_expert ? (size_t)block_expert[(blockIdx.x * WG_BM) / route_rows] : 0;
-  const ScaleEpilogue<OutT> epilogue{w_scale + e * N, a_scale, out};
-  StageW8 stage(W + e * (size_t)K * N, N);
-  wgmma_gemm_tile(A, stage, epilogue, M, N, K, 64, 32);
+  w8a8_tile<false>(A, W, w_scale, a_scale, block_expert, out, M, N, K,
+                   route_rows, SplitK{});
+}
+
+// the same with K split into gridDim.z slices (gemm_common.cuh)
+template <typename OutT>
+__global__ void __launch_bounds__(WG_THREADS)
+w8a8_gemm_split_kernel(const int8_t* __restrict__ A,
+                       const int8_t* __restrict__ W,
+                       const float* __restrict__ w_scale,
+                       const float* __restrict__ a_scale,
+                       const int* __restrict__ block_expert,
+                       OutT* __restrict__ out, int M, int N, int K,
+                       int route_rows, SplitK ws) {
+  w8a8_tile<true>(A, W, w_scale, a_scale, block_expert, out, M, N, K,
+                  route_rows, ws);
 }
 
 template <typename OutT>
 int launch(const void* A, const void* W, const void* w_scale,
            const void* a_scale, const void* block_expert, void* out, int M,
-           int N, int K, int route_rows, cudaStream_t st) {
-  return launch_tiles<w8a8_gemm_kernel<OutT>>(
-      wgmma_smem<StageW8, ScaleEpilogue<OutT>>(), M, N, st, (const int8_t*)A,
-      (const int8_t*)W, (const float*)w_scale, (const float*)a_scale,
-      (const int*)block_expert, (OutT*)out, M, N, K, route_rows);
+           int N, int K, int route_rows, int splits, void* partials,
+           void* arrivals, cudaStream_t st) {
+  constexpr int smem = wgmma_smem<StageW8, ScaleEpilogue<OutT>>();
+  const auto a = (const int8_t*)A, w = (const int8_t*)W;
+  const auto wsc = (const float*)w_scale, as = (const float*)a_scale;
+  const auto be = (const int*)block_expert;
+  if (splits > 1)
+    return launch_tiles<w8a8_gemm_split_kernel<OutT>>(
+        smem, M, N, splits, st, a, w, wsc, as, be, (OutT*)out, M, N, K,
+        route_rows, SplitK{(int4*)partials, (int*)arrivals});
+  return launch_tiles<w8a8_gemm_kernel<OutT>>(smem, M, N, splits, st, a, w,
+                                              wsc, as, be, (OutT*)out, M, N, K,
+                                              route_rows);
 }
 
 }  // namespace
 
 // A [M, K] int8, W [K, N] int8, w_scale [N] f32, a_scale [M] f32, out
 // [M, N] bf16 (out_f32 == 0) or f32; K % 64 == 0 and N % 64 == 0 (checked by
-// the wrapper).
+// the wrapper); splits, partials, arrivals: K2's (w4a8_gemm.cu).
 extern "C" int qs_w8a8_gemm(const void* A, const void* W, const void* w_scale,
                             const void* a_scale, void* out, int out_f32,
-                            int M, int N, int K, void* stream) {
+                            int M, int N, int K, int splits, void* partials,
+                            void* arrivals, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   return out_f32 ? launch<float>(A, W, w_scale, a_scale, nullptr, out, M, N,
-                                 K, M, st)
+                                 K, M, splits, partials, arrivals, st)
                  : launch<__nv_bfloat16>(A, W, w_scale, a_scale, nullptr, out,
-                                         M, N, K, M, st);
+                                         M, N, K, M, splits, partials,
+                                         arrivals, st);
 }
 
 // The routed form: W [NE, K, N] int8, w_scale [NE, N] f32, block_expert
@@ -114,8 +149,10 @@ extern "C" int qs_w8a8_gemm(const void* A, const void* W, const void* w_scale,
 extern "C" int qs_w8a8_gemm_routed(const void* A, const void* W,
                                    const void* w_scale, const void* a_scale,
                                    const void* block_expert, void* out, int M,
-                                   int N, int K, int route_rows,
+                                   int N, int K, int route_rows, int splits,
+                                   void* partials, void* arrivals,
                                    void* stream) {
   return launch<__nv_bfloat16>(A, W, w_scale, a_scale, block_expert, out, M,
-                               N, K, route_rows, (cudaStream_t)stream);
+                               N, K, route_rows, splits, partials, arrivals,
+                               (cudaStream_t)stream);
 }

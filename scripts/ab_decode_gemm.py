@@ -11,9 +11,10 @@ repo root:
 Kernel mode: every library is built with the committed nvcc flags, all nvcc
 processes at once, and so are the VARIANTS below (tunings of the change,
 each checked like it); then one process times each (kernel, shape, tree)
-with CUDA events around 20 back-to-back calls (device time: the host
-enqueues ahead of the card), over rounds in alternating order, so the trees
-compare within one run. Each of the change's calls is first held against
+by 20 calls captured in a CUDA graph and replayed (chip_smoke.device_ms:
+device time without the host's launch cost, as the decode step's graphs
+replay them; each call takes the capture's stream), over rounds in
+alternating order, so the trees compare within one run. Each of the change's calls is first held against
 the parent's output (K2 bit for bit; K4 within its chip limit). K4 at
 chip_smoke.py's decode shapes (Llama-3-8B B = 64, KV4 and KV8; Llama-2-7B
 KV8; B = 1 and B = 8 over 4096-8192 keys; B = 1 and B = 8 over ~500
@@ -25,10 +26,15 @@ count and with 2x and 4x that, beside SDPA over the dequantized history
 M = 64 and 2048 and its qkv at 2048; K9 at the gate_up at M = 8, 64 and
 2048 and the W8 lm_head (f32 logits) at M = 64; and the routed K2, K8 and
 K9 at Mixtral-8x7B's gate_up and down over a 6144-row stream of a real
-top-2 routing. The GEMMs are held bit for bit (random bytes: both trees
-wrap the same way). DIR is another checkout, e.g. a `git archive` of the
-parent commit (its K4 entry point takes no split scratch: it is called
-with that signature, PR 5's; the GEMMs' entry points are unchanged).
+top-2 routing. K2 also at the benchmark cells' decode shapes
+(chip_smoke.DECODE_GEMMS: Mistral-7B's and Mixtral-8x7B's four linears at
+M = 16 and 128, Mellum2-12B-A2.5B's at M = 32), each at the K split the
+wrapper plans (gemm.split_k) and at the other splits of SWEEP, to measure
+the plan's rule. Every tag names its tile count and split. The GEMMs are held bit for
+bit (random bytes: both trees wrap the same way). DIR is another
+checkout, e.g. a `git archive` of the parent commit (its K4 entry point
+takes no split scratch: it is called with that older signature; its
+GEMM entry points take no K split: they are called without one).
 
 Steps mode: the engines of the tree at DIR (default: this one) at full
 width and depth, random weights: Llama-3-8B serving chip_smoke.py's path a
@@ -51,7 +57,7 @@ import sys
 import tempfile
 import time
 
-from ab_common import CSRC, build, device_ms, smi
+from ab_common import CSRC, build, smi
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -143,36 +149,76 @@ def k4_cases(dev):
     return cases
 
 
-def k2_cases(dev):
-    """(tag, keep-alive, (entry, args, out) of the change, the same of the
-    parent)."""
+SWEEP = (1, 2, 3, 4, 5, 6, 7, 8, 9, 12)  # K splits timed beside the plan's
+_WORKSPACE = []  # the split workspace of every launch the script makes
+
+
+def _split_args(splits, dev):
+    """(splits, partials, arrivals) of a launch at `splits` K slices, over
+    the script's own workspace: it holds the largest grid of SWEEP at the
+    decode shapes (the wrapper's holds only the plans of gemm.split_k)."""
     import torch
 
     import chip_smoke
-    from qserve_tpu_torch.kernels import _build
+    from qserve_tpu_torch.kernels import gemm
+
+    if splits == 1:
+        return 1, None, None
+    if not _WORKSPACE:
+        most = max(SWEEP) * max(-(-M // gemm.TILE) * -(-N // gemm.TILE)
+                                for _, M, _, _, N in chip_smoke.DECODE_GEMMS)
+        _WORKSPACE.extend([torch.empty(most * gemm.SLOT_INTS, dtype=torch.int32, device=dev),
+                           torch.zeros(most, dtype=torch.int32, device=dev)])
+    partials, arrivals = _WORKSPACE
+    return splits, partials.data_ptr(), arrivals.data_ptr()
+
+
+def _plan(M, N, K, dev):
+    """The wrapper's split of an M x N x K launch, and the tag of its grid."""
+    import torch
+
+    from qserve_tpu_torch.kernels import gemm
+
+    s = gemm.split_k(M, N, K, torch.cuda.get_device_properties(dev).multi_processor_count)
+    return s, f"tiles={-(-M // gemm.TILE) * -(-N // gemm.TILE)} s={s}"
+
+
+def k2_cases(dev):
+    """(tag, keep-alive, {label: (entry, args, out)} of the change (the
+    first: the wrapper's plan), (entry, args, out) of the parent)."""
+    import torch
+
+    import chip_smoke
+    from qserve_tpu_torch.kernels import _build, gemm
 
     g = torch.Generator(device=dev).manual_seed(2)
     cfg = chip_smoke.LLAMA3_8B
     E, I = cfg["hidden_size"], cfg["intermediate_size"]
     kv = E // cfg["num_attention_heads"] * cfg["num_key_value_heads"]
     linears = dict(gate_up=(E, 2 * I), qkv=(E, E + 2 * kv), o=(E, E), down=(I, E))
+    shapes = [("8B", M, n, *linears[n], False) for M, names in
+              ((64, linears), (2048, linears), (8, ["gate_up", "down"])) for n in names]
     cases = []
-    for M, names in ((64, linears), (2048, linears), (8, ["gate_up", "down"])):
-        for name in names:
-            K, N = linears[name]
-            a = torch.randint(-128, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
-            qw = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev,
-                               dtype=torch.int8)
-            asc = torch.rand(M, 1, generator=g, device=dev) * 0.05
-            asum = torch.randn(M, 1, generator=g, device=dev)
-            s1 = torch.rand(N, generator=g, device=dev) * 1e-3
-            sz = torch.rand(N, generator=g, device=dev) * 8e-3
-            outs = [torch.empty(M, N, dtype=torch.bfloat16, device=dev) for _ in range(2)]
-            p = [t.data_ptr() for t in (a, qw, s1, sz, asc, asum)]
-            args = [(*p, o.data_ptr(), M, N, K, _build.stream()) for o in outs]
-            cases.append((f"{name} M={M} K={K} N={N}", (a, qw, asc, asum, s1, sz),
-                          ("qs_w4a8_gemm_per_chn", args[0], outs[0]),
-                          ("qs_w4a8_gemm_per_chn", args[1], outs[1])))
+    for model, M, name, K, N, sweep in shapes + [(*d, True) for d in chip_smoke.DECODE_GEMMS]:
+        a = torch.randint(-128, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+        qw = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev,
+                           dtype=torch.int8)
+        asc = torch.rand(M, 1, generator=g, device=dev) * 0.05
+        asum = torch.randn(M, 1, generator=g, device=dev)
+        s1 = torch.rand(N, generator=g, device=dev) * 1e-3
+        sz = torch.rand(N, generator=g, device=dev) * 8e-3
+        outs = [torch.empty(M, N, dtype=torch.bfloat16, device=dev) for _ in range(2)]
+        p = [t.data_ptr() for t in (a, qw, s1, sz, asc, asum)]
+        s, grid = _plan(M, N, K, dev)
+        splits = {"change": s}
+        splits.update({f"change s={x}": x for x in (SWEEP if sweep else ())
+                       if x != s and x <= K // gemm.STEP})
+        change = {label: ("qs_w4a8_gemm_per_chn", (*p, outs[0].data_ptr(), M, N, K,
+                                                   *_split_args(x, dev), _build.stream()),
+                          outs[0]) for label, x in splits.items()}
+        cases.append((f"{model} {name} M={M} K={K} N={N} {grid}", (a, qw, asc, asum, s1, sz),
+                      change, ("qs_w4a8_gemm_per_chn",
+                               (*p, outs[1].data_ptr(), M, N, K, _build.stream()), outs[1])))
     st, dest, be, M, R, used = chip_smoke._routed_stream(dev, g)
     mix = chip_smoke.MIXTRAL_8X7B
     for name, K, N in (("routed gate_up", mix["hidden_size"], 2 * mix["intermediate_size"]),
@@ -188,27 +234,31 @@ def k2_cases(dev):
                            dtype=torch.int8)
         s1 = torch.rand(8, N, generator=g, device=dev) * 1e-3
         sz = torch.rand(8, N, generator=g, device=dev) * 8e-3
-        outs = [torch.empty(M, N, dtype=torch.bfloat16, device=dev) for _ in range(2)]
-        p = [t.data_ptr() for t in (a, qw, s1, sz, asc, asum, be)]
-        args = [(*p, o.data_ptr(), M, N, K, 256, _build.stream()) for o in outs]
-        cases.append((f"{name} M={M} ({R} live) K={K} N={N}",
-                      (a, qw, asc, asum, s1, sz, be),
-                      ("qs_w4a8_gemm_per_chn_routed", args[0], outs[0]),
-                      ("qs_w4a8_gemm_per_chn_routed", args[1], outs[1])))
+        head = (a, qw, s1, sz, asc, asum, be)
+        cases.append(_gemm_case(f"{name} M={M} ({R} live) K={K} N={N}", head,
+                                "qs_w4a8_gemm_per_chn_routed", head, (M, N, K),
+                                (M, N, K, 256), torch.bfloat16))
     return cases
 
 
-def _gemm_case(tag, keep, entry, head, out_shape, tail, dtype):
-    """(tag, keep-alive, (entry, args, out) of the change, the same of the
-    parent): the pointers `head`, then an output, then `tail`."""
+def _gemm_case(tag, keep, entry, head, mnk, tail, dtype):
+    """(tag and grid, keep-alive, {"change": (entry, args, out)}, (entry,
+    args, out) of the parent): the pointers `head`, then an output, then
+    `tail`; the change's calls then take the wrapper's split of the M x N x
+    K launch `mnk`."""
     import torch
 
     from qserve_tpu_torch.kernels import _build
 
-    outs = [torch.empty(out_shape, dtype=dtype, device=keep[0].device) for _ in range(2)]
-    args = [(*(t.data_ptr() for t in head), o.data_ptr(), *tail, _build.stream())
-            for o in outs]
-    return (tag, keep, (entry, args[0], outs[0]), (entry, args[1], outs[1]))
+    M, N, K = mnk
+    dev = keep[0].device
+    s, grid = _plan(M, N, K, dev)
+    outs = [torch.empty(M, N, dtype=dtype, device=keep[0].device) for _ in range(2)]
+    ptrs = [t.data_ptr() for t in head]
+    change = (*ptrs, outs[0].data_ptr(), *tail, *_split_args(s, dev), _build.stream())
+    parent = (*ptrs, outs[1].data_ptr(), *tail, _build.stream())
+    return (f"{tag} {grid}", keep, {"change": (entry, change, outs[0])},
+            (entry, parent, outs[1]))
 
 
 def _stream_acts(dev, g, st, K):
@@ -248,7 +298,7 @@ def k8_cases(dev):
         asc = torch.rand(M, 1, generator=g, device=dev) * 0.05
         head = (a, qw, s2, z2, s1, asc)
         cases.append(_gemm_case(f"{name} M={M} K={K} N={N} G={G}", head,
-                                "qs_w4a8_gemm_per_group", head, (M, N), (0, M, N, K, G),
+                                "qs_w4a8_gemm_per_group", head, (M, N, K), (0, M, N, K, G),
                                 torch.bfloat16))
     st = chip_smoke._routed_stream(dev, g)
     be, M, R, ne = st[2], st[3], st[4], mix["num_local_experts"]
@@ -259,7 +309,7 @@ def k8_cases(dev):
         s1 = torch.rand(ne, N, generator=g, device=dev) * 1e-3
         head = (a, qw, s2, z2, s1, asc, be)
         cases.append(_gemm_case(f"{name} M={M} ({R} live) K={K} N={N} G={G}", head,
-                                "qs_w4a8_gemm_per_group_routed", head, (M, N),
+                                "qs_w4a8_gemm_per_group_routed", head, (M, N, K),
                                 (M, N, K, G, 256), torch.bfloat16))
     return cases
 
@@ -289,7 +339,7 @@ def k9_cases(dev):
         asc = torch.rand(M, 1, generator=g, device=dev) * 0.05
         head = (a, qw, ws, asc)
         cases.append(_gemm_case(f"{name} M={M} K={E} N={N}", head, "qs_w8a8_gemm", head,
-                                (M, N), (int(dtype == torch.float32), M, N, E), dtype))
+                                (M, N, E), (int(dtype == torch.float32), M, N, E), dtype))
     st = chip_smoke._routed_stream(dev, g)
     be, M, R, ne = st[2], st[3], st[4], mix["num_local_experts"]
     for name, K, N in (("routed gate_up", E, 2 * mix["intermediate_size"]),
@@ -298,7 +348,7 @@ def k9_cases(dev):
         qw, ws = i8(ne, K, N), torch.rand(ne, N, generator=g, device=dev) * 1e-3
         head = (a, qw, ws, asc, be)
         cases.append(_gemm_case(f"{name} M={M} ({R} live) K={K} N={N}", head,
-                                "qs_w8a8_gemm_routed", head, (M, N), (M, N, K, 256),
+                                "qs_w8a8_gemm_routed", head, (M, N, K), (M, N, K, 256),
                                 torch.bfloat16))
     return cases
 
@@ -331,6 +381,9 @@ def kernels(opts):
             out = proc.communicate()[0]
             assert proc.returncode == 0, f"{tree} {stem}: nvcc failed\n{out}"
             libs[(tree, stem)] = ctypes.CDLL(so)
+            for line in out.splitlines():  # ptxas: each kernel's registers
+                if "Compiling entry" in line or "Used" in line or "spill" in line:
+                    print(f"  {tree} {stem}: {line.strip()}")
 
         def fn(tree, stem, name, argtypes):
             f = getattr(libs[(tree, stem)], name)
@@ -357,14 +410,14 @@ def kernels(opts):
                        paged_attention._ARGS)
                 for label in (labels if tree == "change" else labels[:1]):
                     key = ("K4", tag, label if tree == "change" else f"{tree} {label}")
-                    calls[key] = lambda f=f, a=change[label]: f(*a)
+                    calls[key] = lambda f=f, a=change[label]: f(*a[:-1], _build.stream())
                     wrote[key] = outs[0]
             if opts.parent:
                 fp = fn("parent", "paged_attention", "qs_paged_decode_attention",
                         k4_parent_args)
-                calls[("K4", tag, "parent")] = lambda f=fp, a=parent: f(*a)
+                calls[("K4", tag, "parent")] = lambda f=fp, a=parent: f(*a[:-1], _build.stream())
                 ref[("K4", tag)] = outs[1]
-        # the C entry points' argument lists: the same in the parent
+        # the C entry points' argument lists; the parent's take no K split
         argtypes = {"qs_w4a8_gemm_per_chn": gemm._ARGS,
                     "qs_w4a8_gemm_per_chn_routed": gemm._ARGS_ROUTED,
                     "qs_w4a8_gemm_per_group": gemm._ARGS_GROUP,
@@ -374,14 +427,16 @@ def kernels(opts):
         for kernel, cases in gemm_cases.items():
             stem = GEMMS[kernel]
             variants = [v for v, (st, _) in VARIANTS.items() if st == stem]
-            for tag, _, (name, args, out), (pname, pargs, pout) in cases:
-                for tree in ["change"] + variants:
-                    f = fn(tree, stem, name, argtypes[name])
-                    calls[(kernel, tag, tree)] = lambda f=f, a=args: f(*a)
-                    wrote[(kernel, tag, tree)] = out
+            for tag, _, change, (pname, pargs, pout) in cases:
+                for label, (name, args, out) in change.items():
+                    for tree in ["change"] + (variants if label == "change" else []):
+                        f = fn(tree, stem, name, argtypes[name])
+                        key = (kernel, tag, label if tree == "change" else tree)
+                        calls[key] = lambda f=f, a=args: f(*a[:-1], _build.stream())
+                        wrote[key] = out
                 if opts.parent:
-                    f = fn("parent", stem, pname, argtypes[pname])
-                    calls[(kernel, tag, "parent")] = lambda f=f, a=pargs: f(*a)
+                    f = fn("parent", stem, pname, argtypes[pname][:-4] + [_build.P])
+                    calls[(kernel, tag, "parent")] = lambda f=f, a=pargs: f(*a[:-1], _build.stream())
                     ref[(kernel, tag)] = pout
         # the parent's outputs first, then each of the change's against them;
         # a call that fails its check is reported and not timed
@@ -405,7 +460,7 @@ def kernels(opts):
         keys = list(calls)
         for r in range(opts.rounds):  # parent, change, change, parent, ...
             for key in (keys if r % 2 else keys[::-1]):
-                times[key].append(device_ms(calls[key]))
+                times[key].append(chip_smoke.device_ms(calls[key]))
     print(smi())
     if failed:
         print(f"{len(failed)} calls failed their check: {failed}")

@@ -526,11 +526,13 @@ def k9_stage_transpose(wtile):
     return _store_tile(quad, [_transpose(wtile[32 * h:32 * h + 32], quad) for h in (0, 1)])
 
 
-def k8_stage_level2(packed, s2, z2, G):
+def k8_stage_level2(packed, s2, z2, G, slices=None):
     """csrc/w4a8_gemm_per_group.cu's StageW4Group over a whole [K/2, 128]
     column tile, all 256 threads at once: K2's transpose, the per-word
     (s2, z2) reconstruction and the per-plane group counters, each group's
-    words loaded one step ahead of their use. Returns W8 uint8 [K, 128]
+    words loaded one step ahead of their use. With `slices` ([(s0, s1)]
+    step ranges of a K split), one stage per slice, constructed at its
+    first step as a split block constructs it. Returns W8 uint8 [K, 128]
     from the K-major tiles."""
     quad = _quad()
     _, cq, f, _ = quad
@@ -540,14 +542,14 @@ def k8_stage_level2(packed, s2, z2, G):
     z2w = z2.copy().view(np.uint32)
     c = ((np.arange(4)[:, None] + f) & 3).astype(np.uint32)  # [jj, thread]
     sel_s, sel_z = 0x4440 | c, 0x4040 | c | (c << 8)
-    st = dict(lo_g=0, hi_g=K2 // G, lo_next=0, hi_next=0)
+    st = {}
 
     def load(s):
         r0 = 32 * s
         if r0 == st["lo_next"]:
             st["s2lo"], st["z2lo"] = s2w[st["lo_g"], cq], z2w[st["lo_g"], cq]
             st["lo_g"] += 1
-            st["lo_next"] += G
+            st["lo_next"] = st["lo_g"] * G
         if r0 == st["hi_next"]:
             st["s2hi"], st["z2hi"] = s2w[st["hi_g"], cq], z2w[st["hi_g"], cq]
             st["hi_g"] += 1
@@ -558,21 +560,24 @@ def k8_stage_level2(packed, s2, z2, G):
 
     zero = np.zeros(256, np.uint32)
     w8 = np.zeros((K, 128), np.uint8)
-    load(0)
-    for s in range(K // 64):
-        col = _transpose(packed[32 * s:32 * s + 32], quad)
-        halves = ([], [])
-        for jj, w in enumerate(col):
-            for h, (plane, shift) in enumerate((("lo", 0), ("hi", 4))):
-                sc = _byte_perm(st["s2" + plane], zero, sel_s[jj])
-                zz = _byte_perm(st["z2" + plane], zero, sel_z[jj])
-                halves[h].append(level2((w >> shift) & 0x000F000F,
-                                        (w >> (shift + 8)) & 0x000F000F, sc, zz))
-        if s + 1 < K // 64:
-            load(s + 1)
-        tile = _store_tile(quad, halves)
-        w8[32 * s:32 * s + 32] = tile[:, :32].T
-        w8[K2 + 32 * s:K2 + 32 * s + 32] = tile[:, 32:].T
+    for s0, s1 in slices or [(0, K // 64)]:
+        r0 = 32 * s0  # the stage as constructed at the slice's first step
+        st.update(lo_g=r0 // G, hi_g=(K2 + r0) // G, lo_next=r0, hi_next=r0)
+        load(s0)
+        for s in range(s0, s1):
+            col = _transpose(packed[32 * s:32 * s + 32], quad)
+            halves = ([], [])
+            for jj, w in enumerate(col):
+                for h, (plane, shift) in enumerate((("lo", 0), ("hi", 4))):
+                    sc = _byte_perm(st["s2" + plane], zero, sel_s[jj])
+                    zz = _byte_perm(st["z2" + plane], zero, sel_z[jj])
+                    halves[h].append(level2((w >> shift) & 0x000F000F,
+                                            (w >> (shift + 8)) & 0x000F000F, sc, zz))
+            if s + 1 < K // 64:
+                load(s + 1)
+            tile = _store_tile(quad, halves)
+            w8[32 * s:32 * s + 32] = tile[:, :32].T
+            w8[K2 + 32 * s:K2 + 32 * s + 32] = tile[:, 32:].T
     return w8
 
 
@@ -627,3 +632,20 @@ def test_k8_stage_level2_is_the_level2_reconstruction(shape, bytes_):
                         jnp.asarray(z2), jnp.ones(N)), G)
     got = k8_stage_level2(packed.view(np.uint8), s2.view(np.uint8), z2.view(np.uint8), G)
     np.testing.assert_array_equal(got.view(np.int8), np.asarray(want))
+
+
+@pytest.mark.parametrize("splits", [2, 3, 5])
+@pytest.mark.parametrize("shape", sorted(_K8_STAGE))
+def test_k8_stage_level2_from_a_slice_start(shape, splits):
+    """A split block's K8 stage starts at its slice's first step, which may
+    lie inside a group of either plane (tiled at 3 and 5 slices, and
+    straddling, where a group crosses the planes): each slice's
+    reconstruction is the whole stage's, which the test above holds to the
+    JAX package."""
+    K, G = _K8_STAGE[shape]
+    r = np.random.default_rng(K + G + splits)
+    packed, s2, z2 = (r.integers(0, 256, sh).astype(np.uint8)
+                      for sh in ((K // 2, 128), (K // G, 128), (K // G, 128)))
+    slices = [(z * (K // 64) // splits, (z + 1) * (K // 64) // splits) for z in range(splits)]
+    np.testing.assert_array_equal(k8_stage_level2(packed, s2, z2, G, slices),
+                                  k8_stage_level2(packed, s2, z2, G))
