@@ -501,19 +501,9 @@ def _moe_mlp(
     the tokens an expert does not serve (decode reads every expert's
     weights either way).
 
-    Runs inside span `model.moe`, of kind `routed` or `masked`, and counts
-    (utils/tracing.count) the live (token, expert) rows, T k, as
+    Counts (utils/tracing.count) the live (token, expert) rows, T k, as
     `moe_live_rows` and the rows the expert GEMMs compute, T NE masked or
     the routed stream's P, as `moe_expert_rows`."""
-    routed = (x.shape[0] >= args.moe_route_min_tokens and lin.supports_routed(gu_p)
-              and lin.supports_routed(down_p))
-    with tracing.span("model.moe") as sp:
-        if sp is not None:
-            sp.kind = "routed" if routed else "masked"
-        return _moe_dispatch(router, gu_p, down_p, x, args, int8_act, gs, routed)
-
-
-def _moe_dispatch(router, gu_p, down_p, x, args, int8_act, gs, routed):
     T = x.shape[0]
     n_exp = args.num_experts
     router_logits = ops.matmul(x, router.to(torch.bfloat16), torch.float32)
@@ -524,7 +514,8 @@ def _moe_dispatch(router, gu_p, down_p, x, args, int8_act, gs, routed):
     topv = topv / topv.sum(dim=-1, keepdim=True)  # [T, k]
     tracing.count("moe_live_rows", T * args.moe_top_k)
 
-    if routed:
+    if (T >= args.moe_route_min_tokens and lin.supports_routed(gu_p)
+            and lin.supports_routed(down_p)):
         return _moe_routed_ffn(gu_p, down_p, x, topv, topi, args, int8_act, gs)
 
     tracing.count("moe_expert_rows", T * n_exp)

@@ -21,6 +21,40 @@ class Worker:
         model_runner.capture_decode_graphs(cache_engine)
 
     @classmethod
+    def _wire(
+        cls,
+        make_runner,
+        model_args: llama.LlamaArgs,
+        cache_config: CacheConfig,
+        scheduler_config: SchedulerConfig,
+        device,
+        tp_size: int = 1,
+        **runner_kw,
+    ) -> "Worker":
+        """The runner make_runner(**keywords) returns, given the keywords
+        every runner takes from the configs and `runner_kw`; then the cache
+        of model_args' layers and this rank's kv heads, made after the
+        runner, so that a runner that makes its weights does so before the
+        KV pool takes its memory."""
+        runner = make_runner(
+            max_model_len=scheduler_config.max_model_len,
+            block_size=cache_config.block_size,
+            max_num_batched_tokens=scheduler_config.max_num_batched_tokens,
+            max_num_seqs=scheduler_config.max_num_seqs,
+            device=device,
+            **runner_kw,
+        )
+        cache_engine = CacheEngine(
+            num_layers=model_args.num_layers,
+            num_kv_heads=model_args.num_kv_heads,
+            head_dim=model_args.head_dim,
+            cache_config=cache_config,
+            device=device,
+            tp_size=tp_size,
+        )
+        return cls(runner, cache_engine)
+
+    @classmethod
     def create(
         cls,
         model_args: llama.LlamaArgs,
@@ -31,26 +65,13 @@ class Worker:
         device="cuda",
         benchmarking: bool = False,
     ) -> "Worker":
-        kw = dict(
-            max_model_len=scheduler_config.max_model_len,
-            block_size=cache_config.block_size,
-            max_num_batched_tokens=scheduler_config.max_num_batched_tokens,
-            max_num_seqs=scheduler_config.max_num_seqs,
-            device=device,
-            benchmarking=benchmarking,
-        )
-        if params is None:
-            runner = ModelRunner.from_random(model_args, seed=seed, **kw)
-        else:
-            runner = ModelRunner(params, model_args, rng_seed=seed, **kw)
-        cache_engine = CacheEngine(
-            num_layers=model_args.num_layers,
-            num_kv_heads=model_args.num_kv_heads,
-            head_dim=model_args.head_dim,
-            cache_config=cache_config,
-            device=device,
-        )
-        return cls(runner, cache_engine)
+        def make_runner(**kw):
+            if params is None:
+                return ModelRunner.from_random(model_args, seed=seed, **kw)
+            return ModelRunner(params, model_args, rng_seed=seed, **kw)
+
+        return cls._wire(make_runner, model_args, cache_config, scheduler_config, device,
+                         benchmarking=benchmarking)
 
     @classmethod
     def create_tp(
@@ -71,28 +92,14 @@ class Worker:
         must exist (parallel/distributed.py)."""
         from qserve_tpu_torch.worker.tp_runner import TPModelRunner
 
-        kw = dict(
-            max_model_len=scheduler_config.max_model_len,
-            block_size=cache_config.block_size,
-            max_num_batched_tokens=scheduler_config.max_num_batched_tokens,
-            max_num_seqs=scheduler_config.max_num_seqs,
-            dp_size=dp_size,
-            device=device,
-        )
-        if params is not None:
-            runner = TPModelRunner(params, model_args, tp_size=tp_size, rng_seed=seed, **kw)
-        else:
-            runner = TPModelRunner.from_float_tp(
+        def make_runner(**kw):
+            if params is not None:
+                return TPModelRunner(params, model_args, tp_size=tp_size, rng_seed=seed, **kw)
+            return TPModelRunner.from_float_tp(
                 float_params, model_args, tp_size=tp_size, rng_seed=seed, **kw)
-        cache_engine = CacheEngine(
-            num_layers=model_args.num_layers,
-            num_kv_heads=model_args.num_kv_heads,
-            head_dim=model_args.head_dim,
-            cache_config=cache_config,
-            device=device,
-            tp_size=tp_size,
-        )
-        return cls(runner, cache_engine)
+
+        return cls._wire(make_runner, model_args, cache_config, scheduler_config, device,
+                         tp_size=tp_size, dp_size=dp_size)
 
     @classmethod
     def create_vlm(
@@ -107,26 +114,12 @@ class Worker:
         """VLM worker: VLMModelRunner over the same cache machinery."""
         from qserve_tpu_torch.worker.vlm_runner import VLMModelRunner
 
-        kw = dict(
-            max_model_len=scheduler_config.max_model_len,
-            block_size=cache_config.block_size,
-            max_num_batched_tokens=scheduler_config.max_num_batched_tokens,
-            max_num_seqs=scheduler_config.max_num_seqs,
-            device=device,
-        )
-        if params is None:
-            runner = VLMModelRunner.from_random_vlm(vila_args, seed=seed, **kw)
-        else:
-            runner = VLMModelRunner(params, vila_args, rng_seed=seed, **kw)
-        largs = vila_args.llm
-        cache_engine = CacheEngine(
-            num_layers=largs.num_layers,
-            num_kv_heads=largs.num_kv_heads,
-            head_dim=largs.head_dim,
-            cache_config=cache_config,
-            device=device,
-        )
-        return cls(runner, cache_engine)
+        def make_runner(**kw):
+            if params is None:
+                return VLMModelRunner.from_random_vlm(vila_args, seed=seed, **kw)
+            return VLMModelRunner(params, vila_args, rng_seed=seed, **kw)
+
+        return cls._wire(make_runner, vila_args.llm, cache_config, scheduler_config, device)
 
     def execute_model(
         self,

@@ -39,6 +39,7 @@ from qserve_tpu_torch.models import loader as tloader
 from qserve_tpu_torch.models import mixtral as tmixtral
 from qserve_tpu_torch.sampling_params import SamplingParams as TSP
 from qserve_tpu_torch.utils import weight_utils as wu
+import torch_port_util  # noqa: F401  (one torch thread a test process)
 
 CFG = dict(
     architectures=["LlamaForCausalLM"], vocab_size=256, hidden_size=128,

@@ -30,6 +30,7 @@ from qserve_tpu_torch.models import llama as tllama
 from qserve_tpu_torch.quant import qoq
 from qserve_tpu_torch.utils import weight_utils as wu
 from test_torch_checkpoint import CFG, _assert_bit_equal, _hf_state, _write_hf
+import torch_port_util  # noqa: F401  (one torch thread a test process)
 
 # a byte-level vocabulary with BOS 256, as load_calib_windows draws
 CFG_BYTES = dict(CFG, vocab_size=384)

@@ -34,6 +34,7 @@ from qserve_tpu_torch.sampling_params import SamplingParams
 from qserve_tpu_torch.utils import tracing
 from qserve_tpu_torch.worker import model_runner as mr
 from qserve_tpu_torch.worker.worker import Worker
+import torch_port_util  # noqa: F401  (one torch thread a test process)
 
 BS = 16
 GEO = dict(vocab_size=128, hidden_size=128, intermediate_size=256, num_layers=2,

@@ -22,6 +22,7 @@ from qserve_tpu.kernels import pallas_sampler as jps
 from qserve_tpu.layers import sampler as jsampler
 from qserve_tpu_torch.kernels import elementwise, sampler as ksampler
 from qserve_tpu_torch.layers import sampler as tsampler
+import torch_port_util  # noqa: F401  (one torch thread a test process)
 
 # full-size widths (Llama-3-8B, Llama-2-7B, Qwen2-0.5B), the CPU tests' and
 # chip_smoke.py's small models', 2 short of a multiple of 8, and rows of 1

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from qserve_tpu_torch.kernels import gemm, ops
+import torch_port_util  # noqa: F401  (one torch thread a test process)
 
 SMS = 132  # an H100 SXM
 

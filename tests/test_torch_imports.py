@@ -18,6 +18,7 @@ import subprocess
 import sys
 
 import pytest
+import torch_port_util  # noqa: F401  (one torch thread a test process)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "qserve_tpu_torch")

@@ -35,6 +35,7 @@ from qserve_tpu_torch.quant import qoq
 from qserve_tpu_torch.sampling_params import SamplingParams
 from qserve_tpu_torch.utils import tracing
 from qserve_tpu_torch.worker.worker import Worker
+import torch_port_util  # noqa: F401  (one torch thread a test process)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CATALOG = os.path.join(ROOT, "qbench", "configs", "mellum2-12b-a2.5b.w4a8kv4.json")

@@ -14,6 +14,7 @@ import pytest
 
 from qserve_tpu import native as jnative
 from qserve_tpu_torch import native
+import torch_port_util  # noqa: F401  (one torch thread a test process)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -25,6 +25,7 @@ from qserve_tpu_torch.config import QuantSpec as TQuantSpec
 from qserve_tpu_torch.convert.from_jax import params_from_numpy
 from qserve_tpu_torch.eval.ppl import evaluate_ppl
 from qserve_tpu_torch.models import llama as tllama
+import torch_port_util  # noqa: F401  (one torch thread a test process)
 
 TINY = dict(
     vocab_size=256, hidden_size=128, intermediate_size=256,

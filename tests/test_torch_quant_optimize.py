@@ -35,6 +35,7 @@ from qserve_tpu_torch.config import QuantSpec as TQuantSpec
 from qserve_tpu_torch.kernels import attention, ops
 from qserve_tpu_torch.models import llama as tllama
 from qserve_tpu_torch.quant import optimize, qoq
+import torch_port_util  # noqa: F401  (one torch thread a test process)
 
 GEO = dict(vocab_size=384, hidden_size=128, intermediate_size=256, num_layers=2,
            num_heads=4, num_kv_heads=2, head_dim=32)

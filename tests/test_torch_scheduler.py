@@ -12,6 +12,7 @@ import qserve_tpu_torch.config as tconfig
 import qserve_tpu_torch.core.scheduler as tsched
 import qserve_tpu_torch.sampling_params as tsp
 import qserve_tpu_torch.sequence as tseq
+import torch_port_util  # noqa: F401  (one torch thread a test process)
 
 BS = 16
 

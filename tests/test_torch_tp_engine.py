@@ -52,6 +52,7 @@ from qserve_tpu.worker.worker import Worker as JWorker
 from qserve_tpu_torch.engine.arg_utils import EngineArgs
 from qserve_tpu_torch.models import llama as tllama
 from qserve_tpu_torch.parallel import distributed, dryrun
+import torch_port_util  # noqa: F401  (one torch thread a test process)
 
 ATOL = 1e-2
 PS, PAGES = 16, 16

@@ -14,6 +14,7 @@ from qserve_tpu_torch.models import llama, mixtral
 from qserve_tpu_torch.sampling_params import SamplingParams
 from qserve_tpu_torch.utils import tracing
 from qserve_tpu_torch.worker.worker import Worker
+import torch_port_util  # noqa: F401  (one torch thread a test process)
 
 BS = 16
 DENSE = dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_layers=2,
@@ -109,38 +110,40 @@ def test_a_decode_step_nests_its_phases_under_the_profiler():
     assert tracing.spans() == []
 
 
-def test_moe_span_once_per_layer_under_the_forward():
+def test_moe_counts_once_per_layer_under_the_forward():
+    """An eager MoE step's forward holds one `moe_live_rows` and one
+    `moe_expert_rows` sample a layer, and no span of its own."""
     eng = _engine(moe=True)
     _add(eng, (12, 20))
     _profiled(eng)
-    spans = tracing.spans()
+    spans, samples = tracing.spans(), tracing.samples()
     forwards = [s for s in spans if s.name == "runner.forward"]
     assert forwards
     for fwd in forwards:
-        moe = _children(spans, fwd)
-        assert [s.name for s in moe] == ["model.moe"] * DENSE["num_layers"]
-        assert all(s.step == fwd.step for s in moe)
+        assert _children(spans, fwd) == []
+        inside = [s.name for s in samples
+                  if s.step == fwd.step and fwd.start_ns <= s.t_ns <= fwd.end_ns]
+        assert inside == ["moe_live_rows", "moe_expert_rows"] * DENSE["num_layers"]
 
 
-def test_moe_span_kind_and_counter_samples_under_the_profiler():
-    """Each model.moe span names its dispatch (decode: the masked loop);
-    each MoE layer counts its live rows, T k, and the rows its experts
-    computed, T NE masked; the samples sit inside their step's forward and
-    the totals grow by as much."""
+def test_moe_masked_dispatch_and_counter_samples_under_the_profiler():
+    """Each MoE layer counts its live rows, T k, and the rows its experts
+    computed: T NE, the masked loop's, as every stream here is under 1024
+    rows; the samples sit inside their step's forward and the totals grow
+    by as much."""
     eng = _engine(moe=True)
     before = tracing.totals()
     _add(eng, (12, 20))
     _profiled(eng)
     spans, samples = tracing.spans(), tracing.samples()
     assert all(s.value is not None for s in samples) and samples
-    moe = [s for s in spans if s.name == "model.moe"]
-    assert {s.kind for s in moe} == {"masked"}  # every stream under 1024 rows
     fwd = {s.step: s for s in spans if s.name == "runner.forward"}
     live = [s for s in samples if s.name == "moe_live_rows"]
     rows = [s for s in samples if s.name == "moe_expert_rows"]
-    assert len(live) == len(rows) == len(moe)
+    assert len(live) == len(rows) == len(fwd) * DENSE["num_layers"]
     for a, b in zip(live, rows):
-        assert b.value == 2 * a.value  # 4 experts, top-2
+        T = a.value // 2  # top-2
+        assert a.step == b.step and b.value == T * 4  # T NE of 4 experts: masked
         f = fwd[a.step]
         assert f.start_ns <= a.t_ns <= f.end_ns
     after = tracing.totals()
@@ -193,7 +196,7 @@ def test_no_profiler_event_carries_a_span_name():
     _add(eng, (12, 20))
     _, prof = _profiled(eng)
     names = {s.name for s in tracing.spans()}
-    assert {"engine.step", "runner.forward", "model.moe"} <= names
+    assert {"engine.step", "runner.forward", "runner.sample"} <= names
     events = {e.name() for e in prof.profiler.kineto_results.events()}
     assert events and not names & events
 

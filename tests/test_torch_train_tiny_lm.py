@@ -28,6 +28,7 @@ from qserve_tpu.models import loader as jloader
 from qserve_tpu_torch.config import QuantSpec as TQ
 from qserve_tpu_torch.models import loader as tloader
 from qserve_tpu_torch.utils import weight_utils as wu
+import torch_port_util  # noqa: F401  (one torch thread a test process)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(hidden=128, inter=256, layers=2, heads=2, kv_heads=1)

@@ -20,6 +20,7 @@ import pytest  # noqa: E402
 from qserve_tpu.utils import webdataset as jwds  # noqa: E402
 from qserve_tpu_torch.utils import webdataset as twds  # noqa: E402
 from test_vlm_caption import make_tar  # noqa: E402
+import torch_port_util  # noqa: E402, F401  (one torch thread a test process)
 
 
 def test_iter_samples_and_first_image(tmp_path):

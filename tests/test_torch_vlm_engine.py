@@ -42,6 +42,7 @@ from qserve_tpu_torch.sampling_params import SamplingParams as TSP  # noqa: E402
 from qserve_tpu_torch.utils.constants import IMAGE_TOKEN_INDEX as IMG  # noqa: E402
 from qserve_tpu_torch.worker.worker import Worker  # noqa: E402
 from test_vlm_engine import _image, tiny_vila_args  # noqa: E402
+import torch_port_util  # noqa: E402, F401  (one torch thread a test process)
 
 PAGES = 64
 # a long image prompt: 30 text ids, one image (4 markers), 8 text ids; at a

@@ -1,10 +1,23 @@
 """Shared helpers of the tests/test_torch_*.py parity tests: move numpy data
 between the JAX package and its PyTorch port, and build the same tiny
-geometry on both sides."""
+geometry on both sides. Every test_torch_*.py imports this module, so its
+thread setting holds whichever files a run selects."""
+
+import os
 
 import jax
 import numpy as np
 import torch
+
+# One intra-op thread a test process. The suite runs six pytest-xdist workers
+# on an 8-core host, and each worker's torch would otherwise start a pool of 8
+# threads: 48 threads spinning on 8 cores. On such a host
+# test_torch_mellum.py alone ran in 19.2 s; six copies at once did not finish
+# in 250 s with the default pools, and took 19.2-19.8 s each with one thread.
+# The environment variable reaches the processes a test starts (the gloo
+# ranks of parallel/distributed.spawn); set_num_threads, this one.
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 from qserve_tpu.config import QuantSpec as JQuantSpec
 from qserve_tpu.models import llama as jllama
