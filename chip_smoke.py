@@ -45,13 +45,18 @@
    memory of it and of its plain chain at the 8B prefill. The build report
    counts the tensor-core instructions in the SASS of K3, K6 and the three
    GEMM libraries (K2, K8, K9) and fails on none; the GEMMs must show
-   wgmma's (IGMMA) and no mma.sync (IMMA).
+   wgmma's (IGMMA) and no mma.sync (IMMA). Phase moe_broadcast: one MoE
+   layer of Mixtral-8x7B (T = 16 and 128) and of Mellum2-12B-A2.5B (T = 32)
+   at full width, the broadcast stream against the masked loop bit for bit,
+   eager and replayed from a CUDA graph, each timed.
 3. Reference phase: a small model (reference_args, reference_steps)
    served by the kernels on the card and by the plain versions on the CPU
    (prefill, decode, one chunk step, one mixed chunk+decode step) at
    W4A8KV4 per-channel, W4A8KV4 g128, W4A8KV8 g128 with the W8 lm_head,
    W8A8KV8 with the W8 lm_head and W16A16KV8, and a small Mixtral (4
-   experts, top-2, routed in 128-row blocks from 16 rows up) at W4A8KV4 per-channel, W4A8KV4 g128, W8A8KV8 and W16A16KV8; logits
+   experts, top-2, every stream routed in 128-row blocks: as the broadcast
+   stream, then again with the sorted one forced) at W4A8KV4 per-channel,
+   W4A8KV4 g128, W8A8KV8 and W16A16KV8; logits
    must agree at every step, and so must the Mixtral's router probabilities
    (within 5e-3), the CPU giving a token whose experts differ the card's.
 4. Engine phase: EngineArgs -> LLMEngine at full width and depth (32
@@ -121,9 +126,9 @@
    e. Llama-3-8B W8A8KV8, the same traffic;
    f. Llama-3-8B W16A16KV8, the same traffic: the attention, append and
       sampling kernels over bf16 library products, no quantizing kernel;
-   g. Mixtral-8x7B W4A8KV4 per-channel, the same traffic: steps of 1024
-      rows or more take the routed GEMMs (2 a layer), shorter ones the
-      masked loop over all 8 experts (18 dense GEMMs a layer);
+   g. Mixtral-8x7B W4A8KV4 per-channel, the same traffic: every step
+      takes the routed GEMMs (2 a layer, beside 2 dense ones), decode's
+      short streams as the broadcast stream, long steps the sorted one;
    h. Mixtral-8x7B W4A8KV4 g128, the same;
    i. Mixtral-8x7B W8A8KV8, the same.
    Every kernel a path's precision calls must have launched on it, and the
@@ -187,8 +192,8 @@
       fraction of free memory, then take the least count);
    m. Mixtral-8x7B W4A8KV4 per-channel at full width, cut to 4 of its 32
       layers (the script's time limit), the same traffic as l's second
-      part: routed K2 at the local N = 14336 / K = 7168 on steps of 1024
-      rows or more, the masked loop at decode.
+      part: routed K2 at the local N = 14336 / K = 7168 on every step,
+      broadcast at decode, sorted on the long steps.
    Both ranks' streams must be equal; each rank must have launched the
    path's kernels and no K8 or K9, and every step 2 all_reduces a layer
    and 1 all_gather. Per rank: step ms by kind (host clock, CUDA events),
@@ -921,6 +926,110 @@ def phase_gemm_split(res, dev):
         f"doc-batch chunk's {P} rows: no split")
 
 
+# one MoE layer of each MoE configuration the benchmark cells serve, at its
+# published widths (qbench/configs/): Mixtral-8x7B (8 experts of 14336,
+# top-2) and Mellum2-12B-A2.5B (64 experts of 896, top-8)
+MOE_LAYERS = dict(
+    mixtral=dict(hidden_size=4096, intermediate_size=14336, num_heads=32, num_kv_heads=8,
+                 head_dim=128, num_experts=8, moe_top_k=2),
+    mellum=dict(hidden_size=2304, intermediate_size=896, num_heads=32, num_kv_heads=4,
+                head_dim=128, num_experts=64, moe_top_k=8),
+)
+# the cells' decode rows: Mixtral's doc-batch (16) and decode-batch (128),
+# Mellum's code-repo (32)
+MOE_DECODE_CASES = (("mixtral", 16), ("mixtral", 128), ("mellum", 32))
+
+
+def moe_layer(dev, model, seed=0):
+    """One MoE layer of MOE_LAYERS[model], W4A8 per-channel random weights
+    on dev (models/mixtral.py random_quantized_params). Returns (args,
+    (gate_up, down) expert linears, norm(h) -> the layer's MoE input,
+    ffn(x, masked=False) -> f32 [T, E]: models/llama.py `_moe_mlp` at the
+    engine's dispatch, or with masked the masked loop over every expert)."""
+    import dataclasses
+
+    import torch
+
+    from qserve_tpu_torch.config import QuantSpec
+    from qserve_tpu_torch.kernels import ops
+    from qserve_tpu_torch.models import llama, mixtral
+
+    args = llama.LlamaArgs(quant=QuantSpec.from_precision("w4a8kv4"), vocab_size=512,
+                           num_layers=1, **MOE_LAYERS[model])
+    layers = mixtral.random_quantized_params(seed, args, device=dev).layers
+    router, gu, down, post_ln = (layers.router[0], layers.gate_up.layer(0),
+                                 layers.down.layer(0), layers.post_ln[0])
+    loop = dataclasses.replace(args, moe_route_min_tokens=10**9)
+
+    def norm(h):
+        return ops.rmsnorm(h.to(torch.bfloat16), post_ln, args.rms_eps)
+
+    def ffn(x, masked=False):
+        return llama._moe_mlp(router, gu, down, x, loop if masked else args, True, 128)
+
+    return args, (gu, down), norm, ffn
+
+
+def phase_moe_broadcast(res, dev):
+    """The MoE dispatch at the cells' decode shapes (MOE_DECODE_CASES):
+    the broadcast stream (one routed K2 launch a GEMM, every expert a block
+    of all the step's rows) against the masked loop over every expert, bit
+    for bit; the broadcast dispatch captured in a CUDA graph and replayed
+    over fresh rows, bit for bit again (the decode graphs capture it); the
+    port launches a call and the device time of each (20 calls in a CUDA
+    graph). Random W4A8 per-channel weights, a random router."""
+    import torch
+
+    from qserve_tpu_torch.kernels import _build
+    from qserve_tpu_torch.models import llama
+
+    for model, T in MOE_DECODE_CASES:
+        args, _, norm, ffn = moe_layer(dev, model)
+        g = torch.Generator(device=dev).manual_seed(T)
+        NE, k = args.num_experts, args.moe_top_k
+        broadcast, P = llama.moe_stream(T, k, NE, args.moe_route_block)
+        assert broadcast, (model, T, P)
+        tag = f"{model} T={T} (top-{k} of {NE}, a {P}-row stream)"
+
+        def fresh():
+            return norm(torch.randn(T, args.hidden_size, generator=g, device=dev))
+
+        def launched(masked):
+            """ffn(x, masked) and the port launches it made."""
+            before = dict(_build.LAUNCHES)
+            out = ffn(x, masked)
+            return out, sum(v - before.get(n, 0) for n, v in _build.LAUNCHES.items())
+
+        x = fresh()
+        (want, n_masked), (out, n_broadcast) = launched(True), launched(False)
+        assert torch.isfinite(want).all() and want.abs().max() > 0, tag
+        assert torch.equal(out, want), \
+            f"{tag}: broadcast vs masked max err {(out - want).abs().max().item()}"
+        # a CUDA graph of the broadcast dispatch over a static input
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ffn(x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static_out = ffn(x)
+        x2 = fresh()
+        x.copy_(x2)
+        graph.replay()
+        torch.cuda.synchronize()
+        want2 = ffn(x2, masked=True)
+        assert torch.equal(static_out, want2), f"{tag}: the replayed broadcast differs"
+        del graph, static_out
+        ms = {m: device_ms(lambda m=m: ffn(x, m)) for m in (True, False)}
+        log(f"  {tag}: broadcast == masked loop bit for bit, eager and replayed; "
+            f"port launches a call {n_masked} masked -> {n_broadcast} broadcast; "
+            f"device ms (20 calls in a CUDA graph) {ms[True]:.4g} masked -> "
+            f"{ms[False]:.4g} broadcast")
+        del ffn, norm
+        torch.cuda.empty_cache()
+
+
 def phase_flash(res, dev):
     import torch
     import torch.nn.functional as F
@@ -1547,14 +1656,14 @@ REFERENCE_GEO = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
 def reference_args(precision: str, group_size: int = -1, lm_head_bits: int = 16,
                    moe: bool = False, tp_size: int = 1):
     """The small reference model: a dense Llama, or with moe a small
-    Mixtral (4 experts, top-2) whose streams of 16 rows or more route in
-    128-row blocks."""
+    Mixtral (4 experts, top-2) whose streams all route in 128-row blocks
+    (the broadcast stream, at its steps' 2-64 rows: llama.moe_stream)."""
     from qserve_tpu_torch.config import QuantSpec
     from qserve_tpu_torch.models import llama
 
     geo = dict(REFERENCE_GEO)
     if moe:
-        geo.update(num_experts=4, moe_top_k=2, moe_route_block=128, moe_route_min_tokens=16)
+        geo.update(num_experts=4, moe_top_k=2, moe_route_block=128)
     quant = QuantSpec.from_precision(precision, group_size, lm_head_bits=lm_head_bits)
     return llama.LlamaArgs(quant=quant, tp_size=tp_size, **geo)
 
@@ -1713,19 +1822,30 @@ ROUTER_ATOL = 5e-3
 def phase_reference(dev, precision="w4a8kv4", group_size=-1, lm_head_bits=16,
                     moe=False):
     """The small model (reference_args: hidden 256, intermediate 512,
-    2 layers; with moe a Mixtral of 4 experts, top-2, routed in 128-row
-    blocks from 16 rows up) on the card (kernels) and on the CPU (plain
-    versions), the same params and packed inputs: reference_steps'
-    packed prefill, four decode steps, a prefill, a chunk step over its
-    cached prefix and a mixed chunk+decode step, held by _hold_reference."""
+    2 layers; with moe a Mixtral of 4 experts, top-2, every stream routed in
+    128-row blocks) on the card (kernels) and on the CPU (plain versions),
+    the same params and packed inputs: reference_steps' packed prefill,
+    four decode steps, a prefill, a chunk step over its cached prefix and a
+    mixed chunk+decode step, held by _hold_reference. The Mixtral runs them
+    twice: as its streams' rows pick (all broadcast: no step has the rows
+    that make the sorted stream the shorter), then with every stream forced
+    onto the sorted layout (llama.moe_stream patched for the run)."""
     from qserve_tpu_torch.kernels import _build
+    from qserve_tpu_torch.models import llama
 
     args = reference_args(precision, group_size, lm_head_bits, moe)
-    before = dict(_build.LAUNCHES)
-    with MoERecorder(probs=moe) as rec:
-        steps = reference_steps(args, dev, rec)
-    ran = sorted(k for k, v in _build.LAUNCHES.items() if v > before.get(k, 0))
-    return _hold_reference(args, steps, ran)
+    real = llama.moe_stream
+    for force_sorted in (False, True) if moe else (False,):
+        if force_sorted:
+            llama.moe_stream = lambda T, k, n, b: (False, (-(-T * k // b) + n) * b)
+        try:
+            before = dict(_build.LAUNCHES)
+            with MoERecorder(probs=moe) as rec:
+                steps = reference_steps(args, dev, rec)
+            ran = sorted(k for k, v in _build.LAUNCHES.items() if v > before.get(k, 0))
+            _hold_reference(args, steps, ran)
+        finally:
+            llama.moe_stream = real
 
 
 def _hold_reference(args, steps, ran, rank=None):
@@ -1744,21 +1864,27 @@ def _hold_reference(args, steps, ran, rank=None):
     edge probabilities' movement, 1e-2. Padding rows are left out of the
     router check: their attention output differs by design (the kernels
     write 0, the plain versions an average of V) and nothing reads them.
+    Each MoE stream's layout is the one llama.moe_stream gives its rows.
     Returns the worst step's max |diff| / max |logit|."""
     import torch
+
+    from qserve_tpu_torch.models import llama
 
     q = args.quant
     moe = bool(args.num_experts)
     tag = (f"{'Mixtral ' if moe else ''}{q.precision} group {q.group_size} lm_head "
            f"W{q.lm_head_bits}" + (f" tp {args.tp_size} rank {rank}" if rank is not None else ""))
-    worst, flips, moved, routed = 0.0, [], [], set()
+    worst, flips, moved, layouts = 0.0, [], [], {}
     for s in steps:
         a, b = torch.as_tensor(s["cpu"]), torch.as_tensor(s["card"])
         assert a.shape == b.shape == (a.shape[0], args.vocab_size), (s["name"], b.shape)
         assert torch.isfinite(b).all()
         rel = (a - b).abs().max().item() / a.abs().max().item()
         if moe:
-            routed.update(r for r in s["rows"] if r >= args.moe_route_min_tokens)
+            for r in s["rows"]:
+                broadcast = llama.moe_stream(r, args.moe_top_k, args.num_experts,
+                                             args.moe_route_block)[0]
+                layouts.setdefault("broadcast" if broadcast else "sorted", set()).add(r)
             live = torch.from_numpy(np.asarray(s["live"], bool))
             k, step = args.moe_top_k, 0.0
             assert len(s["probs_follow"]) == len(s["probs_lead"]), "the two sides ran other MoE calls"
@@ -1778,10 +1904,11 @@ def _hold_reference(args, steps, ran, rank=None):
         f"chunk step and a mixed step, worst max|diff| / max|logit| = {worst:.3g}; "
         f"kernels: {ran}")
     if moe:
-        log(f"    routed streams of {sorted(routed)} rows; router probabilities differ "
+        log(f"    routed streams by layout (rows) {({k: sorted(v) for k, v in layouts.items()})}; "
+            f"router probabilities differ "
             f"by up to {max(moved):.3g} (by step {moved}); {len(flips)} live tokens took "
             f"the card's experts (CPU top-2 margins {flips}); all {len(moved)} steps held")
-        assert routed, "no step took the routed dispatch"
+        assert args.moe_route_min_tokens == 1 and layouts, "a step did not route"
         if q.act_bits == 8:
             want = {(4, -1): "w4a8_gemm_per_chn_routed", (8, -1): "w8a8_gemm_routed"}.get(
                 (q.weight_bits, q.group_size), "w4a8_gemm_per_group_routed")
@@ -2094,29 +2221,34 @@ def _path_mixed(engine, tag, vocab, seed, ran, idle, moe=None):
     return launches, summary
 
 
-def _check_moe_steps(tag, step_log, dense, routed, min_rows=1024, n_exp=8, graphs=True):
-    """A Mixtral step of min_rows or more runs the routed GEMMs (gate_up and
-    down, 2 a layer) and the dense kernel for qkv and o only; a shorter one
-    runs no routed GEMM and the dense kernel 2 + 2 * n_exp times a layer
-    (qkv, o, each expert's gate_up and down). With graphs (tp = 1), every
-    decode step and no other must have replayed its CUDA graph, whose
-    recorded launches are held to the same counts; without, none. Returns
-    [(kind, rows, ms)]."""
-    kinds = set()
+def _check_moe_steps(tag, step_log, dense, routed, n_exp=8, k=2, bblk=256, graphs=True):
+    """Every Mixtral step (NE n_exp, top-k, the engine's route block bblk)
+    runs the routed GEMMs (gate_up and down, 2 a layer) and the dense kernel
+    for qkv and o only (2 a layer): decode's short streams as the broadcast
+    stream, the long steps' as the sorted one (llama.moe_stream), and both
+    layouts must occur. With graphs (tp = 1), every decode step and no
+    other must have replayed its CUDA graph, whose recorded launches are
+    held to the same counts; without, none. Returns [(kind, rows, ms)]."""
+    from qserve_tpu_torch.models import llama
+
+    layouts = {}
     assert all(replayed == (graphs and kind == "decode") for kind, *_, replayed in step_log), \
         f"path {tag}: decode graphs replayed where they should not, or not where they should"
     for kind, rows, L, dt, delta, _ in step_log:
         got = (delta.get(dense, 0), delta.get(routed, 0))
-        want = (2 * L, 2 * L) if rows >= min_rows else ((2 + 2 * n_exp) * L, 0)
-        assert got == want, (f"path {tag}: a {kind} step of {rows} rows launched "
-                             f"{dense} {got[0]}, {routed} {got[1]} times; want {want}")
-        kinds.add((kind, rows >= min_rows))
+        assert got == (2 * L, 2 * L), (f"path {tag}: a {kind} step of {rows} rows launched "
+                                       f"{dense} {got[0]}, {routed} {got[1]} times; "
+                                       f"want {2 * L} each")
+        layout = "broadcast" if llama.moe_stream(rows, k, n_exp, bblk)[0] else "sorted"
+        layouts.setdefault(layout, []).append(kind)
     log(f"    MoE dispatch by step: " + ", ".join(
-        f"{kind} {rows} rows {'routed' if rows >= min_rows else 'masked'} {dt:.1f} ms"
+        f"{kind} {rows} rows "
+        f"{'broadcast' if llama.moe_stream(rows, k, n_exp, bblk)[0] else 'sorted'} {dt:.1f} ms"
         for kind, rows, _, dt, _, _ in step_log if kind != "decode")
-        + f"; {sum(k == 'decode' for k, *_ in step_log)} decode steps masked"
+        + f"; {sum(kd == 'decode' for kd, *_ in step_log)} decode steps broadcast"
         + (", each a replayed graph" if graphs else ""))
-    assert any(r for _, r in kinds) and any(not r for _, r in kinds), kinds
+    assert set(layouts) == {"broadcast", "sorted"}, layouts
+    assert "decode" not in layouts["sorted"], layouts
     return [(kind, rows, round(dt, 2)) for kind, rows, _, dt, _, _ in step_log]
 
 
@@ -2215,8 +2347,8 @@ def phase_engine(dev):
     _release()
 
     # Mixtral-8x7B: the MoE layers at three precisions, W8A8 last (~47 GB of
-    # weights); each path's routed GEMM launches on its steps of 1024 rows
-    # or more, the other precisions' GEMMs never
+    # weights); each path's routed GEMM launches on every step, the other
+    # precisions' GEMMs never
     for tag, precision, group_size, dense, routed in (
             ("g", "w4a8kv4", -1, "w4a8_gemm_per_chn", "w4a8_gemm_per_chn_routed"),
             ("h", "w4a8kv4", 128, "w4a8_gemm_per_group", "w4a8_gemm_per_group_routed"),
@@ -4085,9 +4217,9 @@ def phase_tp(dev, streams_a, logits_a, logits_f):
     device), each at full width with random_quantized_params_tp of path a's
     seed. l: Llama-3-8B W4A8KV4 per-channel, 32 layers, path a's 8 requests
     and then _tp_requests' traffic. m: Mixtral-8x7B W4A8KV4 per-channel cut
-    to 4 layers (the script's time limit), _tp_requests' traffic: steps of
-    1024 rows or more take the routed K2 at the local N = 14336 / K = 7168,
-    decode the masked loop. Every step's collectives are timed (the device
+    to 4 layers (the script's time limit), _tp_requests' traffic: every
+    step takes the routed K2 at the local N = 14336 / K = 7168, decode as
+    the broadcast stream. Every step's collectives are timed (the device
     synchronised around each). The ranks' streams must be equal, and each
     rank must have launched the path's kernels and no K8 or K9. Path l's
     prefill logits for path a's prompts must stay within TP_LOGIT_GAP of
@@ -4249,7 +4381,7 @@ def main() -> int:
     res = Results()
     kernel_phases = dict(
         elementwise=phase_elementwise, gemm=phase_gemm, gemm_routed=phase_gemm_routed,
-        gemm_split=phase_gemm_split,
+        gemm_split=phase_gemm_split, moe_broadcast=phase_moe_broadcast,
         flash=phase_flash,
         paged=phase_paged, kv_append=phase_kv_append, prefix=phase_prefix,
         sampler=phase_sampler)

@@ -96,12 +96,12 @@ def _flatten_params(params: llama.LlamaParams) -> Dict[str, torch.Tensor]:
 
 def _config_meta(args: llama.LlamaArgs) -> dict:
     """The JAX package's JSON: its LlamaArgs fields (scan_layers, tp_size
-    and tp_axis at their single-device values), the QuantSpec and the
-    layout marker."""
+    and tp_axis at their single-device values; not the run-time settings),
+    the QuantSpec and the layout marker."""
     if args.layer_attn:
         raise ValueError("the packed format holds one window and RoPE for every layer")
     meta = {f.name: getattr(args, f.name) for f in dataclasses.fields(args)
-            if f.name not in ("quant", "logit_dtype", "layer_attn")}
+            if f.name not in ("quant", "logit_dtype", "layer_attn") + llama.RUNTIME_FIELDS}
     meta.update(quant=dataclasses.asdict(args.quant), scan_layers=True,
                 tp_size=1, tp_axis="tp", pack_layout=PACK_LAYOUT_VERSION)
     return meta
@@ -185,11 +185,13 @@ def load_packed_checkpoint(path: str, args: llama.LlamaArgs,
 def load_packed_config(path: str) -> llama.LlamaArgs:
     """The port's LlamaArgs from a packed checkpoint's JSON (either
     package's); the JAX package's fields without meaning here (scan_layers,
-    tp_size, tp_axis, logit_dtype) and the layout marker are dropped."""
+    tp_size, tp_axis, logit_dtype), its run-time settings (the port takes
+    its own) and the layout marker are dropped."""
     with open(os.path.join(path, CONFIG_NAME)) as f:
         meta = json.load(f)
     quant = QuantSpec(**meta.pop("quant"))
-    for k in ("scan_layers", "tp_size", "tp_axis", "logit_dtype", "pack_layout"):
+    for k in ("scan_layers", "tp_size", "tp_axis", "logit_dtype", "pack_layout",
+              *llama.RUNTIME_FIELDS):
         meta.pop(k, None)
     if meta.get("num_experts", 0) > 0:
         raise ValueError(

@@ -86,10 +86,11 @@ def torch_dtype(dtype) -> torch.dtype:
 
 
 def _fields(obj, cls, **override) -> dict:
-    """obj's dataclass fields that cls has too, by name, with overrides."""
+    """obj's dataclass fields that cls has too, by name, with overrides;
+    the port's run-time settings (llama.RUNTIME_FIELDS) keep its defaults."""
     import dataclasses
 
-    names = {f.name for f in dataclasses.fields(cls)}
+    names = {f.name for f in dataclasses.fields(cls)} - set(llama.RUNTIME_FIELDS)
     out = {k: v for k, v in vars(obj).items() if k in names}
     out.update(override)
     return out

@@ -17,9 +17,9 @@ are built in models/mixtral.py).
     layer's residual add rides inside the next norm (`add_rmsnorm_quant`);
     W16A16 adds eagerly and runs plain norms and bf16 products;
   * an MoE layer (MoELayerParams) adds its attention output eagerly, routes
-    each token to its top-k experts and runs them either as a masked loop
-    over every expert (short streams: decode) or as grouped GEMMs over a
-    token stream sorted by expert (streams of moe_route_min_tokens or more);
+    each token to its top-k experts and runs them as grouped GEMMs over a
+    routed stream: every expert a block of all the step's tokens (short
+    streams: decode) or the chosen rows sorted by expert (long ones);
   * each layer attends over its own window (or all keys) and rotates q and k
     with its own RoPE (`LlamaArgs.attn_spec`): one spec for every layer of a
     Llama, Mistral or Mixtral, a window layer's and a full layer's YaRN for
@@ -37,9 +37,10 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from qserve_tpu_torch.config import QuantSpec
-from qserve_tpu_torch.kernels import attention, kv_cache as kvc, ops
+from qserve_tpu_torch.kernels import attention, gemm, kv_cache as kvc, ops
 from qserve_tpu_torch.layers import linear as lin
 from qserve_tpu_torch.layers import rope
 from qserve_tpu_torch.parallel import tp as tpmod
@@ -53,6 +54,12 @@ class AttnSpec(NamedTuple):
 
     window: Optional[int]
     rope: rope.RopeSpec
+
+
+# LlamaArgs fields that set how the port runs a model, not what the model
+# is: a model read from the JAX package's args or a packed checkpoint's JSON
+# takes the port's values, not the JAX package's (its masked loop up to 1024)
+RUNTIME_FIELDS = ("moe_route_min_tokens", "moe_route_block")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +82,9 @@ class LlamaArgs:
     num_experts: int = 0
     moe_top_k: int = 2
     # streams at least this long take the routed (grouped-GEMM) dispatch,
-    # whose work scales with top_k; shorter ones (decode) the masked loop
-    # over every expert, whose cost is the experts' weight bytes either way
-    moe_route_min_tokens: int = 1024
+    # shorter ones the masked loop over every expert (3 NE launches a layer
+    # against 3); 1 routes every stream, tests set more to compare the two
+    moe_route_min_tokens: int = 1
     # rows of one block of the routed stream (each block runs one expert)
     moe_route_block: int = 256
     # tensor parallelism: with tp_size > 1 this rank's weights hold 1/tp of
@@ -495,15 +502,16 @@ def _moe_mlp(
     gs: int,
 ) -> torch.Tensor:
     """Sparse-MoE MLP -> f32 [T, E]: softmax router, top-k with renormalized
-    weights, SwiGLU experts. Streams of moe_route_min_tokens or more take
-    the routed grouped GEMMs (_moe_routed_ffn); shorter ones run every
-    expert over every token in expert order, a zero routing weight masking
-    the tokens an expert does not serve (decode reads every expert's
-    weights either way).
+    weights, SwiGLU experts, as grouped GEMMs over a routed stream
+    (_moe_routed_ffn). A stream shorter than moe_route_min_tokens (none at
+    the default) runs every expert over every token in expert order
+    instead, a zero routing weight masking the tokens an expert does not
+    serve; the broadcast stream gives its output bit for bit (the sorted
+    one too at k = 2).
 
     Counts (utils/tracing.count) the live (token, expert) rows, T k, as
-    `moe_live_rows` and the rows the expert GEMMs compute, T NE masked or
-    the routed stream's P, as `moe_expert_rows`."""
+    `moe_live_rows`, and the rows the expert GEMMs compute for tokens as
+    `moe_expert_rows`: T NE masked or broadcast, the sorted stream's P."""
     T = x.shape[0]
     n_exp = args.num_experts
     router_logits = ops.matmul(x, router.to(torch.bfloat16), torch.float32)
@@ -537,6 +545,21 @@ def _moe_mlp(
     return acc
 
 
+def moe_stream(T: int, k: int, n_exp: int, bblk: int) -> Tuple[bool, int]:
+    """(broadcast, P): the routed stream that T tokens, each choosing k of
+    n_exp experts, take, and its rows. The broadcast stream gives every
+    expert one block of all T rows, padded to the routed GEMMs' row tile
+    g = min(bblk, 128): n_exp ceil(T / g) g rows, the masked loop's work.
+    The sorted stream (route_layout) holds the T k chosen rows by expert in
+    bblk-row blocks: (ceil(T k / bblk) + n_exp) bblk rows. Both are exact;
+    the broadcast one is taken wherever it has no more rows (short streams:
+    decode), so the choice reads shapes alone."""
+    g = min(bblk, gemm.TILE)
+    broadcast = n_exp * -(-T // g) * g
+    by_expert = (-(-T * k // bblk) + n_exp) * bblk
+    return (True, broadcast) if broadcast <= by_expert else (False, by_expert)
+
+
 def _moe_routed_ffn(
     gu_p: lin.LinearParams,
     down_p: lin.LinearParams,
@@ -547,47 +570,69 @@ def _moe_routed_ffn(
     int8_act: bool,
     gs: int,
 ) -> torch.Tensor:
-    """Routed (grouped-GEMM) expert dispatch -> f32 [T, E]. The T*k (token,
-    expert) rows sort by expert into a padded stream of P rows in which
-    every moe_route_block-row block belongs to one expert; the routed GEMMs
-    multiply each block by its expert's weights, so the work scales with k
-    rather than with the number of experts. Exact: nothing is dropped, pad
-    rows are zero and come out zero. Everything stays on the device; P is
-    the JAX package's static bound, so nothing reads the device."""
+    """Routed (grouped-GEMM) expert dispatch -> f32 [T, E]: one launch a
+    GEMM over a stream of P rows in which every block belongs to one expert
+    (`block_expert`), in the layout `moe_stream` picks:
+
+      * broadcast: block e holds all T rows (stream row e Tp + t), padded to
+        Tp; a token's k rows are added in ascending expert order, the masked
+        loop's, so the output is the masked loop's bit for bit;
+      * sorted (route_layout): the T k (token, expert) rows sorted by expert
+        and padded to whole moe_route_block-row blocks, so the work scales
+        with k rather than with the number of experts.
+
+    Exact: nothing is dropped, pad rows are zero and come out zero. Every
+    step stays on the device and P follows from the shapes, so nothing
+    reads the device (a decode CUDA graph holds the whole dispatch). Counts
+    `moe_expert_rows` (T NE broadcast, P sorted) and, for a broadcast
+    layer, `moe_broadcast_layers`."""
     T, E = x.shape
     dev = x.device
-    st, dest, rows, block_expert, P = route_layout(
-        topi, args.num_experts, args.moe_route_block
-    )
-    tracing.count("moe_expert_rows", P)
+    n_exp, kk = args.num_experts, topi.shape[1]
+    broadcast, P = moe_stream(T, kk, n_exp, args.moe_route_block)
+    if broadcast:
+        Tp = P // n_exp
+        topi, order = torch.sort(topi, dim=-1)  # each token's experts ascending
+        topv = topv.gather(-1, order)
+        rows = topi * Tp + torch.arange(T, device=dev)[:, None]
+        block_expert = torch.arange(n_exp, dtype=torch.int32, device=dev)
+
+        def stream(a: torch.Tensor) -> torch.Tensor:  # [T, C] -> [P, C]
+            a = a if Tp == T else F.pad(a, (0, 0, 0, Tp - T))
+            return a.expand(n_exp, Tp, a.shape[1]).reshape(P, a.shape[1])
+
+        tracing.count("moe_expert_rows", T * n_exp)
+        tracing.count("moe_broadcast_layers", 1)
+    else:
+        st, dest, rows, block_expert, _ = route_layout(topi, n_exp, args.moe_route_block)
+
+        def stream(a: torch.Tensor) -> torch.Tensor:  # [T, C] -> [P, C]
+            out = a.new_zeros((P, a.shape[1]))
+            out[dest] = a[st]
+            return out
+
+        tracing.count("moe_expert_rows", P)
 
     if int8_act:
-        # quantize the T rows once, scatter the int8 rows and scales into the
-        # stream (pad rows: q = 0, scale 0, sum 0 -> an exact 0 output)
+        # quantize the T rows once, lay the int8 rows, scales and sums out
+        # as the stream (pad rows: q = 0, scale 0, sum 0 -> an exact 0)
         q, qs, qsum = ops.quant_per_token(x, lin.needs_act_sum(gu_p))
-        qp = torch.zeros((P, E), dtype=torch.int8, device=dev)
-        qp[dest] = q[st]
-        qsp = torch.zeros((P, 1), dtype=torch.float32, device=dev)
-        qsp[dest] = qs[st]
-        qsump = None
-        if qsum is not None:
-            qsump = torch.zeros((P, 1), dtype=torch.float32, device=dev)
-            qsump[dest] = qsum[st]
-        gu = lin.apply_linear_routed(gu_p, lin.QuantAct(qp, qsp, qsump), block_expert, gs)
+        act = lin.QuantAct(stream(q), stream(qs), None if qsum is None else stream(qsum))
+        gu = lin.apply_linear_routed(gu_p, act, block_expert, gs)
         y8, ysc, ysum = ops.silu_mul_quant(gu, lin.needs_act_sum(down_p))
         d = lin.apply_linear_routed(down_p, lin.QuantAct(y8, ysc, ysum), block_expert, gs)
     else:
-        xp = torch.zeros((P, E), dtype=x.dtype, device=dev)
-        xp[dest] = x[st]
-        gu = lin.apply_linear_routed(gu_p, xp, block_expert, gs)
+        gu = lin.apply_linear_routed(gu_p, stream(x), block_expert, gs)
         d = lin.apply_linear_routed(down_p, ops.silu_mul(gu), block_expert, gs)
 
-    # combine: each token's k rows in j order, summed in f32 from 0. The
-    # JAX package scatter-adds them instead; for k = 2 both give a + b
-    # exactly, and a gather needs no atomics at any k.
+    # combine: each token's k rows in j order, summed in f32 from 0 (bf16
+    # rows promote to f32 exactly). The JAX package scatter-adds them
+    # instead; for k = 2 both give a + b exactly, and a gather needs no
+    # atomics at any k.
+    weighted = topv.t()[:, :, None] * d[rows.t()]  # f32 [k, T, E]: contiguous slices
     acc = torch.zeros((T, E), dtype=torch.float32, device=dev)
-    for j in range(rows.shape[1]):
-        acc = acc + topv[:, j : j + 1] * d[rows[:, j]].to(torch.float32)
+    for j in range(kk):
+        acc = acc + weighted[j]
     return acc
 
 

@@ -323,7 +323,7 @@ def test_capture_takes_its_launches_off_the_count_and_replays_add_them():
 
 def _card_model(moe: bool):
     geo = dict(CARD_GEO)
-    if moe:  # streams of 16 rows or more route (B = 128): both MoE forms
+    if moe:  # streams of 16 rows or more route (B = 128: broadcast), shorter ones loop
         geo.update(num_experts=4, moe_top_k=2, moe_route_block=128, moe_route_min_tokens=16)
     args = llama.LlamaArgs(quant=QuantSpec.from_precision("w4a8kv4"), **geo)
     make = mixtral.random_quantized_params if moe else llama.random_quantized_params

@@ -399,6 +399,36 @@ def test_model_directory_and_checkpoint_paths_dispatch_on_model_type(tmp_path):
         loader.load_model(str(tmp_path), W4A8KV4, device="cpu")
 
 
+def test_broadcast_layers_count_once_per_moe_layer():
+    """At the default dispatch every MoE layer of a decode step takes the
+    broadcast stream and counts it once in `moe_broadcast_layers`; its
+    `moe_expert_rows` stay T NE, the rows that hold a token (the masked
+    loop's count), and `moe_live_rows` T k. A 48-row prefill in 16-row
+    blocks takes the sorted stream instead: no broadcast layer, its P rows."""
+    _, args, params, _ = _model()
+    L, NE, k = args.num_layers, args.num_experts, args.moe_top_k
+    names = ("moe_broadcast_layers", "moe_expert_rows", "moe_live_rows")
+
+    def counted(fn):
+        before = tracing.totals()
+        fn()
+        after = tracing.totals()
+        return tuple(after.get(n, 0) - before.get(n, 0) for n in names)
+
+    cache = kvc.create_kv_cache(L, 12, args.num_kv_heads, PS, args.head_dim, 4, device="cpu")
+    prompt, _ = _prompts(0)
+    table = [0, 1, 2, 3]
+    assert counted(lambda: llama.prefill(params, cache, *_prompt_inputs(prompt, 0, 48, table),
+                                         args)) == (0, L * (6 + NE) * 16, L * 48 * k)
+    default = dataclasses.replace(args, moe_route_min_tokens=1, moe_route_block=256)
+    for B in (1, 3):  # one live row, then two padding rows beside it
+        tok = torch.tensor([5] + [0] * (B - 1), dtype=torch.int32)
+        bt = torch.tensor([table] * B, dtype=torch.int32)
+        ctx = torch.tensor([len(prompt) + 1] + [0] * (B - 1), dtype=torch.int32)
+        got = counted(lambda: llama.decode(params, cache, tok, bt, ctx, default))
+        assert got == (L, L * B * NE, L * B * k), (B, got)
+
+
 def test_window_layers_count_slots_below_the_window():
     """kv_slots_outside_window by hand: one running sequence of 69 tokens
     (5 pages of 16) under windows (16, 16, 16, None): (69 - 16) // 16 = 3

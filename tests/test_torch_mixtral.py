@@ -52,9 +52,10 @@ TINY = dict(
 )
 WIDE = dict(TINY, hidden_size=256, intermediate_size=512, head_dim=64)
 # Streams of 32 rows or more take the routed dispatch in 16-row blocks (the
-# JAX suite's blocks; on the card the kernels take multiples of 64): the
-# 32-token prefill and chunk and the 34-row mixed step route, decode runs
-# the masked loop.
+# JAX suite's blocks; on the card the kernels take multiples of 128): the
+# 32-token prefill and chunk take the broadcast stream (4 x 32 rows, no more
+# than the sorted stream's 128), the 34-row mixed step the sorted one (144
+# rows against 192); decode runs the masked loop.
 ROUTE = dict(moe_route_min_tokens=32, moe_route_block=16)
 PS = 16
 ATOL = 1e-2
@@ -202,20 +203,103 @@ def test_routed_dispatch_equals_masked_loop(name):
 
 
 def test_dispatch_by_stream_length(monkeypatch):
-    """The routed dispatch serves streams of moe_route_min_tokens or more
-    (prefill), the masked loop shorter ones (decode)."""
+    """Every stream of moe_route_min_tokens rows or more takes the routed
+    dispatch (every stream at the default, 1), a shorter one the masked
+    loop; the routed stream is the broadcast one where it has no more rows
+    than the sorted one: the 32-token prefill's (128 rows against 128) and
+    decode's (3 rows: 64 against 80), not a 34-row step's (192 against 144)
+    or an 80-row one's (320 against 224)."""
     _, _, targs, tparams, _ = moe_pair("w4a8kv4", **ROUTE)
     calls = []
     real = tllama._moe_routed_ffn
-    monkeypatch.setattr(tllama, "_moe_routed_ffn",
-                        lambda *a, **kw: calls.append(a[2].shape[0]) or real(*a, **kw))
+
+    def spy(*a, **kw):
+        T, k = a[4].shape  # topi
+        calls.append((T, tllama.moe_stream(T, k, targs.num_experts, targs.moe_route_block)[0]))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tllama, "_moe_routed_ffn", spy)
     tkv = tkvc.create_kv_cache(2, 8, 2, PS, 16, 4, device="cpu")
     inputs, tables, lens = _prefill_inputs()
     tllama.prefill(tparams, tkv, *map(torch.from_numpy, inputs), targs)
-    assert calls == [32, 32]  # both layers, T = 32
+    assert calls == [(32, True)] * 2  # both layers, T = 32, broadcast
     tok, bt, ctx = _decode_inputs(tables, lens, 0, np.array([5, 6]))
     tllama.decode(tparams, tkv, *map(torch.from_numpy, (tok, bt, ctx)), targs)
-    assert calls == [32, 32]
+    assert calls == [(32, True)] * 2  # 3 rows < 32: the masked loop
+    default = dataclasses.replace(targs, moe_route_min_tokens=1)
+    tllama.decode(tparams, tkv, *map(torch.from_numpy, (tok, bt, ctx)), default)
+    assert calls == [(32, True)] * 2 + [(3, True)] * 2
+    layers = tparams.layers
+    for T in (34, 80):
+        x = torch.randn(T, targs.hidden_size, generator=torch.Generator().manual_seed(T))
+        tllama._moe_mlp(layers.router[0], layers.gate_up.layer(0), layers.down.layer(0),
+                        x.to(torch.bfloat16), targs, True, _gs(targs))
+    assert calls[-2:] == [(34, False), (80, False)]
+
+
+# the MoE geometries of the broadcast stream's tests: Mixtral's top-2 of 8
+# at the JAX suite's tiny widths with 4 experts, and Mellum's top-8 of 64
+BROADCAST_GEO = {
+    "top2of4": TINY,
+    "top8of64": dict(TINY, intermediate_size=32, num_experts=64, moe_top_k=8),
+}
+BROADCAST_FLAVORS = [("w4a8kv4", -1), ("w4a8kv4", 32), ("w8a8kv8", -1), ("w16a16kv8", -1)]
+_broadcast_models = {}
+
+
+def _broadcast_model(geo, precision, group_size):
+    key = (geo, precision, group_size)
+    if key not in _broadcast_models:
+        args = tllama.LlamaArgs(quant=QuantSpec.from_precision(precision, group_size),
+                                **dict(BROADCAST_GEO[geo], num_layers=1))
+        _broadcast_models[key] = (args, tmixtral.random_quantized_params(0, args, device="cpu"))
+    return _broadcast_models[key]
+
+
+@pytest.mark.parametrize("T", [1, 2, 16, 32, 128])
+@pytest.mark.parametrize("precision,group_size", BROADCAST_FLAVORS)
+@pytest.mark.parametrize("geo", sorted(BROADCAST_GEO))
+def test_broadcast_stream_equals_masked_loop(geo, precision, group_size, T):
+    """The broadcast stream (every expert a 128-row block of all T tokens,
+    the cells' route block) gives the masked loop's output bit for bit, at
+    top-2 and top-8: each (token, expert) row sees the same integer sums
+    and the same epilogue, and each token's k weighted rows are added from
+    0 in ascending expert order, as the loop adds them."""
+    args, params = _broadcast_model(geo, precision, group_size)
+    assert tllama.moe_stream(T, args.moe_top_k, args.num_experts, args.moe_route_block)[0]
+    x = torch.randn(T, args.hidden_size, generator=torch.Generator().manual_seed(T))
+    x = tops.rmsnorm(x.to(torch.bfloat16), params.layers.post_ln[0], args.rms_eps)
+    layers = params.layers
+    out = {}
+    for mode, min_tokens in (("masked", 10**9), ("broadcast", 1)):
+        out[mode] = tllama._moe_mlp(
+            layers.router[0], layers.gate_up.layer(0), layers.down.layer(0), x,
+            dataclasses.replace(args, moe_route_min_tokens=min_tokens),
+            args.quant.act_bits == 8, _gs(args))
+    assert out["masked"].abs().max() > 0
+    assert torch.equal(out["masked"], out["broadcast"])
+
+
+@pytest.mark.parametrize("T,k,n_exp,bblk,want", [
+    (128, 2, 8, 256, (True, 1024)),  # Mixtral's decode (sorted: 2304 rows)
+    (16, 2, 8, 256, (True, 1024)),  # Mixtral's doc decode (sorted: 2304)
+    (32, 8, 64, 256, (True, 8192)),  # Mellum's decode (sorted: 16640)
+    (2048, 2, 8, 256, (False, 6144)),  # Mixtral's 2048-token steps (broadcast: 16384)
+    (2079, 8, 64, 256, (False, 33024)),  # Mellum's mixed steps (broadcast: 139264)
+    (80, 2, 4, 16, (False, 224)),  # the tests' 16-row blocks (broadcast: 320)
+], ids=["mixtral-decode", "mixtral-doc-decode", "mellum-decode", "mixtral-2048",
+        "mellum-mixed", "tiny-80"])
+def test_stream_layout_rule(T, k, n_exp, bblk, want):
+    """moe_stream takes the broadcast stream where its n_exp ceil(T / g) g
+    rows (g = min(bblk, 128)) are no more than the sorted stream's, and the
+    sorted stream's rows are route_layout's P."""
+    assert tllama.moe_stream(T, k, n_exp, bblk) == want
+    g = min(bblk, 128)
+    topi = torch.stack([torch.randperm(n_exp, generator=torch.Generator().manual_seed(t))[:k]
+                        for t in range(T)])
+    P = tllama.route_layout(topi, n_exp, bblk)[-1]
+    assert P == (-(-T * k // bblk) + n_exp) * bblk
+    assert want[0] == (n_exp * -(-T // g) * g <= P)
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +501,7 @@ def test_engine_args_serve_mixtral(precision, group_size):
     args, layers = runner.model_args, runner.params.layers
     assert isinstance(layers, tllama.MoELayerParams)
     assert (args.num_experts, args.moe_top_k, args.rope_theta, args.rms_eps) == (4, 2, 1e6, 1e-5)
-    assert (args.moe_route_min_tokens, args.moe_route_block) == (1024, 256)
+    assert (args.moe_route_min_tokens, args.moe_route_block) == (1, 256)
     assert layers.gate_up[0].shape[:2] == (TINY["num_layers"], 4)
     outs, kinds = _run(engine, [[1, 2, 3], list(range(1, 51))], SamplingParams,
                        first_alone=True)

@@ -111,8 +111,9 @@ def test_a_decode_step_nests_its_phases_under_the_profiler():
 
 
 def test_moe_counts_once_per_layer_under_the_forward():
-    """An eager MoE step's forward holds one `moe_live_rows` and one
-    `moe_expert_rows` sample a layer, and no span of its own."""
+    """An eager MoE step's forward holds one `moe_live_rows`, one
+    `moe_expert_rows` and, as every stream here takes the broadcast stream,
+    one `moe_broadcast_layers` sample a layer, and no span of its own."""
     eng = _engine(moe=True)
     _add(eng, (12, 20))
     _profiled(eng)
@@ -123,14 +124,16 @@ def test_moe_counts_once_per_layer_under_the_forward():
         assert _children(spans, fwd) == []
         inside = [s.name for s in samples
                   if s.step == fwd.step and fwd.start_ns <= s.t_ns <= fwd.end_ns]
-        assert inside == ["moe_live_rows", "moe_expert_rows"] * DENSE["num_layers"]
+        assert inside == (["moe_live_rows", "moe_expert_rows", "moe_broadcast_layers"]
+                          * DENSE["num_layers"])
 
 
 def test_moe_masked_dispatch_and_counter_samples_under_the_profiler():
     """Each MoE layer counts its live rows, T k, and the rows its experts
-    computed: T NE, the masked loop's, as every stream here is under 1024
-    rows; the samples sit inside their step's forward and the totals grow
-    by as much."""
+    computed for tokens: T NE, the masked loop's count, which the broadcast
+    stream every stream here takes keeps (one `moe_broadcast_layers` a
+    layer); the samples sit inside their step's forward and the totals
+    grow by as much."""
     eng = _engine(moe=True)
     before = tracing.totals()
     _add(eng, (12, 20))
@@ -140,7 +143,8 @@ def test_moe_masked_dispatch_and_counter_samples_under_the_profiler():
     fwd = {s.step: s for s in spans if s.name == "runner.forward"}
     live = [s for s in samples if s.name == "moe_live_rows"]
     rows = [s for s in samples if s.name == "moe_expert_rows"]
-    assert len(live) == len(rows) == len(fwd) * DENSE["num_layers"]
+    broadcast = [s for s in samples if s.name == "moe_broadcast_layers"]
+    assert len(live) == len(rows) == len(broadcast) == len(fwd) * DENSE["num_layers"]
     for a, b in zip(live, rows):
         T = a.value // 2  # top-2
         assert a.step == b.step and b.value == T * 4  # T NE of 4 experts: masked
